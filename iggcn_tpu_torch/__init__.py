@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of `iggcn_tpu`, for NVIDIA Hopper (H100).
+
+The subpackage layout mirrors `iggcn_tpu/` module for module, so each
+port module's counterpart is found under the same name there. The port
+imports torch and numpy only: nothing of JAX and nothing of `iggcn_tpu`.
+
+Importing the package pins fp32 matmul numerics (TF32 off) once, in
+`utils.platform`.
+"""
+from iggcn_tpu_torch.utils import platform  # noqa: F401  (pins TF32 off)
+
+__version__ = "0.1.0"
