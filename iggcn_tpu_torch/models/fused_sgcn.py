@@ -143,7 +143,7 @@ class FusedSGCN(nn.Module):
             x_used, adj_used, snps_used = x, adj, snps
 
         # ---- imaging GCN stack with jumping-knowledge concat -------------
-        prop = gcn_propagation_matrix(adj_used).contiguous()
+        prop = gcn_propagation_matrix(adj_used)   # the kernel reads its layout
         n_layers = cfg.num_layers
         batch_x = fused_gcn_stack(
             prop, x_used.contiguous(),

@@ -21,9 +21,9 @@ def gcn_propagation_matrix(adj: torch.Tensor, *, add_self_loops: bool = True,
     Args:
       adj: (..., N, N) dense weighted adjacency, adj[r, c] = weight of r->c.
     Returns:
-      (..., N, N) propagation matrix. It may be a transposed (not
-      contiguous) layout: a caller that needs row-major memory, such as the
-      GCN-stack kernel, calls `.contiguous()` on it.
+      (..., N, N) propagation matrix, transposed in memory (strides
+      (N*N, 1, N) for a contiguous `adj`): each of P's columns is a
+      contiguous run. The GCN-stack kernel reads this layout as it is.
     """
     n = adj.shape[-1]
     fill = 2.0 if improved else 1.0

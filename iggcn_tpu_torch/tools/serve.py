@@ -151,6 +151,11 @@ def build_http_server(model: FusedSGCN, *, host: str = "127.0.0.1",
     still overlap request I/O. Every request pads to the fixed serving
     batch, and a warm-up forward runs (and builds the kernel) before the
     socket binds.
+
+    `/stats` counts a request before its reply is written, so a client
+    that has read a reply finds it counted; a request's latency therefore
+    runs from the start of its handling until its reply body is ready and
+    leaves out the write to the socket.
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -226,8 +231,8 @@ def build_http_server(model: FusedSGCN, *, host: str = "127.0.0.1",
                 self._reply_json(404, {"error": f"no route {self.path}"})
 
         def _fail(self, t0, code, msg):
-            self._reply_json(code, {"error": msg})
             _record(False, 0, time.monotonic() - t0)
+            self._reply_json(code, {"error": msg})
 
         def do_POST(self):
             if self.path != "/predict":
@@ -257,8 +262,9 @@ def build_http_server(model: FusedSGCN, *, host: str = "127.0.0.1",
                 return self._fail(t0, 500, f"inference failed: {e}")
             buf = io.BytesIO()
             np.savez(buf, **out)
-            self._reply(200, buf.getvalue(), "application/octet-stream")
+            body = buf.getvalue()
             _record(True, int(args[-1].shape[0]), time.monotonic() - t0)
+            self._reply(200, body, "application/octet-stream")
 
     return ThreadingHTTPServer((host, port), Handler)
 

@@ -3,13 +3,15 @@
 Each `csrc/*.cu` source is compiled by `nvcc` on its own into a shared
 library with a plain C interface, which the kernel's wrapper loads with
 `ctypes`. Libraries land in `iggcn_tpu_torch/_build/` (git-ignored), named
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. `build_all` starts one `nvcc` per source, all at
+by a hash of the source, every header under `csrc/` (`*.cuh`) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. `build_all` starts one `nvcc` per source, all at
 once, and waits for them together.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -43,28 +45,34 @@ def find_nvcc() -> str:
                        "to build the port's kernels")
 
 
-def _target(source: str) -> Tuple[str, str]:
+def _target(source: str, flags: Sequence[str]) -> Tuple[str, str]:
     src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(flags).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0" + fh.read())
     stem = os.path.splitext(source)[0]
     return src, os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
 
 
-def build_all(sources: Sequence[str]) -> Dict[str, str]:
+def build_all(sources: Sequence[str],
+              extra_flags: Sequence[str] = ()) -> Dict[str, str]:
     """Compile every source in `sources` (names under `csrc/`) that has no
     up-to-date library yet, one `nvcc` process each, all started together.
-    Returns {source: library path}; raises with nvcc's output on failure."""
+    `extra_flags` go to nvcc after `NVCC_FLAGS` (e.g. a -D for a
+    diagnostic build; it gets a library of its own). Returns {source:
+    library path}; raises with nvcc's output on failure."""
+    flags = (*NVCC_FLAGS, *extra_flags)
     paths, procs = {}, {}
     os.makedirs(BUILD_DIR, exist_ok=True)
     for source in sources:
-        src, out = _target(source)
+        src, out = _target(source, flags)
         paths[source] = out
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         procs[source] = (tmp, out, subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            [find_nvcc(), *flags, "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for source, (tmp, out, proc) in procs.items():

@@ -140,13 +140,15 @@ def test_config_fields_and_defaults_match_jax():
 def test_imaging_stack_always_goes_through_fused_gcn_stack(batch, monkeypatch,
                                                            use_pallas_gcn):
     """The stack runs through `fused_gcn_stack` whatever `use_pallas_gcn`
-    says: the device, not the flag, picks the kernel."""
+    says: the device, not the flag, picks the kernel. P reaches it in the
+    transposed layout `gcn_propagation_matrix` returns, with no copy."""
     import iggcn_tpu_torch.models.fused_sgcn as fused_module
+    from iggcn_tpu_torch.ops.gcn_stack import _prop_transposed
 
     calls = []
     real = fused_module.fused_gcn_stack
     monkeypatch.setattr(fused_module, "fused_gcn_stack",
-                        lambda *a: calls.append(a[0].is_contiguous()) or real(*a))
+                        lambda *a: calls.append(_prop_transposed(a[0])) or real(*a))
     model = FusedSGCN(ModelConfig(**SMALL, use_pallas_gcn=use_pallas_gcn),
                       synthetic_topology(np.random.default_rng(0))).eval()
     with torch.inference_mode():
