@@ -2,7 +2,8 @@
 
 The subpackage layout mirrors `iggcn_tpu/` module for module, so each
 port module's counterpart is found under the same name there. The port
-imports torch and numpy only: nothing of JAX and nothing of `iggcn_tpu`.
+imports torch and numpy (and scipy for the heat-kernel diffusion only):
+nothing of JAX, nothing of `iggcn_tpu`, no scikit-learn.
 
 Importing the package pins fp32 matmul numerics (TF32 off) once, in
 `utils.platform`.

@@ -1,4 +1,4 @@
-"""Flagship fused imaging x genetics model, eval mode (port of
+"""Flagship fused imaging x genetics model (port of
 `iggcn_tpu/models/fused_sgcn.py`).
 
 SGCN brain-GCN stack with jumping-knowledge concat + GO encoder/decoder +
@@ -8,8 +8,9 @@ hand-written CUDA kernel on a CUDA device, its plain version on the CPU.
 
 Parameter names and layouts follow the flax module, so
 `tools/convert.py` maps a JAX variable tree onto this module leaf by leaf.
-The train-mode forward (dropout, batch statistics) comes with the
-training slice; this module serves.
+Train mode (`.train()`) drops out at the JAX package's sites, from the
+generator the caller passes, and normalises the GO branch's batch norms
+over the batch's real rows (`sample_weight`).
 """
 from __future__ import annotations
 
@@ -21,9 +22,9 @@ from torch import nn
 from iggcn_tpu_torch.config import ModelConfig
 from iggcn_tpu_torch.data.go_graph import GoTopology
 from iggcn_tpu_torch.models.go_network import GeneOntologyNetwork
-from iggcn_tpu_torch.models.nn_compat import (TorchLinear, kaiming_uniform_a5,
-                                              pyg_glorot, torch_linear_init,
-                                              uniform)
+from iggcn_tpu_torch.models.nn_compat import (TorchLinear, dropout,
+                                              kaiming_uniform_a5, pyg_glorot,
+                                              torch_linear_init, uniform)
 from iggcn_tpu_torch.ops.attention import MHAParams, multihead_cross_attention
 from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
 from iggcn_tpu_torch.ops.gcn_stack import fused_gcn_stack
@@ -45,7 +46,7 @@ def _pool3(t: torch.Tensor) -> torch.Tensor:
 
 
 class FusedSGCN(nn.Module):
-    """SGCN_GCN_IMGSNP-parity fused model (eval mode)."""
+    """SGCN_GCN_IMGSNP-parity fused model."""
 
     def __init__(self, cfg: ModelConfig, topo: GoTopology, *,
                  generator: torch.Generator | None = None,
@@ -76,7 +77,8 @@ class FusedSGCN(nn.Module):
         self.go_network = GeneOntologyNetwork(
             topo, in_f_dim=cfg.go_in_f_dim, n_l=cfg.go_n_l, f_dim=cfg.go_f_dim,
             l_dim=cfg.l_dim, dim_snps_atten=e,
-            attention_impl=cfg.go_attention_impl, generator=g, device=dev)
+            attention_impl=cfg.go_attention_impl, dropout_gcn=cfg.dropout_go,
+            dropout_readout=cfg.dropout_readout, generator=g, device=dev)
 
         if cfg.is_cross_atten:
             # torch MultiheadAttention xavier-inits in_proj only; out_proj
@@ -115,8 +117,10 @@ class FusedSGCN(nn.Module):
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor, snps: torch.Tensor,
                 *, is_explain: bool = False,
-                raw_x: torch.Tensor | None = None) -> FusedOutputs:
-        """Eval forward of one dense batch.
+                raw_x: torch.Tensor | None = None,
+                sample_weight: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> FusedOutputs:
+        """Forward of one dense batch; train mode follows `self.training`.
 
         Args:
           x: (B, N, D) ROI features.
@@ -125,12 +129,12 @@ class FusedSGCN(nn.Module):
           is_explain: apply the learned importance masks first.
           raw_x: unmasked ROI features for the prob4regr regression input;
             defaults to `x`.
+          sample_weight: (B,) 0/1 padding mask for the batch statistics
+            (train mode).
+          generator: dropout stream on the inputs' device (train mode).
         """
-        if self.training:
-            raise NotImplementedError(
-                "the train-mode forward (dropout, batch statistics) comes with "
-                "the port's training slice; call .eval() to serve")
         cfg = self.cfg
+        train = self.training
         b = x.shape[0]
         if raw_x is None:
             raw_x = x
@@ -152,7 +156,8 @@ class FusedSGCN(nn.Module):
         img_out = _pool3(batch_x) if cfg.graph_pool else batch_x.reshape(b, -1)
 
         # ---- genetics branch -----------------------------------------------
-        latent, snps_hat, atten_out = self.go_network(snps_used)
+        latent, snps_hat, atten_out = self.go_network(
+            snps_used, sample_weight=sample_weight, generator=generator)
 
         # ---- fusion ----------------------------------------------------------
         out_cross = None
@@ -181,20 +186,27 @@ class FusedSGCN(nn.Module):
             out_lin = torch.cat([out_z, latent], dim=-1)
 
         linear_outf = torch.relu(self.lin1(out_lin))
-        logits = self.lin2(linear_outf)
+        hcls = (dropout(linear_outf, cfg.dropout_lin, generator) if train
+                else linear_outf)
+        logits = self.lin2(hcls)
 
         if cfg.is_use_prob4regr and not cfg.is_snps_only:
             img_feat = (raw_x * self.prob).reshape(b, -1)   # raw feats * prob
             feat4regr = torch.cat([out_lin, img_feat], dim=-1)
         else:
             feat4regr = out_lin
+
+        def regr_head(lin1, lin2):
+            r = torch.relu(lin1(feat4regr))
+            return lin2(dropout(r, cfg.dropout_regr, generator) if train
+                        else r)
+
         if cfg.model4eachregr:
-            reg = torch.cat([
-                getattr(self, f"lin2_regr_{i}")(torch.relu(
-                    getattr(self, f"lin1_regr_{i}")(feat4regr)))
-                for i in range(cfg.num_regr)], dim=-1)
+            reg = torch.cat([regr_head(getattr(self, f"lin1_regr_{i}"),
+                                       getattr(self, f"lin2_regr_{i}"))
+                             for i in range(cfg.num_regr)], dim=-1)
         else:
-            reg = self.lin2_regr(torch.relu(self.lin1_regr(feat4regr)))
+            reg = regr_head(self.lin1_regr, self.lin2_regr)
 
         return FusedOutputs(torch.log_softmax(logits, dim=-1), snps_hat,
                             out_z, out_lin, linear_outf, reg)

@@ -1,5 +1,8 @@
-"""Hierarchical attention GCN encoder/decoder over the GO DAG, eval mode
-(port of `iggcn_tpu/models/go_network.py`, relu variant).
+"""Hierarchical attention GCN encoder/decoder over the GO DAG (port of
+`iggcn_tpu/models/go_network.py`, relu variant). In train mode it drops
+whole node rows after each encoder and decoder layer and entries of the
+readouts, at the JAX package's sites, and its batch norms take the padding
+weight of the batch.
 
 The GO topology is static, so its masks, edge lists and the decoder's
 uniform un-pooling matrices are built once at construction and held as
@@ -25,8 +28,8 @@ from torch import nn
 
 from iggcn_tpu_torch.data.go_graph import GoTopology
 from iggcn_tpu_torch.models.nn_compat import (BatchNorm1d, NodeLayerNorm,
-                                              TorchLinear, normal,
-                                              torch_linear_init)
+                                              TorchLinear, dropout, normal,
+                                              node_dropout, torch_linear_init)
 from iggcn_tpu_torch.ops.attention import masked_row_normalize
 
 ATTENTION_IMPLS = ("auto", "dense", "edge")
@@ -43,17 +46,22 @@ class GeneOntologyNetwork(nn.Module):
       l_dim: latent dim of the readout MLP.
       dim_snps_atten: width of the cross-attention token readout.
       attention_impl: 'auto' | 'dense' | 'edge'.
+      dropout_gcn: node-row dropout after each encoder/decoder layer.
+      dropout_readout: dropout after the readout batch norms.
     """
 
     def __init__(self, topo: GoTopology, *, in_f_dim: int = 2, n_l: int = 2,
                  f_dim: Sequence[int] = (5, 5), l_dim: int = 32,
                  dim_snps_atten: int = 5, attention_impl: str = "auto",
+                 dropout_gcn: float = 0.4, dropout_readout: float = 0.5,
                  generator=None, device=None):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}; "
                              f"got {attention_impl!r}")
         self.attention_impl = attention_impl
+        self.dropout_gcn = dropout_gcn
+        self.dropout_readout = dropout_readout
         self.n_l = n_l
         self.pool = list(topo.pool)
         n, s = topo.go_snps.shape
@@ -149,16 +157,30 @@ class GeneOntologyNetwork(nn.Module):
         msg = (scores_e / rowsum[:, rows])[..., None] * x_in[:, cols, :]
         return torch.zeros_like(x_in).index_add_(1, rows, msg)
 
-    def forward(self, snps: torch.Tensor
+    def forward(self, snps: torch.Tensor, *,
+                sample_weight: torch.Tensor | None = None,
+                generator: torch.Generator | None = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Eval forward.
+        """Forward; train mode follows `self.training`.
 
         Args:
           snps: (B, S) SNP features (possibly importance-masked).
+          sample_weight: (B,) 0/1 padding mask for the batch statistics.
+          generator: dropout stream (train mode).
         Returns:
           latent (B, l_dim), x_hat (B, S) reconstructed SNPs,
           atten_out (B, n_top, dim_snps_atten) cross-attention tokens.
         """
+        train = self.training
+        w = sample_weight if train else None
+
+        def drop(t):
+            return (dropout(t, self.dropout_readout, generator) if train
+                    else t)
+
+        def drop_nodes(t):
+            return node_dropout(t, self.dropout_gcn, generator) if train else t
+
         # gene encoding: (B, S) -> (B, n, C)
         x = torch.stack([snps @ (self.gene_mask * getattr(self, f"gene_enc_{c}")).T
                          for c in range(self.in_f_dim)], dim=2)
@@ -171,13 +193,14 @@ class GeneOntologyNetwork(nn.Module):
             incoming = self._attend(jj, x_in, use_edge)
             v_s = torch.sigmoid(getattr(self, f"w_att_s_{jj}")(x_s))
             out = torch.relu(getattr(self, f"g_b_{jj}")(incoming + x_s * v_s))
+            out = drop_nodes(out)
             x = out[:, self.pool[jj]:, :]
 
         # readouts
-        atten_out = torch.relu(self.bn_atten(self.conc_for_attention(x)))
-        inp = torch.relu(self.bn_b(self.conc(x)[..., 0]))
-        h = torch.relu(self.bn_latent1(self.latent1(inp)))
-        latent = torch.relu(self.bn_latent2(self.latent2(h)))
+        atten_out = torch.relu(self.bn_atten(self.conc_for_attention(x), w))
+        inp = drop(torch.relu(self.bn_b(self.conc(x)[..., 0], w)))
+        h = drop(torch.relu(self.bn_latent1(self.latent1(inp), w)))
+        latent = torch.relu(self.bn_latent2(self.latent2(h), w))
 
         # decoder: uniform un-pooling back to the full node set
         for jj in range(self.n_l):
@@ -186,9 +209,9 @@ class GeneOntologyNetwork(nn.Module):
             grow = self.pool[self.n_l - jj - 1]
             x_self = nn.functional.pad(x_s_out, (0, 0, grow, 0))
             out_dec = getattr(self, f"dec_attn_{jj}") @ x_out + x_self
-            x = torch.relu(getattr(self, f"g_b_d_{jj}")(out_dec))
+            x = drop_nodes(torch.relu(getattr(self, f"g_b_d_{jj}")(out_dec)))
 
-        out_d = torch.relu(self.bn_b_d(self.conc_d(x)[..., 0]))
+        out_d = drop(torch.relu(self.bn_b_d(self.conc_d(x)[..., 0], w)))
         # gene decoding: (B, n) -> (B, S)
         x_hat = out_d @ (self.gene_mask * self.gene_dec)
         return latent, x_hat, atten_out

@@ -161,7 +161,8 @@ def test_gat_and_train_mode_are_refused():
     topo = synthetic_topology(np.random.default_rng(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FusedSGCN(ModelConfig(use_gat=True), topo)
+    # train mode with dropout draws only from an explicit generator
     model = FusedSGCN(ModelConfig(**SMALL), topo)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros(1, 90, 3), torch.zeros(1, 90, 90),
-              torch.zeros(1, 54))
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
+        model(torch.zeros(2, 90, 3), torch.zeros(2, 90, 90),
+              torch.zeros(2, 54))

@@ -80,6 +80,7 @@ def test_auto_picks_edge_at_batch_64(setup, monkeypatch):
 
 
 def test_train_mode_is_refused(setup):
+    # train mode with dropout draws only from an explicit generator
     model = GeneOntologyNetwork(synthetic_topology(np.random.default_rng(5)))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
         model(torch.rand(2, 54))
