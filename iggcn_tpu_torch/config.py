@@ -8,7 +8,7 @@ command line means the same run in both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,15 +34,6 @@ class LossWeights:
     reco: float = 0.0000015
     simi: float = 0.1
     orth: float = 0.0
-
-    @classmethod
-    def from_list(cls, lambda_loss: Sequence[float]) -> "LossWeights":
-        d, r, p, rc, s, o = lambda_loss
-        return cls(disease=d, regr=r, prob=p, reco=rc, simi=s, orth=o)
-
-    def to_list(self) -> Tuple[float, ...]:
-        return (self.disease, self.regr, self.prob, self.reco, self.simi,
-                self.orth)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -45,9 +45,3 @@ def pad_to_batches(arrays: Dict[str, np.ndarray], batch_size: int,
                                np.zeros(total - s, np.float32)])
     return out
 
-
-def reshape_to_batches(arrays: Dict[str, np.ndarray], batch_size: int
-                       ) -> Dict[str, np.ndarray]:
-    """(S_total, ...) -> (num_batches, B, ...)."""
-    return {k: v.reshape((-1, batch_size) + v.shape[1:])
-            for k, v in arrays.items()}

@@ -39,15 +39,6 @@ def get_top_k_matrix(a: np.ndarray, k: int = 5) -> np.ndarray:
     return a / norm
 
 
-def get_clipped_matrix(a: np.ndarray, eps: float = 1e-4) -> np.ndarray:
-    """Zero the entries below eps, then normalise the columns."""
-    a = a.copy()
-    a[a < eps] = 0.0
-    norm = a.sum(axis=0)
-    norm[norm <= 0] = 1
-    return a / norm
-
-
 def preprocess_diffusion(adjs: np.ndarray, *, is_ppr: bool = True,
                          is_topk: bool = True, top_k: int = 3,
                          alpha: float = 0.05, heat_t: float = 5.0,
@@ -55,9 +46,9 @@ def preprocess_diffusion(adjs: np.ndarray, *, is_ppr: bool = True,
     """Diffuse and sparsify a stack of adjacencies (B, N, N), float64.
 
     With `is_topk=False` the heat kernel is applied to the already diffused
-    matrix, as the reference does (its eps-clip sparsifier,
-    `get_clipped_matrix`, is defined but never called there). Only the
-    NumPy backend exists in the port.
+    matrix, as the reference does (its eps-clip sparsifier is defined but never
+    called there, and the port has none). Only the NumPy backend exists in
+    the port.
     """
     if backend != "numpy":
         raise ValueError(f"the port's diffusion has the 'numpy' backend "

@@ -1,7 +1,7 @@
 """K-fold splits, bit-equal to the JAX package's (`iggcn_tpu/data/splits.py`).
 
-That module calls scikit-learn's `StratifiedKFold` / `KFold` with
-`shuffle=True, random_state=seed`; the port reproduces their draws from
+That module calls scikit-learn's `StratifiedKFold` with `shuffle=True,
+random_state=seed`; the port reproduces its draws from
 `np.random.RandomState(seed)` itself, so it needs no scikit-learn. The
 validation fold of fold i is the test fold of fold i-1; train is the rest.
 """
@@ -57,15 +57,3 @@ def k_fold(y: np.ndarray, folds: int, seed: int) -> List[Split]:
     return _with_val([np.flatnonzero(test_folds == i) for i in range(folds)],
                      len(test_folds))
 
-
-def k_fold_plain(n: int, folds: int, seed: int) -> List[Split]:
-    """Unstratified splits (`KFold`), same layout as `k_fold`."""
-    if not 2 <= folds <= n:
-        raise ValueError(f"need 2 <= folds <= n; got folds={folds}, n={n}")
-    indices = np.arange(n)
-    np.random.RandomState(seed).shuffle(indices)
-    sizes = np.full(folds, n // folds, dtype=int)
-    sizes[: n % folds] += 1
-    bounds = np.concatenate([[0], np.cumsum(sizes)])
-    return _with_val([np.sort(indices[bounds[i]:bounds[i + 1]])
-                      for i in range(folds)], n)

@@ -40,22 +40,6 @@ def output_importance(res_dir: str, result_file_name: str, fold: int,
                    is_permut_test=is_permut_test)
 
 
-def output_mask_importance(res_dir: str, result_file_name: str, fold: int,
-                           bias_n: np.ndarray, *,
-                           is_permut_test: bool = False) -> None:
-    """Per-fold interpretability export for the guide family. The
-    reference's version is commented-out DEAD CODE that would crash
-    (`train_eval_guide_img_snps.py:314` reads snps_prob/prob_bias tensors
-    GUIDE_IMGSNP does not have); rebuilt as intended with the family's own
-    tensor: the raw (d, 2) Gumbel-ST Bernoulli mask logits
-    (softmax[:, 1] = feature keep-probability, `models/guide.py:64-84`),
-    same naming scheme as the explain tool's checkpoint export."""
-    output_npy(
-        os.path.join(res_dir,
-                     f"mask_importance_{result_file_name}_fold_{fold}.npy"),
-        bias_n, is_permut_test=is_permut_test)
-
-
 def output_regression(res_dir: str, result_file_name: str,
                       score_names: Sequence[str],
                       true_scores: np.ndarray, true_labels: np.ndarray,

@@ -3,8 +3,8 @@
 
 Each epoch shuffles the padded train set with the fold's pre-drawn
 permutation, takes one step per batch, then evaluates the test set and,
-with a validation split, the val set. The best copy (strictly lower val
-loss sum, or test loss sum without val) is a deep copy of the state dict.
+with a validation split, the val set. The best epoch (strictly lower val
+loss sum, or test loss sum without val) keeps its test outputs.
 The JAX package runs the same loop as one `lax.scan` per fold; it seeds
 its best copy with an evaluation before the first epoch, which the first
 epoch's finite loss always replaces, so this loop skips that evaluation
@@ -13,7 +13,6 @@ path does the same).
 """
 from __future__ import annotations
 
-import copy
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -78,7 +77,7 @@ def run_fold(state: TrainState, train_data: Data, val_data: Optional[Data],
     `on_epoch(epoch, record)` sees each epoch's record as it ends.
     Returns (per_epoch, best, state): per_epoch stacks each epoch's
     train/val/test loss sums and test outputs over the epochs; best holds
-    the best epoch's `state_dict`, test outputs and `val_loss_sum`.
+    the best epoch's test outputs and `val_loss_sum`.
     """
     device = train_data["w"].device
     records: List[Dict] = []
@@ -97,8 +96,7 @@ def run_fold(state: TrainState, train_data: Data, val_data: Optional[Data],
         if on_epoch is not None:
             on_epoch(epoch, record)
         if best is None or val_sum < best["val_loss_sum"]:
-            best = {"state_dict": copy.deepcopy(state.model.state_dict()),
-                    "test": test_out, "val_loss_sum": val_sum}
+            best = {"test": test_out, "val_loss_sum": val_sum}
     per_epoch = {k: np.stack([np.asarray(r[k]) for r in records])
                  for k in records[0]}
     return per_epoch, best, state

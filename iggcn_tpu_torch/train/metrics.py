@@ -103,35 +103,3 @@ def classification_metrics(y_true: np.ndarray, y_pred: np.ndarray,
     else:
         sens, spec = 0.0, 0.0
     return {"acc": acc, "auc": auc, "f1": f1, "sen": sens, "spe": spec}
-
-
-def classify_report(y_true: np.ndarray, y_pred: np.ndarray):
-    """Weighted precision/recall/F1 + per-class rows.
-
-    Parity `kernel/train_eval_sgcn_clusterlabel.py:340-363`
-    (`get_classify_report`, which string-parses sklearn's
-    classification_report): returns (acc, weighted_precision,
-    weighted_recall, weighted_f1, per_class) where per_class is a list of
-    [precision, recall, f1, support] per label.
-    """
-    y_true = np.asarray(y_true).astype(int)
-    y_pred = np.asarray(y_pred).astype(int)
-    labels = np.unique(np.concatenate([y_true, y_pred]))
-    per_class = []
-    weights = []
-    for c in labels:
-        tp = np.sum((y_pred == c) & (y_true == c))
-        fp = np.sum((y_pred == c) & (y_true != c))
-        fn = np.sum((y_pred != c) & (y_true == c))
-        prec = tp / (tp + fp) if tp + fp else 0.0
-        rec = tp / (tp + fn) if tp + fn else 0.0
-        f1 = 2 * prec * rec / (prec + rec) if prec + rec else 0.0
-        support = int(np.sum(y_true == c))
-        per_class.append([float(prec), float(rec), float(f1), support])
-        weights.append(support)
-    w = np.asarray(weights, float)
-    w = w / max(w.sum(), 1.0)
-    pc = np.asarray(per_class)
-    acc = float(np.mean(y_true == y_pred)) if len(y_true) else 0.0
-    return (acc, float(np.sum(pc[:, 0] * w)), float(np.sum(pc[:, 1] * w)),
-            float(np.sum(pc[:, 2] * w)), per_class)

@@ -40,8 +40,6 @@ def _same_splits(a, b):
 def test_k_fold_is_bit_equal(n, classes, folds, seed):
     y = np.random.default_rng(seed).integers(0, classes, n)
     _same_splits(jax_splits.k_fold(y, folds, seed), splits.k_fold(y, folds, seed))
-    _same_splits(jax_splits.k_fold_plain(n, folds, seed),
-                 splits.k_fold_plain(n, folds, seed))
 
 
 def test_pad_to_batches_and_fold_perms_are_bit_equal(cohorts):
@@ -53,10 +51,6 @@ def test_pad_to_batches_and_fold_perms_are_bit_equal(cohorts):
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    for k in want:
-        np.testing.assert_array_equal(
-            batching.reshape_to_batches(got, 16)[k],
-            jax_batching.reshape_to_batches(want, 16)[k])
     np.testing.assert_array_equal(fold_perms(1000, 4, 2, 27, 32),
                                   _fold_perms(1000, 4, 2, 27, 32))
 
@@ -87,9 +81,6 @@ def test_numpy_diffusion_is_bit_equal(cohorts, is_ppr, is_topk):
         diffusion.preprocess_diffusion(raw, is_ppr=is_ppr, is_topk=is_topk),
         jax_diffusion.preprocess_diffusion(raw, is_ppr=is_ppr,
                                            is_topk=is_topk, backend="numpy"))
-    a = np.abs(np.random.default_rng(0).normal(size=(9, 9)))
-    np.testing.assert_array_equal(diffusion.get_clipped_matrix(a, 0.5),
-                                  jax_diffusion.get_clipped_matrix(a, 0.5))
     with pytest.raises(ValueError, match="numpy"):
         diffusion.preprocess_diffusion(raw, backend="device")
 
@@ -128,6 +119,3 @@ def test_training_configs_match(name):
     if name == "DataConfig":
         for d in range(4):
             assert port(disease_id=d).num_classes == ref(disease_id=d).num_classes
-    if name == "LossWeights":
-        vals = [0.5, 1.0, 0.2, 1e-6, 0.3, 0.1]
-        assert port.from_list(vals).to_list() == ref.from_list(vals).to_list()
