@@ -1,18 +1,20 @@
-"""Experiment CLI of the port: the default route of the JAX package's
-`main.py`, `--model SGCN_GCN_IMGSNP`, on the card.
+"""Experiment CLI of the port: the fused-family routes of the JAX
+package's `main.py` on the card.
 
     python -m iggcn_tpu_torch.main --synthetic --synthetic_subjects 874 \\
         --epochs 200 --lambda_disease 1.0 --no-search --layers 2 --hiddens 16
 
 builds the synthetic ADNI-shaped cohort, runs k-fold CV with a validation
 split over the (layers, hiddens, h) grid (`--search`, the default, is the
-reference's five configurations) and prints the per-epoch lines, a
-`[throughput]` line per configuration and the `Result - <mean> +/- <std>,
-with L layers and H hidden units and h = ...` line; the npy artifacts go
-to results/ADNI<save_appendix>/. It runs on the card and raises without
-one unless `--device cpu` is given. The flags mean what they mean in the
-JAX package; the real-data loaders, the other model families and the
-batch/permutation/resume routes are not ported yet.
+reference's five configurations; `--isMultiFusion` has its own) and prints
+the per-epoch lines, a `[throughput]` line per configuration and the
+`Result - <mean> +/- <std>, with L layers and H hidden units and h = ...`
+line; the npy artifacts go to results/ADNI<save_appendix>/. `--model`
+takes the seven fused families of `FUSION_MODELS`, with the JAX CLI's
+routing, and the flagship's variant flags. It runs on the card and raises
+without one unless `--device cpu` is given. The flags mean what they mean
+in the JAX package; the real-data loaders, the zoo and SNP-only families
+and the batch/permutation/resume routes are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,7 +30,22 @@ import numpy as np
 from iggcn_tpu_torch.config import (DataConfig, LossWeights, ModelConfig,
                                     TrainConfig)
 
-MODELS = ("SGCN_GCN_IMGSNP",)
+# --model -> model kind of train/cv.py:MODEL_FAMILIES (the JAX CLI's table)
+FUSION_MODELS = {
+    "SGCN_GCN_IMGSNP": "sgcn_imgsnp",
+    "GCN_IMGSNP": "gcn_imgsnp",
+    "GUIDE_IMGSNP": "guide_imgsnp",
+    "SGCN_GCN_CLUSTERLABEL": "clusterlabel",
+    "SGCN_GCN": "sgcn_image",
+    "SGCN_GAT": "sgcn_image",
+    "SGCN_Ori": "sgcn_ori",
+}
+# the JAX CLI's other names: routes of the port's later slices
+NOT_PORTED = ("GCN", "GAT", "GIN", "GIN0", "GraphSAGE", "GraphSAGEWithoutJK",
+              "TopK", "DiffPool", "SortPool", "Set2Set", "GlobalAttention",
+              "Graclus", "CNN_Model", "NestedGCN", "NestedGAT", "NestedGIN",
+              "NestedGIN0", "NestedGraphSAGE", "MLP_Model",
+              "Gene_ontology_network")
 # the GO DAG of the synthetic route: synthetic_topology's default levels,
 # as the JAX package's CLI draws it
 DEFAULT_GO_LEVELS = "24,16,10,6,1"
@@ -39,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="IG-GCN cross-validation on an NVIDIA GPU (PyTorch port)")
     p.add_argument("--model", type=str, default="SGCN_GCN_IMGSNP",
                    help="model family by reference name; the port has "
-                        + ", ".join(MODELS))
+                        + ", ".join(FUSION_MODELS))
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--synthetic", action="store_true", default=False,
@@ -58,6 +75,49 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_val", action="store_true", default=False,
                    help="train/test folds only; the test loss picks the "
                         "best epoch")
+    p.add_argument("--isMultiFusion", action="store_true", default=False,
+                   help="fuse all three imaging modalities as one 270-node "
+                        "graph (90 ROIs x {MRI, FDG-PET, AV45-PET})")
+    p.add_argument("--isImageOnly", action="store_true", default=False,
+                   help="ablation: drop the GO/SNP branch from the fused "
+                        "model (imaging features only)")
+    p.add_argument("--isSNPsOnly", action="store_true", default=False,
+                   help="ablation: drop the imaging branch from the fused "
+                        "model (GO/SNP features only)")
+    p.add_argument("--isCrossAtten", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="cross-modal multihead attention between the "
+                        "imaging and GO branches (--no-isCrossAtten: "
+                        "concat fusion)")
+    p.add_argument("--isSoftSimilarity", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="soft RBF subject-similarity consistency loss; "
+                        "--no-isSoftSimilarity uses hard per-cluster "
+                        "membership consistency")
+    p.add_argument("--rbf_gamma", type=float, default=0.01,
+                   help="RBF bandwidth of the subject-similarity weights")
+    p.add_argument("--clinical_score_index", type=int, default=-1,
+                   help="regress ONE clinical score by index (forces "
+                        "--num_regr 1); -1 regresses all three")
+    p.add_argument("--num_regr", type=int, default=None,
+                   help="number of clinical-score regression targets "
+                        "(default 3; must be 1 when --clinical_score_index "
+                        "selects a single score)")
+    p.add_argument("--model4eachregr", action="store_true", default=False,
+                   help="one regression head per clinical score instead of "
+                        "a shared multi-output head")
+    p.add_argument("--isuseProb4Regr", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="append the importance-weighted raw ROI features to "
+                        "the regression head input")
+    p.add_argument("--temperature", type=float, default=0.1,
+                   help="Gumbel/softmax temperature (GUIDE)")
+    p.add_argument("--go_attention_impl", type=str, default="auto",
+                   choices=("auto", "dense", "edge"),
+                   help="GO-branch edge-attention aggregation: 'dense', "
+                        "'edge', or 'auto' ('edge' at batch >= 64)")
+    p.add_argument("--top_k", type=int, default=3,
+                   help="k for the diffusion top-k sparsifier")
     p.add_argument("--lambda_disease", type=float, default=0.0,
                    help="weight of the diagnosis NLL loss term")
     p.add_argument("--lambda_regr", type=float, default=1.0,
@@ -104,23 +164,50 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def combos(args) -> List[tuple]:
-    """(layers, hiddens, h) triples: the reference's grid under --search."""
+    """(layers, hiddens, h) triples: under --search the reference's grid
+    (--isMultiFusion has its own), else the single configuration."""
     if args.search:
+        if args.isMultiFusion:
+            return list(zip([3, 2, 4, 2, 3], [2, 3, 3, 5, 10],
+                            [3, 2, 4, 2, 4]))
         return list(zip([2, 3, 2, 3, 4], [16, 16, 10, 10, 5],
                         [2, 3, 4, 4, 2]))
     return [(args.layers, args.hiddens, args.h)]
 
 
+def imaging_shape(args) -> tuple:
+    """(rois, feat_dim): 270 nodes of one channel with --isMultiFusion."""
+    return (270, 1) if args.isMultiFusion else (90, 3)
+
+
+def regression_targets(args) -> int:
+    """--num_regr with its default resolved: one target when
+    --clinical_score_index selects a score, else all three."""
+    if args.num_regr is not None:
+        return args.num_regr
+    return 1 if args.clinical_score_index != -1 else 3
+
+
 def fused_cfgs(args, dcfg: DataConfig, num_layers: int, hidden: int):
     """(ModelConfig, TrainConfig) of one configuration of the grid."""
-    mcfg = ModelConfig(num_layers=num_layers, hidden=hidden,
-                       num_classes=dcfg.num_classes, num_regr=3)
+    rois, feat_dim = imaging_shape(args)
+    mcfg = ModelConfig(
+        num_layers=num_layers, hidden=hidden, rois=rois, feat_dim=feat_dim,
+        num_classes=dcfg.num_classes, num_regr=regression_targets(args),
+        is_cross_atten=args.isCrossAtten,
+        is_soft_similarity=args.isSoftSimilarity, rbf_gamma=args.rbf_gamma,
+        is_use_prob4regr=args.isuseProb4Regr,
+        model4eachregr=args.model4eachregr, is_image_only=args.isImageOnly,
+        is_snps_only=args.isSNPsOnly, is_multi_fusion=args.isMultiFusion,
+        use_gat=args.model == "SGCN_GAT",
+        go_attention_impl=args.go_attention_impl)
     tcfg = TrainConfig(
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
         weight_decay=args.weight_decay,
         lr_decay_factor=args.lr_decay_factor,
         lr_decay_step_size=args.lr_decay_step_size, folds=args.fold,
-        seed=args.seed, no_val=args.no_val,
+        seed=args.seed, no_val=args.no_val, temperature=args.temperature,
+        clinical_score_index=args.clinical_score_index,
         loss=LossWeights(args.lambda_disease, args.lambda_regr,
                          args.lambda_prob, args.lambda_reco,
                          args.lambda_simi, args.lambda_orth))
@@ -138,8 +225,11 @@ def load_cohort(args, dcfg: DataConfig, rng: np.random.Generator):
     print("[data] using synthetic ADNI-shaped cohort")
     levels = [int(v) for v in args.synthetic_go_levels.split(",")]
     topo = go_graph.synthetic_topology(rng, level_sizes=levels)
+    rois, feat_dim = imaging_shape(args)
     cohort = adni.synthetic_cohort(rng, num_subjects=args.synthetic_subjects,
-                                   num_classes=dcfg.num_classes, num_regr=3,
+                                   rois=rois, feat_dim=feat_dim,
+                                   num_classes=dcfg.num_classes,
+                                   num_regr=regression_targets(args),
                                    top_k=dcfg.top_k)
     return cohort, topo
 
@@ -173,21 +263,36 @@ def main(argv: Optional[List[str]] = None):
     """Run the experiment; returns the CVResult of every configuration."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.model not in MODELS:
-        parser.error(f"unknown --model {args.model!r} for the port; choose "
-                     f"one of: {', '.join(MODELS)}")
+    if args.model not in FUSION_MODELS:
+        what = ("is not ported yet" if args.model in NOT_PORTED
+                else "is unknown")
+        parser.error(f"--model {args.model!r} {what}; the port has: "
+                     f"{', '.join(FUSION_MODELS)}")
+    if args.clinical_score_index != -1 and args.num_regr not in (None, 1):
+        # one selected score is one regression target: a 3-wide head
+        # against a (B, 1) target would broadcast in the MSE
+        parser.error("--clinical_score_index selects a single score; "
+                     "--num_regr must be 1 (or left unset)")
+    args.num_regr = regression_targets(args)
     from iggcn_tpu_torch.train.cv import cross_validation
     from iggcn_tpu_torch.utils.platform import resolve_device
     device = resolve_device(args.device)
     if args.save_appendix == "":
         args.save_appendix = "_" + time.strftime("%Y%m%d%H%M%S")
     res_dir, logger = setup_run_dir(args, argv)
-    dcfg = DataConfig(disease_id=args.disease_id)
+    dcfg = DataConfig(disease_id=args.disease_id,
+                      clinical_score_index=args.clinical_score_index,
+                      top_k=args.top_k, is_multi_fusion=args.isMultiFusion)
     cohort, topo = load_cohort(args, dcfg, np.random.default_rng(args.seed))
 
     results = []
     best = (float("inf"), 0.0, 0.0)
     grid = combos(args)
+    if args.search and FUSION_MODELS[args.model] == "sgcn_ori":
+        # a fixed architecture: the grid would train five identical models
+        print("[search] SGCN_Ori has a fixed architecture; running one "
+              "configuration instead of the grid")
+        grid = grid[:1]
     best_hyper = grid[0]
     for num_layers, hidden, h in grid:
         mcfg, tcfg = fused_cfgs(args, dcfg, num_layers, hidden)
@@ -198,7 +303,8 @@ def main(argv: Optional[List[str]] = None):
             cohort, topo, mcfg, tcfg, res_dir=res_dir,
             result_file_name=(f"result_sgcn_img_snp_layers{num_layers}"
                               f"_hidden{hidden}_h{h}"),
-            logger=logger, device=device)
+            clinical_score_index=args.clinical_score_index, logger=logger,
+            model_kind=FUSION_MODELS[args.model], device=device)
         results.append(res)
         print(f"[throughput] {res.throughput_graphs_per_sec:.1f} graphs/s")
         if improves(res.mean_test_loss, best[0]):

@@ -3,8 +3,10 @@
 
 SGCN brain-GCN stack with jumping-knowledge concat + GO encoder/decoder +
 2-head cross-attention fusion + classification and regression heads. The
-imaging stack always runs through `ops.gcn_stack.fused_gcn_stack`: the
+GCN imaging stack always runs through `ops.gcn_stack.fused_gcn_stack`: the
 hand-written CUDA kernel on a CUDA device, its plain version on the CPU.
+With `use_gat` the stack is the dense GAT of `ops/gat.py` in plain
+PyTorch instead, as it is plain JAX in the reference.
 
 Parameter names and layouts follow the flax module, so
 `tools/convert.py` maps a JAX variable tree onto this module leaf by leaf.
@@ -22,10 +24,12 @@ from torch import nn
 from iggcn_tpu_torch.config import ModelConfig
 from iggcn_tpu_torch.data.go_graph import GoTopology
 from iggcn_tpu_torch.models.go_network import GeneOntologyNetwork
-from iggcn_tpu_torch.models.nn_compat import (TorchLinear, dropout,
+from iggcn_tpu_torch.models.nn_compat import (TorchLinear, add_gat_params,
+                                              dropout, gat_layer,
                                               kaiming_uniform_a5, pyg_glorot,
                                               torch_linear_init, uniform)
 from iggcn_tpu_torch.ops.attention import MHAParams, multihead_cross_attention
+from iggcn_tpu_torch.ops.gat import gat_conv
 from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
 from iggcn_tpu_torch.ops.gcn_stack import fused_gcn_stack
 from iggcn_tpu_torch.ops.masking import importance_masks
@@ -52,21 +56,19 @@ class FusedSGCN(nn.Module):
                  generator: torch.Generator | None = None,
                  device: torch.device | str | None = None):
         super().__init__()
-        if cfg.use_gat:
-            raise NotImplementedError(
-                "use_gat=True needs the GAT imaging stack (ops/gat.py), which "
-                "the port adds with the other model families (ROADMAP Queue 1 "
-                "item 11)")
         self.cfg = cfg
         self.topo = topo
         g, dev = generator, device
         hidden = cfg.hidden
-        for i in range(cfg.num_layers):
-            fin = cfg.feat_dim if i == 0 else hidden
-            setattr(self, f"conv_w_{i}",
-                    nn.Parameter(pyg_glorot((fin, hidden), g, dev)))
-            setattr(self, f"conv_b_{i}",
-                    nn.Parameter(torch.zeros(hidden, device=dev)))
+        if cfg.use_gat:
+            add_gat_params(self, cfg.num_layers, cfg.feat_dim, hidden, g, dev)
+        else:
+            for i in range(cfg.num_layers):
+                fin = cfg.feat_dim if i == 0 else hidden
+                setattr(self, f"conv_w_{i}",
+                        nn.Parameter(pyg_glorot((fin, hidden), g, dev)))
+                setattr(self, f"conv_b_{i}",
+                        nn.Parameter(torch.zeros(hidden, device=dev)))
 
         # learned importance parameters
         self.prob = nn.Parameter(kaiming_uniform_a5((cfg.rois, cfg.feat_dim), g, dev))
@@ -147,12 +149,19 @@ class FusedSGCN(nn.Module):
             x_used, adj_used, snps_used = x, adj, snps
 
         # ---- imaging GCN stack with jumping-knowledge concat -------------
-        prop = gcn_propagation_matrix(adj_used)   # the kernel reads its layout
         n_layers = cfg.num_layers
-        batch_x = fused_gcn_stack(
-            prop, x_used.contiguous(),
-            [getattr(self, f"conv_w_{i}") for i in range(n_layers)],
-            [getattr(self, f"conv_b_{i}") for i in range(n_layers)])
+        if cfg.use_gat:
+            h, feats = x_used, []
+            for i in range(n_layers):
+                h = torch.relu(gat_conv(h, adj_used, gat_layer(self, i)))
+                feats.append(h)
+            batch_x = torch.cat(feats, dim=-1)
+        else:
+            prop = gcn_propagation_matrix(adj_used)  # the kernel reads its layout
+            batch_x = fused_gcn_stack(
+                prop, x_used.contiguous(),
+                [getattr(self, f"conv_w_{i}") for i in range(n_layers)],
+                [getattr(self, f"conv_b_{i}") for i in range(n_layers)])
         img_out = _pool3(batch_x) if cfg.graph_pool else batch_x.reshape(b, -1)
 
         # ---- genetics branch -----------------------------------------------

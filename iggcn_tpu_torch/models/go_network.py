@@ -1,8 +1,8 @@
 """Hierarchical attention GCN encoder/decoder over the GO DAG (port of
-`iggcn_tpu/models/go_network.py`, relu variant). In train mode it drops
-whole node rows after each encoder and decoder layer and entries of the
-readouts, at the JAX package's sites, and its batch norms take the padding
-weight of the batch.
+`iggcn_tpu/models/go_network.py`, relu and prelu variants). In train mode
+it drops whole node rows after each encoder and decoder layer and entries
+of the readouts, at the JAX package's sites, and its batch norms take the
+padding weight of the batch.
 
 The GO topology is static, so its masks, edge lists and the decoder's
 uniform un-pooling matrices are built once at construction and held as
@@ -14,9 +14,11 @@ identical math:
   * 'edge': (B, E) gathered scores, row sums and messages aggregated with
     `index_add_` over the static edge list; no (B, n, n) tensor exists.
 
-'auto' takes 'edge' at batch >= 64, as the JAX package does. The
-standalone `classify` head and the `prelu` variant (the Guide family)
-come with the slices that serve those families.
+'auto' takes 'edge' at batch >= 64, as the JAX package does.
+`activation='prelu'` is the GUIDE family's variant (`guide_go_model`): a
+learned PReLU in place of every relu, and a latent that ends at `latent2`
+with no batch norm. The standalone `classify` head comes with the SNP-only
+trainers.
 """
 from __future__ import annotations
 
@@ -33,6 +35,19 @@ from iggcn_tpu_torch.models.nn_compat import (BatchNorm1d, NodeLayerNorm,
 from iggcn_tpu_torch.ops.attention import masked_row_normalize
 
 ATTENTION_IMPLS = ("auto", "dense", "edge")
+ACTIVATIONS = ("relu", "prelu")
+
+
+class PReLU(nn.Module):
+    """PReLU with one learned slope (`alpha`, 0.25 at init) for every
+    entry, as torch's `nn.PReLU()` and the JAX package's `PReLU`."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((), 0.25, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha * x)
 
 
 class GeneOntologyNetwork(nn.Module):
@@ -48,17 +63,22 @@ class GeneOntologyNetwork(nn.Module):
       attention_impl: 'auto' | 'dense' | 'edge'.
       dropout_gcn: node-row dropout after each encoder/decoder layer.
       dropout_readout: dropout after the readout batch norms.
+      activation: 'relu' | 'prelu'.
     """
 
     def __init__(self, topo: GoTopology, *, in_f_dim: int = 2, n_l: int = 2,
                  f_dim: Sequence[int] = (5, 5), l_dim: int = 32,
                  dim_snps_atten: int = 5, attention_impl: str = "auto",
                  dropout_gcn: float = 0.4, dropout_readout: float = 0.5,
-                 generator=None, device=None):
+                 activation: str = "relu", generator=None, device=None):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}; "
                              f"got {attention_impl!r}")
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation must be one of {ACTIVATIONS}; got "
+                             f"{activation!r}")
+        self.activation = activation
         self.attention_impl = attention_impl
         self.dropout_gcn = dropout_gcn
         self.dropout_readout = dropout_readout
@@ -136,7 +156,20 @@ class GeneOntologyNetwork(nn.Module):
         self.bn_latent1 = BatchNorm1d(32, device=dev)
         self.latent2 = TorchLinear(32, l_dim, bias=False, generator=g,
                                    device=dev)
-        self.bn_latent2 = BatchNorm1d(l_dim, device=dev)
+        if activation == "relu":
+            self.bn_latent2 = BatchNorm1d(l_dim, device=dev)
+        else:
+            for i in range(n_l):
+                setattr(self, f"act_enc_{i}", PReLU(device=dev))
+                setattr(self, f"act_dec_{i}", PReLU(device=dev))
+            for name in ("atten", "b", "b_d", "latent1"):
+                setattr(self, f"act_{name}", PReLU(device=dev))
+
+    def _act(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """relu, or the PReLU `act_<name>` of the prelu variant."""
+        if self.activation == "relu":
+            return torch.relu(x)
+        return getattr(self, f"act_{name}")(x)
 
     def _attend(self, jj: int, x_in: torch.Tensor, use_edge: bool
                 ) -> torch.Tensor:
@@ -192,15 +225,19 @@ class GeneOntologyNetwork(nn.Module):
             x_s = getattr(self, f"w_s_loop_{jj}")(x)
             incoming = self._attend(jj, x_in, use_edge)
             v_s = torch.sigmoid(getattr(self, f"w_att_s_{jj}")(x_s))
-            out = torch.relu(getattr(self, f"g_b_{jj}")(incoming + x_s * v_s))
+            out = self._act(getattr(self, f"g_b_{jj}")(incoming + x_s * v_s),
+                            f"enc_{jj}")
             out = drop_nodes(out)
             x = out[:, self.pool[jj]:, :]
 
         # readouts
-        atten_out = torch.relu(self.bn_atten(self.conc_for_attention(x), w))
-        inp = drop(torch.relu(self.bn_b(self.conc(x)[..., 0], w)))
-        h = drop(torch.relu(self.bn_latent1(self.latent1(inp), w)))
-        latent = torch.relu(self.bn_latent2(self.latent2(h), w))
+        atten_out = self._act(self.bn_atten(self.conc_for_attention(x), w),
+                              "atten")
+        inp = drop(self._act(self.bn_b(self.conc(x)[..., 0], w), "b"))
+        h = drop(self._act(self.bn_latent1(self.latent1(inp), w), "latent1"))
+        latent = self.latent2(h)
+        if self.activation == "relu":
+            latent = torch.relu(self.bn_latent2(latent, w))
 
         # decoder: uniform un-pooling back to the full node set
         for jj in range(self.n_l):
@@ -209,9 +246,10 @@ class GeneOntologyNetwork(nn.Module):
             grow = self.pool[self.n_l - jj - 1]
             x_self = nn.functional.pad(x_s_out, (0, 0, grow, 0))
             out_dec = getattr(self, f"dec_attn_{jj}") @ x_out + x_self
-            x = drop_nodes(torch.relu(getattr(self, f"g_b_d_{jj}")(out_dec)))
+            x = drop_nodes(self._act(getattr(self, f"g_b_d_{jj}")(out_dec),
+                                     f"dec_{jj}"))
 
-        out_d = drop(torch.relu(self.bn_b_d(self.conc_d(x)[..., 0], w)))
+        out_d = drop(self._act(self.bn_b_d(self.conc_d(x)[..., 0], w), "b_d"))
         # gene decoding: (B, n) -> (B, S)
         x_hat = out_d @ (self.gene_mask * self.gene_dec)
         return latent, x_hat, atten_out

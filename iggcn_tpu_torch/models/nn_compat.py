@@ -16,6 +16,8 @@ to carry weights across in both directions:
     per-node affine.
   * `dropout` / `node_dropout`: elementwise and Dropout2d-style (whole node
     rows of a (B, N, F) tensor) dropout from an explicit generator.
+  * `add_gat_params` / `gat_layer`: the per-layer leaves of the dense GAT
+    stack (`ops/gat.py`) under the flax names `gat_*_{i}`.
 
 Init helpers draw from an explicit `torch.Generator` onto an explicit
 device. Their values differ from JAX's for the same seed (the streams
@@ -28,6 +30,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from iggcn_tpu_torch.ops.gat import GATParams
 
 
 def uniform(shape: Sequence[int], bound: float, generator, device
@@ -51,6 +55,12 @@ def pyg_glorot(shape, generator, device) -> torch.Tensor:
     """PyG glorot: U(+-sqrt(6 / (fan_in + fan_out))) on an (in, out) kernel."""
     return uniform(shape, math.sqrt(6.0 / (shape[0] + shape[1])),
                    generator, device)
+
+
+def pyg_glorot_att(shape, generator, device) -> torch.Tensor:
+    """PyG GATConv attention-vector init: glorot over its (1, heads, C)
+    parameter, U(+-sqrt(6 / (1 + C))) with one head, on a (C,) vector."""
+    return uniform(shape, math.sqrt(6.0 / (1 + shape[-1])), generator, device)
 
 
 def kaiming_uniform_a5(shape, generator, device) -> torch.Tensor:
@@ -215,3 +225,28 @@ def node_dropout(x: torch.Tensor, rate: float,
     keep = torch.rand(x.shape[:2] + (1,), generator=generator,
                       device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), device=x.device))
+
+
+def add_gat_params(module: nn.Module, num_layers: int, feat_dim: int,
+                   hidden: int, generator, device) -> None:
+    """Register the dense GAT stack's leaves on `module` under the flax
+    names (`gat_w_{i}`, `gat_att_{src,dst,edge}_{i}`, `gat_lin_edge_{i}`,
+    `gat_b_{i}`), initialised as PyG's GATConv is."""
+    g, dev = generator, device
+    for i in range(num_layers):
+        fin = feat_dim if i == 0 else hidden
+        leaves = {"w": pyg_glorot((fin, hidden), g, dev),
+                  "att_src": pyg_glorot_att((hidden,), g, dev),
+                  "att_dst": pyg_glorot_att((hidden,), g, dev),
+                  "lin_edge": pyg_glorot((1, hidden), g, dev),
+                  "att_edge": pyg_glorot_att((hidden,), g, dev),
+                  "b": torch.zeros(hidden, device=dev)}
+        for name, t in leaves.items():
+            setattr(module, f"gat_{name}_{i}", nn.Parameter(t))
+
+
+def gat_layer(module: nn.Module, i: int) -> GATParams:
+    """Layer i's `GATParams` from the leaves `add_gat_params` registered."""
+    return GATParams(*(getattr(module, f"gat_{name}_{i}") for name in
+                       ("w", "att_src", "att_dst", "lin_edge", "att_edge",
+                        "b")))

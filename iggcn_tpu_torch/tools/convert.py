@@ -85,5 +85,6 @@ def to_flax_variables(model: nn.Module) -> Dict[str, Dict[str, Any]]:
             node = node.setdefault(key, {})
         if path[-1] in node:
             raise ValueError(f"two port tensors map to {'/'.join(path)}")
-        node[path[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
+        # np.array keeps a 0-d leaf (a PReLU slope) 0-d
+        node[path[-1]] = np.array(arr.T if transposed else arr, order="C")
     return out

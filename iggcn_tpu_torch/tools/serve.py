@@ -118,8 +118,9 @@ def load_bundle(path: str, device: str | torch.device | None = None
         raise ValueError(
             f"bundled model class {meta['model_class']} is not served by the "
             "PyTorch port yet: it serves FusedSGCN bundles; the other "
-            "families (GuideImgSnp, ClusterLabelSGCN, GeneOntologyNetwork, "
-            "MLPModel) come with a later slice (ROADMAP Queue 1 item 11). "
+            "families' bundles (GuideImgSnp, ClusterLabelSGCN, "
+            "GeneOntologyNetwork, MLPModel) come with a later slice, with "
+            "--export_bundle (ROADMAP Queue 1 item 8). "
             "Serve this bundle with iggcn_tpu.tools.serve.")
     topo = GoTopology(
         adj_child_parent=flat.pop("topo/adj_child_parent"),

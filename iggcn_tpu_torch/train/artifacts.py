@@ -40,6 +40,18 @@ def output_importance(res_dir: str, result_file_name: str, fold: int,
                    is_permut_test=is_permut_test)
 
 
+def output_mask_importance(res_dir: str, result_file_name: str, fold: int,
+                           bias_n: np.ndarray, *,
+                           is_permut_test: bool = False) -> None:
+    """The GUIDE family's per-fold importance: its raw (d, 2) Gumbel mask
+    logits (softmax[:, 1] is each feature's keep probability), under the
+    JAX package's name."""
+    output_npy(
+        os.path.join(res_dir,
+                     f"mask_importance_{result_file_name}_fold_{fold}.npy"),
+        bias_n, is_permut_test=is_permut_test)
+
+
 def output_regression(res_dir: str, result_file_name: str,
                       score_names: Sequence[str],
                       true_scores: np.ndarray, true_labels: np.ndarray,

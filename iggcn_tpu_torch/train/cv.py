@@ -1,5 +1,11 @@
-"""Stratified k-fold cross-validation of the flagship model (port of
-`iggcn_tpu/train/cv.py:cross_validation`, model kind `sgcn_imgsnp`).
+"""Stratified k-fold cross-validation of the fused model families (port of
+`iggcn_tpu/train/cv.py:cross_validation`).
+
+`MODEL_FAMILIES` maps each model kind of the JAX package to its builder;
+the objective comes from `steps.OBJECTIVES` under the same key (the two
+tables are checked to list the same kinds). The image-only kinds
+(`sgcn_image`, `sgcn_ori`) build without a GO topology or SNP width and
+their per-epoch lines carry no regression scores, as in the JAX package.
 
 Per fold: leakage-safe KNN imputation of the clinical scores, padded dense
 train/val/test arrays moved to the device once, a fresh model from a
@@ -10,9 +16,9 @@ stays out of training and picks the best epoch; without one
 it. It prints the JAX package's per-epoch line, writes its npy artifacts
 under the same names, and returns the same `CVResult`.
 
-Not ported yet, and refused: other model kinds, `resume` and the per-fold
-records and checkpoints it reads, `export_bundle`, `external_test`,
-permutation tests and `fold_parallel`.
+Not ported yet, and refused: `resume` and the per-fold records and
+checkpoints it reads, `export_bundle`, `external_test`, permutation tests
+and `fold_parallel`.
 """
 from __future__ import annotations
 
@@ -30,11 +36,14 @@ from iggcn_tpu_torch.data.batching import cohort_batch_arrays, pad_to_batches
 from iggcn_tpu_torch.data.go_graph import GoTopology
 from iggcn_tpu_torch.data.impute import knn_impute_scores
 from iggcn_tpu_torch.data.splits import k_fold
+from iggcn_tpu_torch.models.clusterlabel import ClusterLabelSGCN
 from iggcn_tpu_torch.models.fused_sgcn import FusedSGCN
+from iggcn_tpu_torch.models.guide import GuideImgSnp
+from iggcn_tpu_torch.models.sgcn_image import SGCNImage, SGCNOri
 from iggcn_tpu_torch.tools.convert import load_flax_variables
 from iggcn_tpu_torch.train import artifacts, metrics
 from iggcn_tpu_torch.train.fold_loop import fold_perms, run_fold
-from iggcn_tpu_torch.train.steps import TrainState
+from iggcn_tpu_torch.train.steps import OBJECTIVES, TrainState
 from iggcn_tpu_torch.utils.platform import resolve_device
 
 
@@ -47,6 +56,36 @@ class CVResult:
     durations: List[float]
     throughput_graphs_per_sec: float
     regression_summary: Dict[str, Dict[str, float]]
+
+
+def _build_sgcn_image(mcfg, topo, **kw):
+    return SGCNImage(num_layers=mcfg.num_layers, hidden=mcfg.hidden,
+                     rois=mcfg.rois, feat_dim=mcfg.feat_dim,
+                     num_classes=mcfg.num_classes,
+                     hidden_linear=mcfg.hidden_linear, use_gat=mcfg.use_gat,
+                     **kw)
+
+
+def _build_sgcn_ori(mcfg, topo, **kw):
+    # a fixed conv1 -> conv3 architecture: num_layers and hidden are
+    # constants of the model there, not flags
+    return SGCNOri(h0=mcfg.feat_dim, rois=mcfg.rois,
+                   num_classes=mcfg.num_classes, **kw)
+
+
+# model kind -> build(mcfg, topo, generator=, device=); the objective is
+# steps.OBJECTIVES[kind]
+MODEL_FAMILIES = {
+    "sgcn_imgsnp": FusedSGCN,
+    "gcn_imgsnp": FusedSGCN,
+    "guide_imgsnp": GuideImgSnp,
+    "clusterlabel": ClusterLabelSGCN,
+    "sgcn_image": _build_sgcn_image,
+    "sgcn_ori": _build_sgcn_ori,
+}
+if set(MODEL_FAMILIES) != set(OBJECTIVES):  # not assert: survives python -O
+    raise RuntimeError(
+        "MODEL_FAMILIES and steps.OBJECTIVES must list the same model kinds")
 
 
 def prepare_fold(cohort: AdniCohort, full: Dict[str, np.ndarray], split,
@@ -90,18 +129,38 @@ def to_device(data: Optional[Dict[str, np.ndarray]], device: torch.device
 
 
 def init_fold_model(mcfg: ModelConfig, topo: GoTopology, seed: int,
-                    fold: int, device: torch.device, warm_start=None):
-    """(model, dropout generator) of one fold. The weights are drawn on the
-    CPU from a generator seeded by seed + fold, so they are the same on
-    every device; the dropout stream is seeded from that generator and
-    lives on `device`. `warm_start` = (params, batch_stats[, tag]) flax
-    trees replace the drawn weights."""
+                    fold: int, device: torch.device, warm_start=None,
+                    kind: str = "sgcn_imgsnp"):
+    """(model, dropout generator) of one fold of model kind `kind`. The
+    weights are drawn on the CPU from a generator seeded by seed + fold, so
+    they are the same on every device; the dropout (and Gumbel) stream is
+    seeded from that generator and lives on `device`. `warm_start` =
+    (params, batch_stats[, tag]) flax trees replace the drawn weights."""
     g = torch.Generator().manual_seed(seed + fold)
-    model = FusedSGCN(mcfg, topo, generator=g, device=device)
+    model = MODEL_FAMILIES[kind](mcfg, topo, generator=g, device=device)
     if warm_start is not None:
         load_flax_variables(model, warm_start[0], warm_start[1])
     drop_seed = int(torch.randint(2 ** 62, (1,), generator=g))
     return model, torch.Generator(device=device).manual_seed(drop_seed)
+
+
+def write_importance(res_dir: str, result_file_name: str, fold: int,
+                     model: torch.nn.Module) -> None:
+    """A fold's importance npys from its final weights: the ROI and edge
+    importance (and the SNP importance where the family has it), or the
+    GUIDE family's Gumbel mask logits."""
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    if hasattr(model, "prob"):
+        snps_prob = getattr(model, "snps_prob", None)
+        artifacts.output_importance(
+            res_dir, result_file_name, fold, host(model.prob),
+            None if snps_prob is None else host(snps_prob),
+            host(model.prob_bias))
+    elif hasattr(model, "bias_n"):
+        artifacts.output_mask_importance(res_dir, result_file_name, fold,
+                                         host(model.bias_n))
 
 
 def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
@@ -120,8 +179,10 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
     """Run the CV experiment on `device` (default: the card). `warm_start`
     = (params, batch_stats, tag) flax trees start every fold (the
     optimiser state starts fresh)."""
-    refused = {"model_kind other than 'sgcn_imgsnp'": model_kind != "sgcn_imgsnp",
-               "resume": resume, "export_bundle": export_bundle,
+    if model_kind not in MODEL_FAMILIES:
+        raise ValueError(f"unknown model_kind {model_kind}; "
+                         f"one of {sorted(MODEL_FAMILIES)}")
+    refused = {"resume": resume, "export_bundle": export_bundle,
                "external_test": external_test is not None,
                "is_permut_test": tcfg.is_permut_test,
                "fold_parallel": tcfg.fold_parallel}
@@ -129,7 +190,7 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         if asked:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP Queue 1); the port's CV "
-                f"runs the default SGCN_GCN_IMGSNP route")
+                f"trains the fused families without it")
     dev = resolve_device(device)
     if clinical_score_index is None:
         clinical_score_index = tcfg.clinical_score_index
@@ -158,7 +219,9 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
 
         def on_epoch(epoch, rec, fold=fold):
             log_probs = rec["log_probs"][wmask]
-            reg_pred = rec["our_reg"][wmask]
+            has_regr = "our_reg" in rec
+            reg_pred = (rec["our_reg"][wmask] if has_regr
+                        else np.zeros_like(clini_true))
             cm = metrics.classification_metrics(
                 y_true, rec["pred"][wmask],
                 log_probs[:, 1] if log_probs.shape[1] > 1 else log_probs[:, 0],
@@ -175,7 +238,7 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
                        f" val_loss: {rec['val_loss_sum'] / n_val:.4f},"
                        f" test_loss: {test_loss:.4f},"
                        f" acc: {cm['acc']:.4f}, auc: {cm['auc']:.4f}")
-                for i, nm in enumerate(score_names):
+                for i, nm in enumerate(score_names if has_regr else ()):
                     msg += (f"; {nm} corr: {corr[i]:.5f}, r2: {r2s[i]:.5f},"
                             f" mse: {mses[i]:.5f}")
                 print(msg)
@@ -183,9 +246,10 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
                     logger(msg)
 
         model, generator = init_fold_model(mcfg, topo, tcfg.seed, fold, dev,
-                                           warm_start)
+                                           warm_start, model_kind)
         state = TrainState(model, tcfg,
-                           p["train_data"]["y"].shape[0] // tcfg.batch_size)
+                           p["train_data"]["y"].shape[0] // tcfg.batch_size,
+                           model_kind)
         _, best, state = run_fold(
             state, to_device(p["train_data"], dev), to_device(p["val_data"], dev),
             to_device(p["test_data"], dev), p["perms"], mcfg, tcfg, generator,
@@ -209,18 +273,18 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         all_score_results.append(score_result_epoch)
 
         if res_dir is not None:
-            artifacts.output_importance(
-                res_dir, result_file_name, fold,
-                state.model.prob.detach().cpu().numpy(),
-                state.model.snps_prob.detach().cpu().numpy(),
-                state.model.prob_bias.detach().cpu().numpy())
+            write_importance(res_dir, result_file_name, fold, state.model)
         best_test = best["test"]
-        best_parts["hidden"].append(best_test["out_lin"][wmask])
-        best_parts["linear"].append(best_test["linear_outf"][wmask])
+        zeros = np.zeros((int(wmask.sum()), 1), np.float32)
+        for part, key, missing in (("hidden", "out_lin", zeros),
+                                   ("linear", "linear_outf", zeros),
+                                   ("pred_scores", "our_reg",
+                                    np.zeros_like(clini_true))):
+            best_parts[part].append(best_test[key][wmask] if key in best_test
+                                    else missing)
         best_parts["subid"].append(p["test_subids"])
         best_parts["true_scores"].append(clini_true)
         best_parts["true_labels"].append(y_true)
-        best_parts["pred_scores"].append(best_test["our_reg"][wmask])
 
     loss_arr = np.asarray(test_losses).reshape(tcfg.folds, tcfg.epochs)
     acc_arr = np.asarray(accs).reshape(tcfg.folds, tcfg.epochs)

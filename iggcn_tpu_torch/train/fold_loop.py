@@ -55,10 +55,12 @@ def train_epoch(state: TrainState, data: Data, perm: torch.Tensor,
 
 
 def eval_set(model: torch.nn.Module, data: Data, mcfg: ModelConfig,
-             tcfg: TrainConfig) -> Dict[str, np.ndarray]:
-    """Eval every batch of a padded split: per-row outputs concatenated
-    (padding rows included), `loss_sum` summed. Copies to the host."""
-    outs = [eval_step(model, batch, mcfg, tcfg)
+             tcfg: TrainConfig, kind: str = "sgcn_imgsnp"
+             ) -> Dict[str, np.ndarray]:
+    """Eval every batch of a padded split with the objective of model kind
+    `kind`: per-row outputs concatenated (padding rows included),
+    `loss_sum` summed. Copies to the host."""
+    outs = [eval_step(model, batch, mcfg, tcfg, kind)
             for batch in batches(data, tcfg.batch_size)]
     flat = {k: torch.cat([o[k] for o in outs]).cpu().numpy()
             for k in outs[0] if k != "loss_sum"}
@@ -86,8 +88,9 @@ def run_fold(state: TrainState, train_data: Data, val_data: Optional[Data],
         train_sum = train_epoch(state, train_data,
                                 torch.as_tensor(perm, device=device).long(),
                                 mcfg, tcfg, generator)
-        test_out = eval_set(state.model, test_data, mcfg, tcfg)
-        val_sum = (eval_set(state.model, val_data, mcfg, tcfg)["loss_sum"]
+        test_out = eval_set(state.model, test_data, mcfg, tcfg, state.kind)
+        val_sum = (eval_set(state.model, val_data, mcfg, tcfg,
+                            state.kind)["loss_sum"]
                    if val_data is not None else test_out["loss_sum"])
         record = {"train_loss_sum": float(train_sum), "val_loss_sum": val_sum,
                   "test_loss_sum": test_out["loss_sum"],

@@ -1,4 +1,4 @@
-"""Loss terms of the flagship's 7-term objective (port of
+"""Loss terms of the fused families' objectives (port of
 `iggcn_tpu/train/losses.py`).
 
 All reductions are fp32. `sample_weight` is the (B,) 0/1 row mask of a
@@ -19,6 +19,20 @@ def _binary_entropy(p: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return -(p * torch.log(p + eps) + (1 - p) * torch.log((1 - p) + eps))
 
 
+def _edge_terms(prob, prob_bias, x, adj, eps, sample_weight):
+    """(L1, entropy) of the sigmoid edge scores, averaged over the batch's
+    existing edges (those of real rows)."""
+    ep = edge_probability_dense(x * prob, prob_bias)     # (B, N, N)
+    mask = adj != 0
+    if sample_weight is not None:
+        mask = mask & (sample_weight[:, None, None] > 0)
+    n_edges = torch.clamp(mask.sum(), min=1)
+    zero = torch.zeros((), device=ep.device)
+    e_sum = torch.where(mask, ep.abs(), zero).sum() / n_edges
+    e_ent = torch.where(mask, _binary_entropy(ep, eps), zero).sum() / n_edges
+    return e_sum, e_ent
+
+
 def sparsity_loss(prob: torch.Tensor, prob_bias: torch.Tensor,
                   snps_prob: torch.Tensor, x: torch.Tensor, adj: torch.Tensor,
                   sw: SparsityWeights, eps: float = 1e-6,
@@ -33,15 +47,7 @@ def sparsity_loss(prob: torch.Tensor, prob_bias: torch.Tensor,
     xp = torch.sigmoid(prob)
     f_sum = xp.abs().mean()
     f_ent = _binary_entropy(xp, eps).mean()
-
-    ep = edge_probability_dense(x * prob, prob_bias)     # (B, N, N)
-    mask = adj != 0
-    if sample_weight is not None:
-        mask = mask & (sample_weight[:, None, None] > 0)
-    n_edges = torch.clamp(mask.sum(), min=1)
-    zero = torch.zeros((), device=ep.device)
-    e_sum = torch.where(mask, ep.abs(), zero).sum() / n_edges
-    e_ent = torch.where(mask, _binary_entropy(ep, eps), zero).sum() / n_edges
+    e_sum, e_ent = _edge_terms(prob, prob_bias, x, adj, eps, sample_weight)
 
     sp = torch.sigmoid(snps_prob)
     s_sum = sp.abs().mean()
@@ -52,6 +58,21 @@ def sparsity_loss(prob: torch.Tensor, prob_bias: torch.Tensor,
     loss_ent = (sw.lamda_x_ent * f_ent + sw.lamda_e_ent * e_ent
                 + sw.lamda_x_ent * s_ent)
     return loss_l1 + loss_ent
+
+
+def sgcn_sparsity_loss(prob: torch.Tensor, prob_bias: torch.Tensor,
+                       x: torch.Tensor, adj: torch.Tensor,
+                       sw: SparsityWeights, eps: float = 1e-6,
+                       sample_weight: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The image-only SGCN family's penalty: no SNP term, and the node L1
+    term sums over the channels and divides by N (not N * D)."""
+    xp = torch.sigmoid(prob)
+    f_sum = xp.abs().sum() / xp.shape[0]
+    f_ent = _binary_entropy(xp, eps).mean()
+    e_sum, e_ent = _edge_terms(prob, prob_bias, x, adj, eps, sample_weight)
+    return (sw.lamda_x_l1 * f_sum + sw.lamda_e_l1 * e_sum
+            + sw.lamda_x_ent * f_ent + sw.lamda_e_ent * e_ent)
 
 
 def rbf_kernel(x: torch.Tensor, y: torch.Tensor, gamma: float

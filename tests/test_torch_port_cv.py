@@ -120,11 +120,19 @@ def test_cross_validation_refuses_what_is_not_ported():
     cohort = synthetic_cohort(np.random.default_rng(1), num_subjects=12)
     topo = synthetic_topology(np.random.default_rng(0))
     for kwargs, tcfg in (({"resume": True}, TrainConfig()),
-                         ({"model_kind": "gcn_imgsnp"}, TrainConfig()),
+                         ({"export_bundle": True}, TrainConfig()),
+                         ({"external_test": cohort}, TrainConfig()),
+                         ({}, TrainConfig(is_permut_test=True)),
                          ({}, TrainConfig(fold_parallel=True))):
         with pytest.raises(NotImplementedError, match="not ported"):
             cross_validation(cohort, topo, ModelConfig(), tcfg,
                              device="cpu", **kwargs)
+    # the zoo and SNP-only families are no model kind of this driver, as
+    # in the JAX package
+    for kind in ("gin", "snps_go"):
+        with pytest.raises(ValueError, match="unknown model_kind"):
+            cross_validation(cohort, topo, ModelConfig(), TrainConfig(),
+                             device="cpu", model_kind=kind)
 
 
 def test_cli_trains_on_the_cpu_when_asked(tmp_path):
@@ -146,13 +154,25 @@ def test_cli_trains_on_the_cpu_when_asked(tmp_path):
 
 
 def test_cli_defaults_to_the_card_and_refuses_other_models(monkeypatch,
-                                                           tmp_path):
+                                                           tmp_path, capsys):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        port_main.main(["--synthetic", "--epochs", "1", "--no-search"])
+    for model in port_main.FUSION_MODELS:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            port_main.main(["--model", model, "--synthetic", "--epochs", "1",
+                            "--no-search"])
+    for model, what in (("GIN", "not ported yet"),
+                        ("Gene_ontology_network", "not ported yet"),
+                        ("MLP_Model", "not ported yet"),
+                        ("BOGUS", "is unknown")):
+        with pytest.raises(SystemExit):
+            port_main.main(["--model", model, "--device", "cpu"])
+        err = capsys.readouterr().err
+        assert what in err and "SGCN_GCN_IMGSNP" in err, err
     with pytest.raises(SystemExit):
-        port_main.main(["--model", "GIN", "--device", "cpu"])
+        port_main.main(["--clinical_score_index", "1", "--num_regr", "3",
+                        "--device", "cpu"])
+    assert "--num_regr must be 1" in capsys.readouterr().err
     assert not (tmp_path / "results").exists()
 
 

@@ -55,6 +55,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_importing_the_serving_tool_loads_no_jax():
     code = ("import sys, iggcn_tpu_torch.tools.serve, chip_smoke\n"
             "import iggcn_tpu_torch.main, iggcn_tpu_torch.train.cv\n"
+            "import iggcn_tpu_torch.models.guide, iggcn_tpu_torch.ops.gat\n"
+            "import iggcn_tpu_torch.models.sgcn_image\n"
+            "import iggcn_tpu_torch.models.clusterlabel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'iggcn_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

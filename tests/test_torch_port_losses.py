@@ -62,6 +62,18 @@ def test_sparsity_loss(w):
           [PROB, PROB_BIAS, SNPS_PROB, X])
 
 
+@pytest.mark.parametrize("w", [None, W])
+def test_sgcn_sparsity_loss(w):
+    """The image family's penalty: no SNP term, node L1 over N not N * D."""
+    _both(lambda p, pb, x: jl.sgcn_sparsity_loss(
+              p, pb, x, jnp.asarray(ADJ), JaxSW(**SW),
+              sample_weight=_w(w, "jax")),
+          lambda p, pb, x: pl.sgcn_sparsity_loss(
+              p, pb, x, torch.tensor(ADJ), SparsityWeights(**SW),
+              sample_weight=_w(w, "torch")),
+          [PROB, PROB_BIAS, X])
+
+
 @pytest.mark.parametrize("member", [None, W, MEMBER, np.zeros(6, np.float32)])
 def test_consistency_loss_and_rbf_kernel(member):
     _both(lambda z, t: jl.consistency_loss(
