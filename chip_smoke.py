@@ -75,14 +75,39 @@ failure propagates and the script exits non-zero:
      batch and folds, 2 epochs; the kernel's launches counted in one train
      step and one eval batch (2 each) and over the run (the loop's count);
      a warm step's host wall, device busy, idle share and kernel share;
-     six card steps against the CPU under phase 7's rules;
+     six card steps against the CPU under phase 7's rules; the run exports
+     its serving bundles (`--export_bundle`) for phase 10;
   9. every other fused family of the CLI (GCN_IMGSNP, SGCN_GCN, SGCN_GAT,
      SGCN_Ori, GUIDE_IMGSNP, SGCN_GCN_CLUSTERLABEL): one 5-fold, 1-epoch
      experiment each at the default widths; the kernel's launches per
      train step and per eval batch must be the family's (`STACK_CALLS`: 1
      for GCN_IMGSNP, 2 for CLUSTERLABEL, 0 for the rest, which do not run
      the stack) and over the run the loop's count; two card steps against
-     the CPU under phase 7's rules (dropout 0, GUIDE's Gumbel noise 0).
+     the CPU under phase 7's rules (dropout 0, GUIDE's Gumbel noise 0);
+     GUIDE_IMGSNP and SGCN_GCN_CLUSTERLABEL export their bundles;
+ 10. what an experiment keeps, at phase 7's setting: the flagship CLI run
+     with `--export_bundle` (2 epochs) writes every fold's checkpoint,
+     record and bundle, launching the kernel the loop's count; the fold
+     records of folds 3-4 are deleted and the run repeated with
+     `--resume`: folds 0-2 restored (their score rows bit-equal to the
+     first run's), 3-4 retrained with the loop's launches for those folds
+     alone and per-epoch test losses within rtol 2e-4 of the first run's;
+     the fold-0 bundles of the flagship (N=90), of phase 8 (N=270) and of
+     phase 9's CLUSTERLABEL and GUIDE runs each serve an 874-subject cohort
+     at batch 256 on the card, held against the CPU's plain path under
+     phase 3's rule, with the kernel's launches per forward the model's (1,
+     1, 1, 0); `tools.explain` on the card over the flagship's and
+     SGCN_GCN's fold-0 checkpoints: finite importances and edge
+     probabilities, and SGCN_GCN's grad-CAM of shape (64, 90), held against
+     the CPU's (atol 1e-4);
+ 11. the SNP-only families (`--model Gene_ontology_network`, `MLP_Model`,
+     `--disease_id 0`) over the same topology and cohort, batch 32, 5
+     folds, 3 epochs, `--export_bundle`: finite scores and losses, the
+     `Result - ... (SNP-only, <model>)` line, two card steps each against
+     the CPU under phase 7's rules (dropout 0); both fold-0 bundles served
+     on the card against the CPU (prob within atol 1e-4, pred equal where
+     |prob - 0.5| > 1e-4), the GO one also through the HTTP daemon's
+     SNP-only route; the kernel is launched 0 times in the phase.
 
 It prints the `kernels` JSON line before the last line, and as the last
 line `{"ok": true, "device": {...}}`. Everything it measures is also
@@ -100,6 +125,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -118,10 +144,13 @@ from iggcn_tpu_torch.models.fused_sgcn import FusedSGCN
 from iggcn_tpu_torch.models.nn_compat import BatchNorm1d
 from iggcn_tpu_torch.ops import gcn_stack
 from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
-from iggcn_tpu_torch.predict import batched_forward
+from iggcn_tpu_torch.data.sampler import (imbalanced_sample_indices,
+                                          pad_epoch_indices)
+from iggcn_tpu_torch.predict import batched_forward, batched_forward_snps
+from iggcn_tpu_torch.tools import explain
 from iggcn_tpu_torch.tools.serve import (build_http_server, load_bundle,
                                          save_bundle)
-from iggcn_tpu_torch.train import fold_loop, steps
+from iggcn_tpu_torch.train import fold_loop, snps_trainer, steps
 from iggcn_tpu_torch.train.cv import init_fold_model, prepare_fold, to_device
 from iggcn_tpu_torch.utils import cuda_build
 
@@ -172,7 +201,7 @@ CARD_CPU_STEPS = 6
 # search grid (main.py:combos), L=3, H=10
 MULTI_EPOCHS = 2
 MULTI_ARGV = cli_argv(MULTI_EPOCHS, "_chip_smoke_multi", "--isMultiFusion",
-                      "--layers", "3", "--hiddens", "10")
+                      "--layers", "3", "--hiddens", "10", "--export_bundle")
 # phase 9: every other fused family, one epoch, two card steps vs the CPU;
 # the kernel's launches per train step and per eval batch of each family
 # (0: the family does not run the GCN stack, as in the JAX package)
@@ -182,6 +211,31 @@ STACK_CALLS = {"SGCN_GCN_IMGSNP": 2, "GCN_IMGSNP": 1,
                "SGCN_Ori": 0, "GUIDE_IMGSNP": 0}
 OTHER_FAMILIES = ("GCN_IMGSNP", "SGCN_GCN", "SGCN_GAT", "SGCN_Ori",
                   "GUIDE_IMGSNP", "SGCN_GCN_CLUSTERLABEL")
+# phase 9 families whose runs export serving bundles (phase 10 serves them)
+BUNDLE_FAMILIES = ("GUIDE_IMGSNP", "SGCN_GCN_CLUSTERLABEL")
+# phase 10: the flagship's artifacts (2 epochs, --export_bundle), then a
+# resume after the records of RESUME_FOLDS are deleted; retrained folds'
+# per-epoch test losses within RESUME_RTOL of the first run's (the card is
+# not bit-deterministic run to run: atomics in index_select's backward and
+# split-K GEMMs)
+ARTIFACT_EPOCHS, RESUME_FOLDS, RESUME_RTOL = 2, (3, 4), 2e-4
+ARTIFACT_ARGV = cli_argv(ARTIFACT_EPOCHS, "_chip_smoke_artifacts",
+                         "--export_bundle")
+# the kernel's launches per served forward of each bundle class
+SERVE_CALLS = {"FusedSGCN": 1, "ClusterLabelSGCN": 1, "GuideImgSnp": 0}
+EXPLAIN_SUBJECTS = 64
+# phase 11: the SNP-only families, 3 epochs, binary (--disease_id 0)
+SNP_MODELS, SNP_EPOCHS = ("Gene_ontology_network", "MLP_Model"), 3
+
+
+def snps_argv(appendix):
+    """The SNP-only CLI route on the card (`--model` comes first): phase
+    7's cohort and topology, batch and folds, binary, with bundles."""
+    return ["--device", "cuda", "--synthetic", "--synthetic_subjects",
+            str(COHORT), "--synthetic_go_levels", GO_LEVELS, "--epochs",
+            str(SNP_EPOCHS), "--fold", str(TRAIN_FOLDS), "--batch_size",
+            str(TRAIN_BATCH), "--disease_id", "0", "--save_appendix",
+            appendix, "--export_bundle"]
 EPOCH_LINE = re.compile(r"^Fold: (\d+), epoch:(\d+), train_loss: ([^,]+), "
                         r"val_loss: ([^,]+), test_loss: ([^,]+), acc:", re.M)
 
@@ -305,17 +359,39 @@ def make_cohort(rng, s, rois=90, feat=3, num_snps=54, k=10):
 
 
 def compare_predictions(got, want, what):
+    """Card vs CPU serving outputs: log_probs and, where the model has it,
+    our_reg within SERVE_ATOL; pred equal where the decision is wider than
+    1e-4."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} vs {sorted(want)}")
     for key in ("log_probs", "our_reg"):
+        if key not in want:
+            continue
         if got[key].shape != want[key].shape or not np.isfinite(got[key]).all():
             raise AssertionError(f"{what}: {key} shape {got[key].shape} vs "
                                  f"{want[key].shape}, or not finite")
         err = float(np.abs(got[key] - want[key]).max()) if got[key].size else 0.0
         if err > SERVE_ATOL:
             raise AssertionError(f"{what}: {key} differs by {err} > {SERVE_ATOL}")
-    lp = want["log_probs"]
-    decided = np.abs(lp[:, 0] - lp[:, 1]) > 1e-4
+    lp = np.sort(want["log_probs"], axis=1)
+    decided = lp[:, -1] - lp[:, -2] > 1e-4
     if not np.array_equal(got["pred"][decided], want["pred"][decided]):
         raise AssertionError(f"{what}: pred differs on decided subjects")
+
+
+def compare_snps_predictions(got, want, what):
+    """Card vs CPU SNP-only serving: prob within SERVE_ATOL, pred equal
+    where |prob - 0.5| > 1e-4."""
+    if set(got) != {"prob", "pred"} or got["prob"].shape != want["prob"].shape:
+        raise AssertionError(f"{what}: outputs {sorted(got)}, prob shape "
+                             f"{got['prob'].shape} vs {want['prob'].shape}")
+    err = float(np.abs(got["prob"] - want["prob"]).max(initial=0.0))
+    if not np.isfinite(got["prob"]).all() or err > SERVE_ATOL:
+        raise AssertionError(f"{what}: prob differs by {err} > {SERVE_ATOL}")
+    decided = np.abs(want["prob"] - 0.5) > 1e-4
+    if not np.array_equal(got["pred"][decided], want["pred"][decided]):
+        raise AssertionError(f"{what}: pred differs on decided subjects")
+    return err
 
 
 def phase_build():
@@ -704,11 +780,14 @@ def phase_profile(dev, model, cohort, train):
 
 def quiet(model):
     """Dropout off and GUIDE's Gumbel noise zeroed on a port model: the
-    image families keep their head dropout as model attributes, not in
-    ModelConfig."""
-    for attr in ("dropout_lin", "dropout1", "dropout2"):
+    image families and the SNP-only models keep their dropout rates as
+    model attributes, not in ModelConfig."""
+    for attr in ("dropout_lin", "dropout1", "dropout2", "dropout_rate",
+                 "dropout_gcn", "dropout_readout"):
         if hasattr(model, attr):
             setattr(model, attr, 0.0)
+    if hasattr(model, "dropout_cls"):
+        model.dropout_cls = (0.0, 0.0)
     if hasattr(model, "gumbel_zero"):
         model.gumbel_zero = True
     return model
@@ -842,14 +921,14 @@ def phase_train_times(dev, train):
     return out
 
 
-def adam_step_bound(tcfg, steps_per_epoch, t, b1=0.9, b2=0.999):
-    """Largest move of a parameter in Adam step t (1-based) from a fresh
-    state, whatever its gradients: by Cauchy-Schwarz on the moment sums,
+def adam_step_bound(lr_t, t, b1=0.9, b2=0.999):
+    """Largest move of a parameter in Adam step t (1-based, at learning
+    rate lr_t) from a fresh state, whatever its gradients: by
+    Cauchy-Schwarz on the moment sums,
     lr_t (1-b1)/(1-b1^t) sqrt((1-b2^t)/(1-b2)) sqrt(sum_{k<t} (b1^2/b2)^k),
     which stays near lr_t over the first steps."""
     r = b1 * b1 / b2
-    return (steps.lr_at_step(tcfg, t - 1, steps_per_epoch)
-            * (1 - b1) / (1 - b1 ** t) * math.sqrt((1 - b2 ** t) / (1 - b2))
+    return (lr_t * (1 - b1) / (1 - b1 ** t) * math.sqrt((1 - b2 ** t) / (1 - b2))
             * math.sqrt((1 - r ** t) / (1 - r)))
 
 
@@ -938,10 +1017,64 @@ def activation_ties(card, cpu):
     return flips, near
 
 
-def card_vs_cpu_steps(dev, train, n_steps=CARD_CPU_STEPS):
-    """`n_steps` train steps of fold 0 of the route's model family (its
-    objective from `steps.OBJECTIVES`) on the card at dropout 0 (GUIDE's
-    Gumbel noise zeroed), each repeated on
+def fused_route(train):
+    """What `card_vs_cpu_steps` needs of a fused family's route (fold 0 of
+    `training_setup`'s experiment): a fresh CPU model at dropout 0 (GUIDE's
+    Gumbel noise zeroed), the first epoch's shuffled train batches, a train
+    state, its step (the loss sum) and the learning rate of step t."""
+    mcfg = dataclasses.replace(train["mcfg"], dropout_lin=0.0,
+                               dropout_regr=0.0, dropout_go=0.0,
+                               dropout_readout=0.0)
+    tcfg, fold0, kind = train["tcfg"], train["fold0"], train["kind"]
+    cpu_model, _ = init_fold_model(mcfg, train["topo"], tcfg.seed, 0,
+                                   torch.device("cpu"), kind=kind)
+    perm = fold0["perms"][0]
+    spe = perm.shape[0] // tcfg.batch_size
+    return {"model": quiet(cpu_model), "batch": tcfg.batch_size,
+            "data": {k: v[perm] for k, v in fold0["train_data"].items()},
+            "state": lambda model: steps.TrainState(model, tcfg, spe, kind),
+            "step": lambda state, batch: float(steps.train_step(
+                state, batch, mcfg, tcfg, None)),
+            "lr": lambda t: steps.lr_at_step(tcfg, t - 1, spe)}
+
+
+class SnpsState:
+    """A SNP-only model, its optimiser and the count of steps taken."""
+
+    def __init__(self, model):
+        self.model = model
+        self.optimizer = snps_trainer.make_snps_optimizer(model)
+        self.step = 0
+
+
+def snps_route(kind, snps, labels, topo, seed, batch_size, lr=1e-3):
+    """`card_vs_cpu_steps`' route of a SNP-only family: fold 0 of the CLI's
+    CV at dropout 0, its first epoch's class-balanced draw, the trainer's
+    step (BCE sum + lambda0 reconstruction) at the epoch-0 StepLR rate."""
+    train_idx, _, val_idx = k_fold(labels.astype(int), TRAIN_FOLDS, seed)[0]
+    tr = np.concatenate([train_idx, val_idx])
+    idx, w = pad_epoch_indices(imbalanced_sample_indices(
+        labels[tr], np.random.default_rng(seed * 77)), batch_size)
+    model, _ = snps_trainer.init_snps_model(kind, topo, snps.shape[1], seed,
+                                            0, torch.device("cpu"))
+    lambda0 = 0.0 if kind == "mlp" else 1e-5
+    lr_t = snps_trainer.steplr_host(lr, 0.7, 50, 0)
+
+    def step(state, batch):
+        state.step += 1
+        return float(snps_trainer.snps_train_step(
+            state.model, state.optimizer, batch["x"], batch["y"], batch["w"],
+            lr_t, lambda0, None))
+
+    return {"model": quiet(model), "batch": batch_size,
+            "data": {"x": snps[tr][idx], "y": labels[tr][idx], "w": w},
+            "state": SnpsState, "step": step, "lr": lambda t: lr_t}
+
+
+def card_vs_cpu_steps(dev, route, n_steps=CARD_CPU_STEPS):
+    """`n_steps` train steps of a route (`fused_route`: fold 0 of a fused
+    family with its objective from `steps.OBJECTIVES`; `snps_route`: fold 0
+    of a SNP-only family) on the card at dropout 0, each repeated on
     the CPU and on the CPU in float64 from the card's state before it
     (params, batch statistics, Adam's moments and step count), so that each
     step is compared from the same start and device rounding does not
@@ -974,17 +1107,8 @@ def card_vs_cpu_steps(dev, train, n_steps=CARD_CPU_STEPS):
 
     Returns the readings; every leaf's gradient norms at the first step and
     every leaf with zero-to-rounding entries are logged."""
-    mcfg = dataclasses.replace(train["mcfg"], dropout_lin=0.0,
-                               dropout_regr=0.0, dropout_go=0.0,
-                               dropout_readout=0.0)
-    tcfg, fold0, kind = train["tcfg"], train["fold0"], train["kind"]
     cpu = torch.device("cpu")
-    cpu_model, _ = init_fold_model(mcfg, train["topo"], tcfg.seed, 0, cpu,
-                                   kind=kind)
-    quiet(cpu_model)
-    perm = fold0["perms"][0]
-    shuffled = {k: v[perm] for k, v in fold0["train_data"].items()}
-    spe = perm.shape[0] // tcfg.batch_size
+    cpu_model, b = route["model"], route["batch"]
     sides = {}
     for side, model, device, dtype in [
             ("card", copy.deepcopy(cpu_model).to(dev), dev, torch.float32),
@@ -992,8 +1116,8 @@ def card_vs_cpu_steps(dev, train, n_steps=CARD_CPU_STEPS):
             ("float64", copy.deepcopy(cpu_model).double(), cpu,
              torch.float64)]:
         data = {k: v.to(dtype) if v.is_floating_point() else v
-                for k, v in to_device(shuffled, device).items()}
-        sides[side] = (steps.TrainState(model, tcfg, spe, kind), data)
+                for k, v in to_device(route["data"], device).items()}
+        sides[side] = (route["state"](model), data)
     card = sides["card"][0]
     failures, rows, ties, losses = [], [], [], {s: [] for s in sides}
     for t in range(1, n_steps + 1):
@@ -1006,11 +1130,9 @@ def card_vs_cpu_steps(dev, train, n_steps=CARD_CPU_STEPS):
         grads, after = {}, {}
         acts = {}
         for side, (state, data) in sides.items():
-            batch = {k: v[(t - 1) * tcfg.batch_size:t * tcfg.batch_size]
-                     for k, v in data.items()}
+            batch = {k: v[(t - 1) * b:t * b] for k, v in data.items()}
             with recorded_activations(state.model) as acts[side]:
-                losses[side].append(float(steps.train_step(
-                    state, batch, mcfg, tcfg, None)))
+                losses[side].append(route["step"](state, batch))
             grads[side] = {n: p.grad.detach().double().cpu().numpy()
                            for n, p in state.model.named_parameters()
                            if p.grad is not None}
@@ -1029,10 +1151,10 @@ def card_vs_cpu_steps(dev, train, n_steps=CARD_CPU_STEPS):
             failures.append(f"step {t}: an activation input {near:.3e} from "
                             "its kink flipped between the card and the CPU")
         tie = flips > 0
-        bound = 2 * adam_step_bound(tcfg, spe, t)
+        bound = 2 * adam_step_bound(route["lr"](t), t)
         cpu_state = sides["cpu"][0]
         sens = adam_sensitivity(cpu_state.optimizer, cpu_state.model,
-                                steps.lr_at_step(tcfg, t - 1, spe))
+                                route["lr"](t))
         zero = {}
         for n, g64 in grads["float64"].items():
             g_card, g_cpu = grads["card"][n], grads["cpu"][n]
@@ -1122,12 +1244,9 @@ def card_vs_cpu_steps(dev, train, n_steps=CARD_CPU_STEPS):
     return out
 
 
-def run_route(train, per_batch):
-    """The route's CLI experiment, `iggcn_tpu_torch.main.main(argv)`, on the
-    card: every epoch line's losses finite, the `Result -` line printed,
-    and the kernel's launches over the run equal to what the loop implies
-    at `per_batch` launches per train step and per eval batch."""
-    argv, tcfg = train["argv"], train["tcfg"]
+def cli_run(argv):
+    """(stdout, the kernel's launches, wall s, return value) of
+    `iggcn_tpu_torch.main.main(argv)` on the card; the output is logged."""
     buf = io.StringIO()
     gcn_stack.fused_gcn_stack.launches = 0
     t0 = time.perf_counter()
@@ -1135,9 +1254,28 @@ def run_route(train, per_batch):
         results = port_main.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = gcn_stack.fused_gcn_stack.launches
     text = buf.getvalue()
     log(text.rstrip())
+    return text, gcn_stack.fused_gcn_stack.launches, wall_s, results
+
+
+def run_dir(appendix):
+    """The CLI's results dir for `--save_appendix appendix`."""
+    return os.path.join(os.getcwd(), "results", f"ADNI{appendix}")
+
+
+def result_name(layers, hidden, h=2):
+    """The CLI's result file stem of a fused-family configuration."""
+    return f"result_sgcn_img_snp_layers{layers}_hidden{hidden}_h{h}"
+
+
+def run_route(train, per_batch):
+    """The route's CLI experiment, `iggcn_tpu_torch.main.main(argv)`, on the
+    card: every epoch line's losses finite, the `Result -` line printed,
+    and the kernel's launches over the run equal to what the loop implies
+    at `per_batch` launches per train step and per eval batch."""
+    argv, tcfg = train["argv"], train["tcfg"]
+    text, launches, wall_s, results = cli_run(argv)
     epochs = EPOCH_LINE.findall(text)
     if len(epochs) != tcfg.folds * tcfg.epochs:
         raise AssertionError(f"expected {tcfg.folds * tcfg.epochs} epoch "
@@ -1172,7 +1310,7 @@ def run_route(train, per_batch):
 def phase_train(dev, train):
     log("== phase 7: training slice at full width")
     out = run_route(train, STACK_CALLS["SGCN_GCN_IMGSNP"])
-    out["card_vs_cpu"] = card_vs_cpu_steps(dev, train)
+    out["card_vs_cpu"] = card_vs_cpu_steps(dev, fused_route(train))
     return out
 
 
@@ -1224,7 +1362,7 @@ def phase_multi_fusion(dev):
     out = run_route(train, want)
     out.update(breakdown, launches_per_train_step=per_step,
                launches_per_eval_batch=per_eval,
-               card_vs_cpu=card_vs_cpu_steps(dev, train))
+               card_vs_cpu=card_vs_cpu_steps(dev, fused_route(train)))
     return out
 
 
@@ -1233,9 +1371,10 @@ def phase_families(dev):
     out = {}
     for model in OTHER_FAMILIES:
         log(f"-- {model}")
+        extra = ("--export_bundle",) if model in BUNDLE_FAMILIES else ()
         train = training_setup(dev, cli_argv(FAMILY_EPOCHS,
                                              f"_chip_smoke_{model}",
-                                             "--model", model))
+                                             "--model", model, *extra))
         per_step = counted_launches(train["step"])
         per_eval = counted_launches(lambda: steps.eval_step(
             train["state"].model, train["eval_batch"], train["mcfg"],
@@ -1250,10 +1389,279 @@ def phase_families(dev):
         run = run_route(train, want)
         run.update(launches_per_train_step=per_step,
                    launches_per_eval_batch=per_eval,
-                   card_vs_cpu=card_vs_cpu_steps(dev, train,
+                   card_vs_cpu=card_vs_cpu_steps(dev, fused_route(train),
                                                  FAMILY_CPU_STEPS))
         out[model] = run
     return out
+
+
+def serve_bundle(dev, path, cohort, what):
+    """One bundle served to `cohort` at batch BATCH on the card and on the
+    CPU's plain path: held under phase 3's rule, the kernel's launches per
+    served forward required to be the model's (`SERVE_CALLS`), the card's
+    cohort wall (median of 3) recorded."""
+    gpu_model = load_bundle(path, device=dev)
+    cls = type(gpu_model).__name__
+    gcn_stack.fused_gcn_stack.launches = 0
+    gpu = batched_forward(gpu_model, *cohort, batch_size=BATCH)
+    torch.cuda.synchronize()
+    launches = gcn_stack.fused_gcn_stack.launches
+    forwards = math.ceil(len(cohort[0]) / BATCH)
+    if launches != SERVE_CALLS[cls] * forwards:
+        raise AssertionError(f"{what}: serving launched the kernel {launches} "
+                             f"times over {forwards} forwards; {cls} must "
+                             f"launch it {SERVE_CALLS[cls]} per forward")
+    cpu = batched_forward(load_bundle(path, device="cpu"), *cohort,
+                          batch_size=BATCH)
+    compare_predictions(gpu, cpu, f"{what}: card vs CPU serving")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batched_forward(gpu_model, *cohort, batch_size=BATCH)
+        walls.append(time.perf_counter() - t0)
+    out = {"bundle": os.path.relpath(path), "model_class": cls,
+           "subjects": len(cohort[0]), "batch": BATCH, "forwards": forwards,
+           "launches": launches, "launches_per_forward": launches / forwards,
+           "log_probs_max_abs_diff": float(np.abs(
+               gpu["log_probs"] - cpu["log_probs"]).max()),
+           "cohort_wall_s": statistics.median(walls)}
+    log(f"{what} ({cls}, N={cohort[0].shape[1]}): {out['subjects']} subjects "
+        f"at batch {BATCH}, {launches} kernel launches over {forwards} "
+        f"forwards; card vs CPU log_probs max diff "
+        f"{out['log_probs_max_abs_diff']:.3e}; cohort wall "
+        f"{out['cohort_wall_s']:.6f} s")
+    return out
+
+
+def explain_checkpoint(dev, ckpt, tag, x_path, adj_path, n_subjects):
+    """`tools.explain` on the card over a fold checkpoint: every exported
+    importance finite, and on an SGCN image-family checkpoint a finite
+    grad-CAM of shape (S, 90) that the CPU's grad-CAM matches (atol
+    1e-4)."""
+    out_dir = os.path.join(OUT_DIR, f"explain_{tag}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = [ckpt, "--out", out_dir, "--prefix", tag, "--x_npy", x_path,
+            "--adj_npy", adj_path, "--device", str(dev)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        explain.main(argv)
+    log(buf.getvalue().rstrip())
+    exported = {}
+    for name in sorted(os.listdir(out_dir)):
+        arr = np.load(os.path.join(out_dir, name))
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"explain {tag}: {name} is not finite")
+        exported[name] = list(arr.shape)
+    if f"node_importance_{tag}.npy" not in exported:
+        raise AssertionError(f"explain {tag}: no node importance exported")
+    out = {"checkpoint": os.path.relpath(ckpt), "exported": exported}
+    cam_name = f"grad_cam_{tag}.npy"
+    if cam_name in exported:
+        if exported[cam_name] != [n_subjects, 90]:
+            raise AssertionError(f"explain {tag}: grad-CAM shape "
+                                 f"{exported[cam_name]}, not ({n_subjects}, 90)")
+        payload = explain.load_payload(ckpt)
+        cpu_cam = explain.export_grad_cam(
+            payload["params"], payload["batch_stats"], np.load(x_path),
+            np.load(adj_path), os.path.join(out_dir, "cpu"), tag,
+            device="cpu")
+        err = float(np.abs(np.load(os.path.join(out_dir, cam_name))
+                           - cpu_cam).max())
+        if err > 1e-4:
+            raise AssertionError(f"explain {tag}: grad-CAM card vs CPU {err}")
+        out["grad_cam_card_vs_cpu_max_abs_diff"] = err
+    log(f"explain {tag}: {exported}")
+    return out
+
+
+def phase_artifacts(dev, train, cohort):
+    log("== phase 10: artifacts, resume, bundles and explain")
+    res_dir = run_dir("_chip_smoke_artifacts")
+    shutil.rmtree(res_dir, ignore_errors=True)
+    tcfg = dataclasses.replace(train["tcfg"], epochs=ARTIFACT_EPOCHS)
+    per_batch = STACK_CALLS["SGCN_GCN_IMGSNP"]
+    first = run_route(dict(train, argv=ARTIFACT_ARGV, tcfg=tcfg), per_batch)
+    name = result_name(train["mcfg"].num_layers, train["mcfg"].hidden)
+
+    def fold_file(stem, k, ext):
+        return os.path.join(res_dir, f"{stem}_{name}_fold_{k}.{ext}")
+
+    missing = [path for k in range(tcfg.folds) for path in (
+        fold_file("gcn_state_dict", k, "msgpack"),
+        fold_file("fold_result", k, "npz"),
+        fold_file("serving_bundle", k, "npz")) if not os.path.exists(path)]
+    if missing:
+        raise AssertionError(f"artifacts missing after the run: {missing}")
+    scores_first = np.load(os.path.join(res_dir, f"{name}.npy"))
+    losses_first = {}
+    for k in RESUME_FOLDS:
+        with np.load(fold_file("fold_result", k, "npz")) as zf:
+            losses_first[k] = zf["test_losses"]
+        os.remove(fold_file("fold_result", k, "npz"))
+    text, launches, wall_s, _ = cli_run(ARTIFACT_ARGV + ["--resume"])
+    kept = [k for k in range(tcfg.folds) if k not in RESUME_FOLDS]
+    restored = sorted(int(k) for k in re.findall(
+        r"^\[resume\] fold (\d+) restored", text, re.M))
+    if restored != kept:
+        raise AssertionError(f"resume restored folds {restored}, not {kept}")
+    if re.search(r"^Result - .*$", text, re.M) is None:
+        raise AssertionError("the resumed run printed no `Result -` line")
+    want = expected_launches([train["splits"][k] for k in RESUME_FOLDS],
+                             tcfg, per_batch)
+    if launches != want:
+        raise AssertionError(f"the resumed run launched the kernel {launches} "
+                             f"times; the loop implies {want} for folds "
+                             f"{list(RESUME_FOLDS)}")
+    scores = np.load(os.path.join(res_dir, f"{name}.npy"))
+    if not np.array_equal(scores[kept], scores_first[kept]):
+        raise AssertionError("restored folds' score rows differ from the "
+                             "first run's")
+    gaps = {}
+    for k in RESUME_FOLDS:
+        with np.load(fold_file("fold_result", k, "npz")) as zf:
+            again = zf["test_losses"]
+        gaps[k] = float(np.max(np.abs(again - losses_first[k])
+                               / np.abs(losses_first[k])))
+        if gaps[k] > RESUME_RTOL:
+            raise AssertionError(f"retrained fold {k}: per-epoch test losses "
+                                 f"{again.tolist()} vs the first run's "
+                                 f"{losses_first[k].tolist()} (rel {gaps[k]})")
+    same_scores = bool(np.array_equal(scores, scores_first))
+    log(f"resume: folds {kept} restored, {list(RESUME_FOLDS)} retrained in "
+        f"{wall_s:.3f} s with {launches} kernel launches (= {want} implied); "
+        f"restored score rows bit-equal; retrained folds' test losses vs the "
+        f"first run max rel diff {max(gaps.values()):.3e} (tolerance "
+        f"{RESUME_RTOL}); whole score matrix bit-equal: {same_scores}")
+
+    multi_cohort = make_cohort(np.random.default_rng(4), COHORT, rois=270,
+                               feat=1)
+    bundles = {
+        "flagship N=90": (fold_file("serving_bundle", 0, "npz"), cohort),
+        "flagship N=270 (multi-fusion)": (os.path.join(
+            run_dir("_chip_smoke_multi"),
+            f"serving_bundle_{result_name(3, 10)}_fold_0.npz"), multi_cohort),
+        **{model: (os.path.join(run_dir(f"_chip_smoke_{model}"),
+                                f"serving_bundle_{name}_fold_0.npz"), cohort)
+           for model in BUNDLE_FAMILIES}}
+    served = {what: serve_bundle(dev, path, data, what)
+              for what, (path, data) in bundles.items()}
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    x_path = os.path.join(OUT_DIR, "explain_x.npy")
+    adj_path = os.path.join(OUT_DIR, "explain_adj.npy")
+    np.save(x_path, cohort[0][:EXPLAIN_SUBJECTS])
+    np.save(adj_path, cohort[1][:EXPLAIN_SUBJECTS])
+    explained = {
+        "flagship": explain_checkpoint(
+            dev, fold_file("gcn_state_dict", 0, "msgpack"), "flagship", x_path,
+            adj_path, EXPLAIN_SUBJECTS),
+        "SGCN_GCN": explain_checkpoint(dev, os.path.join(
+            run_dir("_chip_smoke_SGCN_GCN"),
+            f"gcn_state_dict_{name}_fold_0.msgpack"), "sgcn_gcn", x_path,
+            adj_path, EXPLAIN_SUBJECTS)}
+    if "grad_cam_card_vs_cpu_max_abs_diff" not in explained["SGCN_GCN"]:
+        raise AssertionError("explain exported no grad-CAM for SGCN_GCN")
+    return {"run": first, "resume": {
+        "launches": launches, "expected_launches": want, "wall_s": wall_s,
+        "restored_folds": kept, "retrained_folds": list(RESUME_FOLDS),
+        "retrained_test_loss_max_rel_diff": gaps,
+        "score_matrix_bit_equal": same_scores},
+        "serving": served, "explain": explained}
+
+
+def phase_snps(dev):
+    log("== phase 11: the SNP-only families on the card")
+    appendix = "_chip_smoke_snps"
+    res_dir = run_dir(appendix)
+    shutil.rmtree(res_dir, ignore_errors=True)
+    argv = snps_argv(appendix)
+    args = port_main.build_parser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        snps, labels, topo = port_main.snps_inputs(
+            args, None, port_main.DataConfig(disease_id=0),
+            np.random.default_rng(args.seed))
+    out, total_launches = {}, 0
+    for model in SNP_MODELS:
+        kind = "mlp" if model == "MLP_Model" else "go"
+        text, launches, wall_s, res = cli_run(["--model", model, *argv])
+        total_launches += launches
+        result = re.search(rf"^Result - .* \(SNP-only, {model}\)$", text, re.M)
+        if result is None:
+            raise AssertionError(f"{model}: no `Result - ... (SNP-only)` line")
+        losses = []
+        for k in range(TRAIN_FOLDS):
+            with np.load(os.path.join(
+                    res_dir, f"fold_result_snps_{kind}_fold_{k}.npz")) as zf:
+                losses.extend(zf["losses"].tolist())
+            bundle = os.path.join(res_dir,
+                                  f"serving_bundle_snps_{kind}_fold_{k}.npz")
+            if not os.path.exists(bundle):
+                raise AssertionError(f"{model}: no bundle {bundle}")
+        scores = np.load(os.path.join(res_dir, f"result_snps_{kind}.npy"))
+        if (scores.shape != (TRAIN_FOLDS, SNP_EPOCHS, 5)
+                or not np.isfinite(scores).all()
+                or not np.isfinite(losses).all()
+                or len(losses) != TRAIN_FOLDS * SNP_EPOCHS):
+            raise AssertionError(f"{model}: scores {scores.shape} or losses "
+                                 f"{losses} not finite / complete")
+        log(f"{model}: {wall_s:.3f} s wall, {launches} kernel launches, "
+            f"mean test loss per fold-epoch {np.mean(losses):.5f}, "
+            f"{result.group(0)}")
+        out[model] = {
+            "experiment_wall_s": wall_s, "launches": launches,
+            "result_line": result.group(0), "mean_test_loss": res.mean_loss,
+            "card_vs_cpu": card_vs_cpu_steps(
+                dev, snps_route(kind, snps, labels, topo, args.seed,
+                                TRAIN_BATCH), FAMILY_CPU_STEPS)}
+
+    gcn_stack.fused_gcn_stack.launches = 0
+    served = {}
+    for model, kind in (("Gene_ontology_network", "go"), ("MLP_Model", "mlp")):
+        path = os.path.join(res_dir, f"serving_bundle_snps_{kind}_fold_0.npz")
+        gpu_model = load_bundle(path, device=dev)
+        gpu = batched_forward_snps(gpu_model, snps, batch_size=BATCH)
+        cpu = batched_forward_snps(load_bundle(path, device="cpu"), snps,
+                                   batch_size=BATCH)
+        err = compare_snps_predictions(gpu, cpu, f"{model} bundle")
+        served[model] = {"subjects": len(snps), "prob_max_abs_diff": err,
+                         "positives": int(gpu["pred"].sum())}
+        log(f"{model} bundle served {len(snps)} subjects on the card: prob "
+            f"max diff vs CPU {err:.3e}, {served[model]['positives']} "
+            "predicted positive")
+        if kind == "go":
+            go_model, go_pred = gpu_model, gpu
+    server = build_http_server(go_model, device=dev, port=0, batch=BATCH)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        addr = server.server_address[:2]
+        health = _get(addr, "/health")
+        log(f"/health {json.dumps(health)}")
+        if health["inputs"] != "snps" or health["num_snps"] != snps.shape[1]:
+            raise AssertionError(f"SNP-only /health {health}")
+        lo = 0
+        for n in (1, 37, 256):
+            got = _post(addr, {"snps": snps[lo:lo + n]})
+            compare_snps_predictions(
+                got, {k: v[lo:lo + n] for k, v in go_pred.items()},
+                f"SNP-only /predict of {n} subjects")
+            lo += n
+        stats = _get(addr, "/stats")
+        if (stats["requests"], stats["errors"]) != (3, 0):
+            raise AssertionError(f"SNP-only /stats {stats}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    total_launches += gcn_stack.fused_gcn_stack.launches
+    if total_launches:
+        raise AssertionError(f"the SNP-only families launched the kernel "
+                             f"{total_launches} times; they run no GCN stack")
+    log(f"SNP-only daemon: 3 /predict requests match the one-shot card "
+        f"predictions; /stats {json.dumps(stats)}; kernel launches over the "
+        f"phase: {total_launches}")
+    return {"families": out, "serving": served, "http_stats": stats,
+            "launches": total_launches}
 
 
 def main() -> int:
@@ -1274,6 +1682,8 @@ def main() -> int:
     training = phase_train(dev, train)
     multi = phase_multi_fusion(dev)
     families = phase_families(dev)
+    artifacts = phase_artifacts(dev, train, cohort)
+    snps = phase_snps(dev)
 
     serving, *others = times["shapes"]
     # per route: the kernel's launches per train step and per eval batch,
@@ -1322,6 +1732,13 @@ def main() -> int:
             name: r["launches_per_train_step"] for name, r in
             per_route.items()},
         "routes": per_route,
+        "resume": {k: artifacts["resume"][k] for k in (
+            "launches", "expected_launches", "restored_folds",
+            "retrained_folds")},
+        "served_bundles": {what: {k: row[k] for k in (
+            "model_class", "launches", "launches_per_forward", "forwards")}
+            for what, row in artifacts["serving"].items()},
+        "snps_only_launches": snps["launches"],
         "shapes": [{k: row[k] for k in (
             "shape", "B", "N", "F0", "widths", "kernel_ms", "kernel_cold_ms",
             "plain_ms", "plain_cold_ms", "library_ms", "library_cold_ms",
@@ -1344,7 +1761,20 @@ def main() -> int:
                  "epochs": run["epochs"], "result_line": run["result_line"],
                  "card_vs_cpu_loss_max_rel_diff":
                      run["card_vs_cpu"]["loss_max_rel_diff"]}
-                 for name, run in routes.items()}}
+                 for name, run in routes.items()},
+             "bundles": {what: {k: row[k] for k in (
+                 "subjects", "cohort_wall_s", "log_probs_max_abs_diff")}
+                 for what, row in artifacts["serving"].items()},
+             "resume": {"wall_s": artifacts["resume"]["wall_s"],
+                        "retrained_test_loss_max_rel_diff": max(
+                            artifacts["resume"][
+                                "retrained_test_loss_max_rel_diff"].values())},
+             "snps_only": {model: {
+                 "experiment_wall_s": run["experiment_wall_s"],
+                 "result_line": run["result_line"],
+                 "card_vs_cpu_loss_max_rel_diff":
+                     run["card_vs_cpu"]["loss_max_rel_diff"]}
+                 for model, run in snps["families"].items()}}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1353,6 +1783,7 @@ def main() -> int:
                    "times": times, "train_times": train_times,
                    "profile": profile, "training": training,
                    "multi_fusion": multi, "families": families,
+                   "artifacts": artifacts, "snps_only": snps,
                    "device": device}, fh, indent=1, default=float)
     log(card)
     log(json.dumps(serve))

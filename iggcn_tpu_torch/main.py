@@ -1,5 +1,5 @@
-"""Experiment CLI of the port: the fused-family routes of the JAX
-package's `main.py` on the card.
+"""Experiment CLI of the port: the fused-family and SNP-only routes of the
+JAX package's `main.py` on the card.
 
     python -m iggcn_tpu_torch.main --synthetic --synthetic_subjects 874 \\
         --epochs 200 --lambda_disease 1.0 --no-search --layers 2 --hiddens 16
@@ -9,12 +9,16 @@ split over the (layers, hiddens, h) grid (`--search`, the default, is the
 reference's five configurations; `--isMultiFusion` has its own) and prints
 the per-epoch lines, a `[throughput]` line per configuration and the
 `Result - <mean> +/- <std>, with L layers and H hidden units and h = ...`
-line; the npy artifacts go to results/ADNI<save_appendix>/. `--model`
-takes the seven fused families of `FUSION_MODELS`, with the JAX CLI's
-routing, and the flagship's variant flags. It runs on the card and raises
-without one unless `--device cpu` is given. The flags mean what they mean
-in the JAX package; the real-data loaders, the zoo and SNP-only families
-and the batch/permutation/resume routes are not ported yet.
+line; the npy artifacts, each fold's checkpoint and record (and with
+`--export_bundle` its serving bundle) go to results/ADNI<save_appendix>/,
+and `--resume` with the same appendix restores the folds already done.
+`--model` takes the seven fused families of `FUSION_MODELS`, with the JAX
+CLI's routing, and the flagship's variant flags, and the two SNP-only
+families of `SNP_MODELS` (binary; a `Result - ... (SNP-only, <model>)`
+line). It runs on the card and raises without one unless `--device cpu`
+is given. The flags mean what they mean in the JAX package; the
+real-data loaders, the zoo and the batch/permutation routes are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -40,12 +44,12 @@ FUSION_MODELS = {
     "SGCN_GAT": "sgcn_image",
     "SGCN_Ori": "sgcn_ori",
 }
+SNP_MODELS = ("MLP_Model", "Gene_ontology_network")
 # the JAX CLI's other names: routes of the port's later slices
 NOT_PORTED = ("GCN", "GAT", "GIN", "GIN0", "GraphSAGE", "GraphSAGEWithoutJK",
               "TopK", "DiffPool", "SortPool", "Set2Set", "GlobalAttention",
               "Graclus", "CNN_Model", "NestedGCN", "NestedGAT", "NestedGIN",
-              "NestedGIN0", "NestedGraphSAGE", "MLP_Model",
-              "Gene_ontology_network")
+              "NestedGIN0", "NestedGraphSAGE")
 # the GO DAG of the synthetic route: synthetic_topology's default levels,
 # as the JAX package's CLI draws it
 DEFAULT_GO_LEVELS = "24,16,10,6,1"
@@ -56,7 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="IG-GCN cross-validation on an NVIDIA GPU (PyTorch port)")
     p.add_argument("--model", type=str, default="SGCN_GCN_IMGSNP",
                    help="model family by reference name; the port has "
-                        + ", ".join(FUSION_MODELS))
+                        + ", ".join(tuple(FUSION_MODELS) + SNP_MODELS))
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--synthetic", action="store_true", default=False,
@@ -160,6 +164,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_appendix", default="",
                    help="suffix of the results dir results/ADNI<appendix> "
                         "(default: a timestamp)")
+    p.add_argument("--resume", action="store_true", default=False,
+                   help="resume an interrupted experiment: folds with a "
+                        "fold_result_*.npz of this configuration in the "
+                        "results dir are restored instead of retrained "
+                        "(needs the --save_appendix of that run)")
+    p.add_argument("--export_bundle", action="store_true", default=False,
+                   help="also write a serving bundle per fold from its "
+                        "best epoch (serve with iggcn_tpu_torch.tools.serve)")
+    p.add_argument("--snps_csv_root", type=str, default="./data/snps/data",
+                   help="root of the standalone SNP csv cohorts "
+                        "(<root>/data_{AH,MH,AM}/{snp,dia}.csv) of the "
+                        "SNP-only families; without them they train on the "
+                        "cohort's SNP matrix")
     return p
 
 
@@ -251,6 +268,65 @@ def setup_run_dir(args, argv: Optional[List[str]]):
     return res_dir, logger
 
 
+def snps_inputs(args, parser, dcfg: DataConfig, rng: np.random.Generator):
+    """(snps, labels, topology) of the SNP-only families: the standalone
+    csv cohort when it is there (not with --synthetic), else the cohort's
+    SNP matrix and labels, as the JAX CLI's `_snps_inputs`."""
+    from iggcn_tpu_torch.data import go_graph
+    from iggcn_tpu_torch.data.snps import load_snps_csv
+    if dcfg.num_classes != 2:
+        parser.error("SNP trainers are binary classifiers (BCE); use "
+                     "--disease_id 0|1|2")
+    snps_csv = None
+    if not args.synthetic:
+        try:
+            snps_csv = load_snps_csv(args.snps_csv_root, args.disease_id)
+            print(f"[data] SNP csv cohort: {snps_csv[0].shape[0]} subjects")
+        except FileNotFoundError:
+            pass
+    if snps_csv is None:
+        cohort, topo = load_cohort(args, dcfg, rng)
+        return cohort.snps, cohort.y.astype(np.float32), topo
+    go_files = (dcfg.json_path, dcfg.go_connection_path,
+                dcfg.snps_to_gene_path)
+    if all(os.path.exists(p) for p in go_files):
+        raise NotImplementedError(
+            "the GO source files are present, but the port's GO JSON/DAG "
+            "parser (data/go_graph.py:parse_go_json) is not ported yet "
+            "(ROADMAP Queue 1 item 7); the JAX CLI would parse them, so the "
+            "port does not fall back to a synthetic DAG")
+    print("[data] GO source files missing "
+          f"({[p for p in go_files if not os.path.exists(p)]}); using a "
+          "synthetic GO topology")
+    topo = go_graph.synthetic_topology(rng)
+    if args.model == "Gene_ontology_network" and \
+            snps_csv[0].shape[1] != topo.go_snps.shape[1]:
+        parser.error(f"csv cohort has {snps_csv[0].shape[1]} SNPs but the GO "
+                     f"topology expects {topo.go_snps.shape[1]}")
+    return snps_csv[0], snps_csv[1], topo
+
+
+def run_snps_experiment(args, res_dir: str, logger, snps_x, snps_y, topo,
+                        device):
+    """One SNP-only CV run (a fixed architecture, no grid); prints and logs
+    the `Result - ... (SNP-only, <model>)` line and returns the
+    `SnpsCVResult`."""
+    from iggcn_tpu_torch.train.snps_trainer import cross_validation_snps
+    kind = "mlp" if args.model == "MLP_Model" else "go"
+    res = cross_validation_snps(
+        snps_x, snps_y, topo, folds=args.fold, epochs=args.epochs,
+        batch_size=args.batch_size, lr=args.lr, seed=args.seed,
+        model_kind=kind,
+        result_path=os.path.join(res_dir, f"result_snps_{kind}.npy"),
+        bundle_dir=res_dir if args.export_bundle else None,
+        record_dir=res_dir, resume=args.resume, verbose=True, device=device)
+    log = (f"Result - {res.best_acc:.3f} +/- {res.best_acc_std:.3f} "
+           f"(SNP-only, {args.model})")
+    print(log)
+    logger(log)
+    return res
+
+
 def improves(loss: float, best_loss: float) -> bool:
     """NaN-aware grid selection: a NaN loss only replaces the initial inf,
     any real loss beats a NaN best."""
@@ -260,14 +336,28 @@ def improves(loss: float, best_loss: float) -> bool:
 
 
 def main(argv: Optional[List[str]] = None):
-    """Run the experiment; returns the CVResult of every configuration."""
+    """Run the experiment; returns the CVResult of every configuration, or
+    the SnpsCVResult of a SNP-only family."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.model not in FUSION_MODELS:
+    if args.model not in FUSION_MODELS and args.model not in SNP_MODELS:
         what = ("is not ported yet" if args.model in NOT_PORTED
                 else "is unknown")
         parser.error(f"--model {args.model!r} {what}; the port has: "
-                     f"{', '.join(FUSION_MODELS)}")
+                     f"{', '.join(tuple(FUSION_MODELS) + SNP_MODELS)}")
+    if args.export_bundle and FUSION_MODELS.get(args.model) in ("sgcn_image",
+                                                                "sgcn_ori"):
+        image_only = {m for m, k in FUSION_MODELS.items()
+                      if k in ("sgcn_image", "sgcn_ori")}
+        parser.error(
+            f"--export_bundle does not support --model {args.model}: "
+            "serving bundles exist for the fused imaging-genetics families "
+            f"({', '.join(sorted(set(FUSION_MODELS) - image_only))}) and the "
+            f"SNP-only families ({', '.join(SNP_MODELS)})")
+    if args.resume and args.save_appendix == "":
+        parser.error("--resume needs --save_appendix naming the results "
+                     "dir of the interrupted run (a fresh timestamped dir "
+                     "has nothing to resume from)")
     if args.clinical_score_index != -1 and args.num_regr not in (None, 1):
         # one selected score is one regression target: a 3-wide head
         # against a (B, 1) target would broadcast in the MSE
@@ -283,7 +373,13 @@ def main(argv: Optional[List[str]] = None):
     dcfg = DataConfig(disease_id=args.disease_id,
                       clinical_score_index=args.clinical_score_index,
                       top_k=args.top_k, is_multi_fusion=args.isMultiFusion)
-    cohort, topo = load_cohort(args, dcfg, np.random.default_rng(args.seed))
+    rng = np.random.default_rng(args.seed)
+    if args.model in SNP_MODELS:
+        # before the imaging cohort: a csv cohort needs none of it
+        return run_snps_experiment(args, res_dir, logger,
+                                   *snps_inputs(args, parser, dcfg, rng),
+                                   device)
+    cohort, topo = load_cohort(args, dcfg, rng)
 
     results = []
     best = (float("inf"), 0.0, 0.0)
@@ -304,7 +400,9 @@ def main(argv: Optional[List[str]] = None):
             result_file_name=(f"result_sgcn_img_snp_layers{num_layers}"
                               f"_hidden{hidden}_h{h}"),
             clinical_score_index=args.clinical_score_index, logger=logger,
-            model_kind=FUSION_MODELS[args.model], device=device)
+            model_kind=FUSION_MODELS[args.model],
+            export_bundle=args.export_bundle, resume=args.resume,
+            device=device)
         results.append(res)
         print(f"[throughput] {res.throughput_graphs_per_sec:.1f} graphs/s")
         if improves(res.mean_test_loss, best[0]):

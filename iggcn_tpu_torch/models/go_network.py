@@ -17,8 +17,11 @@ identical math:
 'auto' takes 'edge' at batch >= 64, as the JAX package does.
 `activation='prelu'` is the GUIDE family's variant (`guide_go_model`): a
 learned PReLU in place of every relu, and a latent that ends at `latent2`
-with no batch norm. The standalone `classify` head comes with the SNP-only
-trainers.
+with no batch norm. `classifier=True` adds the standalone SNP classifier
+head (`classify`: `bn_cls` over [latent || snps], `cls1`, `cls2`) that the
+SNP-only trainer uses. Its leaves exist only then: in the JAX package they
+exist only where `classify` was traced at init, which the fused models'
+GO branches never do.
 """
 from __future__ import annotations
 
@@ -64,13 +67,22 @@ class GeneOntologyNetwork(nn.Module):
       dropout_gcn: node-row dropout after each encoder/decoder layer.
       dropout_readout: dropout after the readout batch norms.
       activation: 'relu' | 'prelu'.
+      classifier: also build the `classify` head (the SNP-only trainer's).
+      dropout_cls: the head's two dropout rates.
     """
+
+    # the constructor's fields a serving bundle records (`ctor` meta), as
+    # the JAX package's save_bundle lists the flax module's
+    CTOR_FIELDS = ("in_f_dim", "n_l", "f_dim", "l_dim", "dim_snps_atten",
+                   "activation", "attention_impl")
 
     def __init__(self, topo: GoTopology, *, in_f_dim: int = 2, n_l: int = 2,
                  f_dim: Sequence[int] = (5, 5), l_dim: int = 32,
                  dim_snps_atten: int = 5, attention_impl: str = "auto",
                  dropout_gcn: float = 0.4, dropout_readout: float = 0.5,
-                 activation: str = "relu", generator=None, device=None):
+                 activation: str = "relu", classifier: bool = False,
+                 dropout_cls: Tuple[float, float] = (0.5, 0.3),
+                 generator=None, device=None):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}; "
@@ -83,6 +95,11 @@ class GeneOntologyNetwork(nn.Module):
         self.dropout_gcn = dropout_gcn
         self.dropout_readout = dropout_readout
         self.n_l = n_l
+        self.f_dim = tuple(f_dim)
+        self.l_dim = l_dim
+        self.dim_snps_atten = dim_snps_atten
+        self.dropout_cls = tuple(dropout_cls)
+        self.topo = topo
         self.pool = list(topo.pool)
         n, s = topo.go_snps.shape
         n_top = n - sum(self.pool[:n_l])
@@ -164,6 +181,12 @@ class GeneOntologyNetwork(nn.Module):
                 setattr(self, f"act_dec_{i}", PReLU(device=dev))
             for name in ("atten", "b", "b_d", "latent1"):
                 setattr(self, f"act_{name}", PReLU(device=dev))
+        self.classifier = classifier
+        if classifier:
+            self.bn_cls = BatchNorm1d(l_dim + s, device=dev)
+            self.cls1 = TorchLinear(l_dim + s, 16, bias=False, generator=g,
+                                    device=dev)
+            self.cls2 = TorchLinear(16, 1, generator=g, device=dev)
 
     def _act(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """relu, or the PReLU `act_<name>` of the prelu variant."""
@@ -253,3 +276,23 @@ class GeneOntologyNetwork(nn.Module):
         # gene decoding: (B, n) -> (B, S)
         x_hat = out_d @ (self.gene_mask * self.gene_dec)
         return latent, x_hat, atten_out
+
+    def classify(self, latent: torch.Tensor, snps: torch.Tensor, *,
+                 sample_weight: torch.Tensor | None = None,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, 1) probability of the SNP classifier head: batch norm over
+        [latent || snps] (its statistics over the rows `sample_weight`
+        marks), relu, dropout, `cls1`, relu, dropout, `cls2`, sigmoid.
+        Train mode follows `self.training` (dropout from `generator`)."""
+        if not self.classifier:
+            raise ValueError("this GeneOntologyNetwork has no classifier "
+                             "head: build it with classifier=True")
+        train = self.training
+        h = torch.cat([latent, snps], dim=-1)
+        h = torch.relu(self.bn_cls(h, sample_weight if train else None))
+        if train:
+            h = dropout(h, self.dropout_cls[0], generator)
+        h = torch.relu(self.cls1(h))
+        if train:
+            h = dropout(h, self.dropout_cls[1], generator)
+        return torch.sigmoid(self.cls2(h))

@@ -3,8 +3,12 @@
 `batched_forward` pads a host cohort to a batch multiple, uploads it to the
 model's device once, runs the eval-mode forward batch by batch under
 `torch.inference_mode()`, and returns host arrays trimmed to the cohort:
-log-probs, argmax predictions and the clinical-score regressions. The
-bf16 and multi-device options of the JAX function come later.
+log-probs, argmax predictions and, where the model has a regression head
+(`FusedSGCN`, `GuideImgSnp`; not `ClusterLabelSGCN`), the clinical-score
+regressions. `batched_forward_snps` serves the SNP-only families from a
+SNP matrix alone: the GO network's encode-then-classify eval, or the
+MLP's head, as a probability and `pred = prob > 0.5`. The bf16 and
+multi-device options of the JAX functions come later.
 """
 from __future__ import annotations
 
@@ -12,6 +16,9 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+
+from iggcn_tpu_torch.models.clusterlabel import ClusterLabelSGCN
+from iggcn_tpu_torch.models.go_network import GeneOntologyNetwork
 
 
 def pad_split_batches(arrays: Sequence[np.ndarray], batch_size: int,
@@ -61,14 +68,15 @@ def batched_forward(model, x: np.ndarray, adj: np.ndarray, snps: np.ndarray,
     """Serve a cohort on the model's device.
 
     Args:
-      model: an eval-mode `FusedSGCN`.
+      model: an eval-mode `FusedSGCN`, `GuideImgSnp` or `ClusterLabelSGCN`.
       x (S, N, F), adj (S, N, N), snps (S, S_snp): host arrays.
       batch_size: serving batch.
       fixed_batch: keep the batch at exactly `batch_size` even when the
         cohort is smaller (what a long-lived server wants: every request
         has the same shapes); by default the batch shrinks to the cohort.
-    Returns host arrays: log_probs (S, C) float32, pred (S,) int32 and
-    our_reg (S, R) float32, padding rows removed.
+    Returns host arrays: log_probs (S, C) float32, pred (S,) int32 and,
+    where the model has a regression head, our_reg (S, R) float32, padding
+    rows removed.
     """
     validate_cohort_shapes(model, x, adj, snps)
     n = x.shape[0]
@@ -77,17 +85,67 @@ def batched_forward(model, x: np.ndarray, adj: np.ndarray, snps: np.ndarray,
     device = next(model.parameters()).device
     xb, ab, sb = pad_split_batches((x, adj, snps), b, device)
     cfg = model.cfg
+    has_regr = not isinstance(model, ClusterLabelSGCN)
     log_probs, our_reg = [], []
     with torch.inference_mode():
         for i in range(xb.shape[0]):
             out = model(xb[i], ab[i], sb[i])
             log_probs.append(out.log_probs)
-            our_reg.append(out.our_reg)
+            if has_regr:
+                our_reg.append(out.our_reg)
         if log_probs:
             lp = torch.cat(log_probs)
-            res = {"log_probs": lp, "pred": lp.argmax(dim=-1).to(torch.int32),
-                   "our_reg": torch.cat(our_reg)}
+            res = {"log_probs": lp, "pred": lp.argmax(dim=-1).to(torch.int32)}
+            if has_regr:
+                res["our_reg"] = torch.cat(our_reg)
             return {k: v[:n].cpu().numpy() for k, v in res.items()}
-    return {"log_probs": np.zeros((0, cfg.num_classes), np.float32),
-            "pred": np.zeros((0,), np.int32),
-            "our_reg": np.zeros((0, cfg.num_regr), np.float32)}
+    res = {"log_probs": np.zeros((0, cfg.num_classes), np.float32),
+           "pred": np.zeros((0,), np.int32)}
+    if has_regr:
+        res["our_reg"] = np.zeros((0, cfg.num_regr), np.float32)
+    return res
+
+
+def snps_width(model) -> int:
+    """The SNP count a SNP-only model takes."""
+    if isinstance(model, GeneOntologyNetwork):
+        return int(model.topo.num_snps)
+    return int(model.num_snps)
+
+
+def batched_forward_snps(model, snps: np.ndarray, *, batch_size: int = 256,
+                         fixed_batch: bool = False,
+                         expected_width: int | None = None
+                         ) -> Dict[str, np.ndarray]:
+    """Serve a SNP-only cohort on the model's device: (S, P) host matrix ->
+    prob (S,) float32 and pred (S,) int32 (prob > 0.5).
+
+    `model` is an eval-mode `GeneOntologyNetwork` built with
+    `classifier=True` (encode, then classify the latent) or an `MLPModel`.
+    `expected_width` fails fast with the model's SNP count on a matrix of
+    another width; the batch recipe is `batched_forward`'s."""
+    snps = np.asarray(snps)
+    if snps.ndim != 2:
+        raise ValueError(f"snps matrix must be 2-D (subjects, snps); got "
+                         f"shape {snps.shape}")
+    if expected_width is not None and snps.shape[1] != expected_width:
+        raise ValueError(f"snps matrix has width {snps.shape[1]} but this "
+                         f"model expects {expected_width}")
+    n = snps.shape[0]
+    b = batch_size if fixed_batch else (min(batch_size, n) if n
+                                        else batch_size)
+    device = next(model.parameters()).device
+    (sb,) = pad_split_batches((snps,), b, device)
+    is_go = isinstance(model, GeneOntologyNetwork)
+    probs = []
+    with torch.inference_mode():
+        for i in range(sb.shape[0]):
+            if is_go:
+                latent, _, _ = model(sb[i])
+                y_hat = model.classify(latent, sb[i])
+            else:
+                y_hat = model(sb[i])
+            probs.append(y_hat[:, 0])
+        prob = (torch.cat(probs)[:n].cpu().numpy() if probs
+                else np.zeros((0,), np.float32))
+    return {"prob": prob, "pred": (prob > 0.5).astype(np.int32)}

@@ -9,11 +9,14 @@ name as is. Buffers are not weights unless a table names them (the BN
 running statistics, which live in `batch_stats`).
 
 Both directions check every leaf: a missing or extra key or a shape that
-differs raises, so a tree never loads half-way unnoticed.
+differs raises, so a tree never loads half-way unnoticed. The SNP-only
+classifiers' leaves (the GO network's `bn_cls`/`cls1`/`cls2` head, built
+with `classifier=True`, and `MLPModel`'s `fc1`-`fc3`) map by the same
+rules, so their bundles and checkpoints cross too.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,19 +25,28 @@ from torch import nn
 Path = Tuple[str, ...]
 
 
-def _leaves(model: nn.Module) -> Iterator[Tuple[Path, torch.Tensor, bool]]:
-    """(collection + flax path, tensor, transposed) for every weight."""
+def _leaves(model: nn.Module, state: Optional[Mapping[str, torch.Tensor]]
+            = None) -> Iterator[Tuple[Path, torch.Tensor, bool]]:
+    """(collection + flax path, tensor, transposed) for every weight; the
+    tensor is the module's own, or its entry in `state` (a `state_dict()`
+    or a copy of one) when that is given."""
     for mod_name, mod in model.named_modules():
         prefix = tuple(mod_name.split(".")) if mod_name else ()
+
+        def pick(attr, t):
+            return t if state is None else state[
+                ".".join(prefix + (attr,))]
+
         table = getattr(mod, "FLAX_LEAVES", None)
         if table is None:
             for name, p in mod.named_parameters(recurse=False):
-                yield ("params",) + prefix + (name,), p, False
+                yield ("params",) + prefix + (name,), pick(name, p), False
             continue
         for attr, (collection, leaf, transposed) in table.items():
             t = getattr(mod, attr)
             if t is not None:
-                yield (collection,) + prefix + (leaf,), t, transposed
+                yield ((collection,) + prefix + (leaf,), pick(attr, t),
+                       transposed)
 
 
 def _flatten(tree: Dict[str, Any], prefix: Path) -> Dict[Path, Any]:
@@ -74,11 +86,15 @@ def load_flax_variables(model: nn.Module, params: Dict[str, Any],
     return model
 
 
-def to_flax_variables(model: nn.Module) -> Dict[str, Dict[str, Any]]:
+def to_flax_variables(model: nn.Module,
+                      state: Optional[Mapping[str, torch.Tensor]] = None
+                      ) -> Dict[str, Dict[str, Any]]:
     """{'params': ..., 'batch_stats': ...} nested dicts of float32 numpy
-    arrays in the flax layout of `model`'s JAX counterpart."""
+    arrays in the flax layout of `model`'s JAX counterpart: the model's
+    own weights, or those of `state` (a copy of its `state_dict()`, such
+    as the best epoch's) when given."""
     out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
-    for path, t, transposed in _leaves(model):
+    for path, t, transposed in _leaves(model, state):
         arr = t.detach().cpu().numpy().astype(np.float32)
         node = out
         for key in path[:-1]:

@@ -1,15 +1,18 @@
 """Serving bundle + batch-prediction CLI + HTTP daemon (port of
 `iggcn_tpu/tools/serve.py`).
 
-A bundle is ONE `.npz` holding the model config, the GO topology and the
-trained collections, in the same layout the JAX tool reads and writes:
-`__meta__` (JSON: model_class, config, topo), `params/...`,
-`batch_stats/...` and `topo/...` arrays. A bundle written by either
-package serves in the other. The port serves `FusedSGCN` bundles; the
-other families come with a later slice.
+A bundle is ONE `.npz` holding the model's configuration, the GO
+topology and the trained collections, in the same layout the JAX tool
+reads and writes: `__meta__` (JSON: model_class, then `config` for the
+fused families or `ctor` for the SNP-only ones, and `topo` where the
+model has one), `params/...`, `batch_stats/...` and `topo/...` arrays. A
+bundle written by either package serves in the other. Every bundle class
+of the JAX tool serves: `FusedSGCN` (GAT included), `GuideImgSnp`,
+`ClusterLabelSGCN`, and the SNP-only `GeneOntologyNetwork` (with its
+classifier head) and `MLPModel`.
 
 API:
-  save_bundle(path, model)
+  save_bundle(path, model[, params, batch_stats])
   model = load_bundle(path, device=None)
 
 CLI (runs on the card unless --device cpu is given):
@@ -18,14 +21,17 @@ CLI (runs on the card unless --device cpu is given):
   python -m iggcn_tpu_torch.tools.serve BUNDLE.npz --http 8000 [--batch 256]
 
 `cohort.npz` needs arrays `x` (S, N, F), `adj` (S, N, N), `snps` (S, P);
-`preds.npz` gets `log_probs`, `pred` and `our_reg`.
+`preds.npz` gets `log_probs`, `pred`, and `our_reg` where the model has a
+regression head. SNP-only bundles need only `snps` and give `prob` and
+`pred`.
 
 HTTP protocol (npz on the wire):
-  GET  /health   -> JSON {model_class, batch, dtype, device, ...}
+  GET  /health   -> JSON {model_class, batch, dtype, device, inputs, ...}
   GET  /stats    -> JSON {requests, errors, subjects_scored, uptime_s,
                     latency_ms {last, p50, p95, window}}
-  POST /predict  -> body: npz bytes with x/adj/snps; response: npz bytes
-                    with log_probs/pred/our_reg
+  POST /predict  -> body: npz bytes with x/adj/snps (snps alone for a
+                    SNP-only bundle); response: npz bytes with the
+                    one-shot CLI's arrays
 """
 from __future__ import annotations
 
@@ -38,15 +44,20 @@ import os
 import sys
 import threading
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from iggcn_tpu_torch.config import ModelConfig
 from iggcn_tpu_torch.data.go_graph import GoTopology
+from iggcn_tpu_torch.models.baselines import MLPModel
+from iggcn_tpu_torch.models.clusterlabel import ClusterLabelSGCN
 from iggcn_tpu_torch.models.fused_sgcn import FusedSGCN
-from iggcn_tpu_torch.predict import batched_forward
+from iggcn_tpu_torch.models.go_network import GeneOntologyNetwork
+from iggcn_tpu_torch.models.guide import GuideImgSnp
+from iggcn_tpu_torch.predict import (batched_forward, batched_forward_snps,
+                                     snps_width)
 from iggcn_tpu_torch.tools.convert import load_flax_variables, to_flax_variables
 from iggcn_tpu_torch.utils.platform import resolve_device
 
@@ -80,31 +91,60 @@ def _unflatten(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
     return out
 
 
-def save_bundle(path: str, model: FusedSGCN) -> None:
-    """Write the model's config, GO topology and weights as one npz."""
-    topo = model.topo
-    variables = to_flax_variables(model)
-    meta = {"model_class": type(model).__name__,
-            "config": dataclasses.asdict(model.cfg),
-            "topo": {"pool": list(map(int, topo.pool)),
-                     "n_l": int(topo.n_l),
-                     "go_ids": list(topo.go_ids),
-                     "go_genes": [list(g) for g in topo.go_genes]}}
-    payload = {**_flatten(variables["params"], "params"),
-               **_flatten(variables["batch_stats"], "batch_stats"),
-               "topo/adj_child_parent": np.asarray(topo.adj_child_parent),
-               "topo/go_snps": np.asarray(topo.go_snps),
-               "topo/go_level": np.asarray(topo.go_level),
-               "__meta__": np.asarray(json.dumps(meta))}
+# bundled model class -> the port's module; the fused families are built
+# from `config` + `topo`, the SNP-only ones from `ctor` (+ `topo` for the
+# GO network)
+BUNDLE_CLASSES = {"FusedSGCN": FusedSGCN, "GuideImgSnp": GuideImgSnp,
+                  "ClusterLabelSGCN": ClusterLabelSGCN,
+                  "GeneOntologyNetwork": GeneOntologyNetwork,
+                  "MLPModel": MLPModel}
+
+
+def save_bundle(path: str, model: torch.nn.Module,
+                params: Dict[str, Any] | None = None,
+                batch_stats: Dict[str, Any] | None = None) -> None:
+    """Write the model's configuration, GO topology and weights as one
+    npz: the model's own weights, or the flax trees `params` /
+    `batch_stats` when given (a fold's best epoch).
+
+    Two meta layouts, as the JAX package writes them: the fused families
+    record `config` (their ModelConfig); the SNP-only families record
+    `ctor`, the module's constructor fields (`CTOR_FIELDS`: no topology,
+    no dropout rates), and carry a topology block only when the model has
+    one (the GO network, not the MLP)."""
+    if type(model).__name__ not in BUNDLE_CLASSES:
+        raise ValueError(f"no bundle layout for {type(model).__name__}; "
+                         f"bundles hold {sorted(BUNDLE_CLASSES)}")
+    if params is None:
+        variables = to_flax_variables(model)
+        params, batch_stats = variables["params"], variables["batch_stats"]
+    meta: Dict[str, Any] = {"model_class": type(model).__name__}
+    if hasattr(model, "cfg"):
+        meta["config"] = dataclasses.asdict(model.cfg)
+    else:
+        meta["ctor"] = {f: (list(v) if isinstance(v, tuple) else v)
+                        for f in model.CTOR_FIELDS
+                        for v in (getattr(model, f),)}
+    payload = {**_flatten(params, "params"),
+               **_flatten(batch_stats or {}, "batch_stats")}
+    topo = getattr(model, "topo", None)
+    if topo is not None:
+        meta["topo"] = {"pool": list(map(int, topo.pool)),
+                        "n_l": int(topo.n_l),
+                        "go_ids": list(topo.go_ids),
+                        "go_genes": [list(g) for g in topo.go_genes]}
+        payload["topo/adj_child_parent"] = np.asarray(topo.adj_child_parent)
+        payload["topo/go_snps"] = np.asarray(topo.go_snps)
+        payload["topo/go_level"] = np.asarray(topo.go_level)
+    payload["__meta__"] = np.asarray(json.dumps(meta))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **payload)
 
 
-def load_bundle(path: str, device: str | torch.device | None = None
-                ) -> FusedSGCN:
-    """Rebuild an eval-mode model from a `save_bundle` npz (written by this
-    package or by the JAX one) on `device` (default: CUDA)."""
-    dev = resolve_device(device)
+def read_bundle(path: str) -> Tuple[Dict[str, Any], Dict[str, Any],
+                                    Dict[str, Any], GoTopology | None]:
+    """(meta, params, batch_stats, topology or None) of a `save_bundle`
+    npz written by either package, as host arrays; nothing is built."""
     with np.load(path, allow_pickle=False) as zf:
         flat = {k: zf[k] for k in zf.files}
     if "__meta__" not in flat:
@@ -114,33 +154,69 @@ def load_bundle(path: str, device: str | torch.device | None = None
             "save_bundle / --export_bundle. A cohort npz (x/adj/snps) "
             "belongs on --npz, not in the bundle position.")
     meta = json.loads(str(flat.pop("__meta__")))
-    if meta["model_class"] != "FusedSGCN":
-        raise ValueError(
-            f"bundled model class {meta['model_class']} is not served by the "
-            "PyTorch port yet: it serves FusedSGCN bundles; the other "
-            "families' bundles (GuideImgSnp, ClusterLabelSGCN, "
-            "GeneOntologyNetwork, MLPModel) come with a later slice, with "
-            "--export_bundle (ROADMAP Queue 1 item 8). "
-            "Serve this bundle with iggcn_tpu.tools.serve.")
-    topo = GoTopology(
-        adj_child_parent=flat.pop("topo/adj_child_parent"),
-        go_snps=flat.pop("topo/go_snps"),
-        go_level=flat.pop("topo/go_level"),
-        pool=list(meta["topo"]["pool"]), n_l=meta["topo"]["n_l"],
-        go_ids=list(meta["topo"]["go_ids"]),
-        go_genes=[list(g) for g in meta["topo"]["go_genes"]])
-    # JSON turns tuples into lists; keys this ModelConfig does not know
-    # (a newer producer) are dropped, as the JAX loader does
-    known = {f.name for f in dataclasses.fields(ModelConfig)}
-    cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
-                         for k, v in meta["config"].items() if k in known})
-    model = FusedSGCN(cfg, topo, device=dev)
-    load_flax_variables(model, _unflatten(flat, "params"),
-                        _unflatten(flat, "batch_stats"))
+    if meta["model_class"] not in BUNDLE_CLASSES:
+        raise ValueError(f"unknown bundled model class {meta['model_class']};"
+                         f" supported: {sorted(BUNDLE_CLASSES)}")
+    topo = None
+    if "topo" in meta:
+        topo = GoTopology(
+            adj_child_parent=flat.pop("topo/adj_child_parent"),
+            go_snps=flat.pop("topo/go_snps"),
+            go_level=flat.pop("topo/go_level"),
+            pool=list(meta["topo"]["pool"]), n_l=meta["topo"]["n_l"],
+            go_ids=list(meta["topo"]["go_ids"]),
+            go_genes=[list(g) for g in meta["topo"]["go_genes"]])
+    return (meta, _unflatten(flat, "params"), _unflatten(flat, "batch_stats"),
+            topo)
+
+
+def _infer_input_width(params: Dict[str, Any]) -> int:
+    """Input width of a topology-less SNP bundle (the MLP): the fan-in of
+    the one dense layer whose fan-in is no other layer's output width, as
+    the JAX package infers it; key order when that is ambiguous."""
+    kernels = {key: node["kernel"] for key, node in params.items()
+               if isinstance(node, dict)
+               and getattr(node.get("kernel"), "ndim", 0) == 2}
+    if not kernels:
+        raise ValueError("could not infer the input width from the bundle's "
+                         "params (no 2-D kernel leaf found)")
+    out_widths = {int(k.shape[1]) for k in kernels.values()}
+    roots = [k for k in kernels.values() if int(k.shape[0]) not in out_widths]
+    if len(roots) == 1:
+        return int(roots[0].shape[0])
+    return int(kernels[sorted(kernels)[0]].shape[0])
+
+
+def load_bundle(path: str, device: str | torch.device | None = None
+                ) -> torch.nn.Module:
+    """Rebuild an eval-mode model from a `save_bundle` npz (written by this
+    package or by the JAX one) on `device` (default: CUDA): any of
+    `BUNDLE_CLASSES`, built as training builds it, so the imaging stack
+    goes through the GCN-stack kernel on the card here too."""
+    dev = resolve_device(device)
+    meta, params, batch_stats, topo = read_bundle(path)
+    cls = BUNDLE_CLASSES[meta["model_class"]]
+    if "config" in meta:
+        # JSON turns tuples into lists; keys this ModelConfig does not
+        # know (a newer producer) are dropped, as the JAX loader does
+        known = {f.name for f in dataclasses.fields(ModelConfig)}
+        cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in meta["config"].items()
+                             if k in known})
+        model = cls(cfg, topo, device=dev)
+    else:
+        ctor = {k: tuple(v) if isinstance(v, list) else v
+                for k, v in meta["ctor"].items() if k in cls.CTOR_FIELDS}
+        if cls is GeneOntologyNetwork:
+            model = cls(topo, classifier="bn_cls" in params, device=dev,
+                        **ctor)
+        else:
+            model = cls(_infer_input_width(params), device=dev, **ctor)
+    load_flax_variables(model, params, batch_stats)
     return model.eval()
 
 
-def build_http_server(model: FusedSGCN, *, host: str = "127.0.0.1",
+def build_http_server(model: torch.nn.Module, *, host: str = "127.0.0.1",
                       port: int = 0, batch: int = 256,
                       device: str | torch.device | None = None):
     """A ready-to-serve `ThreadingHTTPServer` around the model, moved to
@@ -162,24 +238,41 @@ def build_http_server(model: FusedSGCN, *, host: str = "127.0.0.1",
 
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    cfg = model.cfg
     lock = threading.Lock()
+    # the SNP-only families serve from a SNP matrix alone, the fused ones
+    # from the (x, adj, snps) triple
+    snps_only = not hasattr(model, "cfg")
     health = {"model_class": type(model).__name__, "batch": batch,
               "dtype": "float32",
               "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                         else "cpu"),
-              "inputs": "x,adj,snps", "rois": cfg.rois,
-              "feat_dim": cfg.feat_dim, "num_snps": cfg.num_snps,
-              "num_classes": cfg.num_classes}
+                         else "cpu")}
+    if snps_only:
+        num_snps = snps_width(model)
+        health.update(inputs="snps", num_snps=num_snps)
+        want = ("snps",)
 
-    def forward(x, adj, snps):
-        with lock:
-            return batched_forward(model, x, adj, snps, batch_size=batch,
-                                   fixed_batch=True)
+        def forward(snps):
+            with lock:
+                return batched_forward_snps(model, snps, batch_size=batch,
+                                            fixed_batch=True,
+                                            expected_width=num_snps)
 
-    forward(np.zeros((1, cfg.rois, cfg.feat_dim), np.float32),
-            np.zeros((1, cfg.rois, cfg.rois), np.float32),
-            np.zeros((1, cfg.num_snps), np.float32))
+        forward(np.zeros((1, num_snps), np.float32))
+    else:
+        cfg = model.cfg
+        health.update(inputs="x,adj,snps", rois=cfg.rois,
+                      feat_dim=cfg.feat_dim, num_snps=cfg.num_snps,
+                      num_classes=cfg.num_classes)
+        want = ("x", "adj", "snps")
+
+        def forward(x, adj, snps):
+            with lock:
+                return batched_forward(model, x, adj, snps, batch_size=batch,
+                                       fixed_batch=True)
+
+        forward(np.zeros((1, cfg.rois, cfg.feat_dim), np.float32),
+                np.zeros((1, cfg.rois, cfg.rois), np.float32),
+                np.zeros((1, cfg.num_snps), np.float32))
 
     stats_lock = threading.Lock()
     started = time.monotonic()
@@ -253,10 +346,10 @@ def build_http_server(model: FusedSGCN, *, host: str = "127.0.0.1",
                 with np.load(io.BytesIO(self.rfile.read(n)),
                              allow_pickle=False) as zf:
                     args = tuple(np.asarray(zf[k], np.float32)
-                                 for k in ("x", "adj", "snps"))
+                                 for k in want)
             except (OSError, ValueError, KeyError) as e:
                 return self._fail(t0, 400, f"bad request body (want npz "
-                                           f"with x/adj/snps): {e}")
+                                           f"with {'/'.join(want)}): {e}")
             try:
                 out = forward(*args)
             except Exception as e:  # a server boundary: report, keep serving
@@ -290,7 +383,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("bundle", help="npz written by save_bundle (either package)")
-    p.add_argument("--npz", help="cohort npz with x/adj/snps arrays")
+    p.add_argument("--npz", help="cohort npz with x/adj/snps arrays (snps "
+                                 "alone for a SNP-only bundle)")
     p.add_argument("--out", help="output predictions npz")
     p.add_argument("--http", type=int, metavar="PORT",
                    help="run a long-lived HTTP daemon on this port instead "
@@ -329,12 +423,20 @@ def main(argv=None):
             server.server_close()
         return
     y_true = None
+    snps_only = not hasattr(model, "cfg")
     with np.load(args.npz) as zf:
-        x, adj, snps = (np.asarray(zf[k], np.float32)
-                        for k in ("x", "adj", "snps"))
+        if snps_only:
+            snps = np.asarray(zf["snps"], np.float32)
+        else:
+            x, adj, snps = (np.asarray(zf[k], np.float32)
+                            for k in ("x", "adj", "snps"))
         if "y" in zf.files:
             y_true = np.asarray(zf["y"]).reshape(-1)
-    out = batched_forward(model, x, adj, snps, batch_size=args.batch)
+    if snps_only:
+        out = batched_forward_snps(model, snps, batch_size=args.batch,
+                                   expected_width=snps_width(model))
+    else:
+        out = batched_forward(model, x, adj, snps, batch_size=args.batch)
     np.savez(args.out, **out)
     counts = np.bincount(out["pred"].astype(int))
     print(f"served {snps.shape[0]} subjects -> {args.out} "
@@ -342,9 +444,10 @@ def main(argv=None):
     if y_true is not None and y_true.shape[0] == out["pred"].shape[0]:
         acc = float((out["pred"].astype(int) == y_true.astype(int)).mean())
         msg = f"accuracy vs provided labels: {acc:.4f}"
-        if out["log_probs"].shape[1] == 2 and len(np.unique(y_true)) == 2:
-            auc = roc_auc_binary(y_true.astype(np.int64),
-                                 out["log_probs"][:, 1])
+        scores = (out["prob"] if snps_only else out["log_probs"][:, 1]
+                  if out["log_probs"].shape[1] == 2 else None)
+        if scores is not None and len(np.unique(y_true)) == 2:
+            auc = roc_auc_binary(y_true.astype(np.int64), scores)
             msg += f", auc: {auc:.4f}"
         print(msg, file=sys.stderr)
 

@@ -16,13 +16,24 @@ stays out of training and picks the best epoch; without one
 it. It prints the JAX package's per-epoch line, writes its npy artifacts
 under the same names, and returns the same `CVResult`.
 
-Not ported yet, and refused: `resume` and the per-fold records and
-checkpoints it reads, `export_bundle`, `external_test`, permutation tests
-and `fold_parallel`.
+With a results directory each fold also writes, under the JAX package's
+names: the best epoch's weights as a flax-layout msgpack checkpoint
+(`gcn_state_dict_{name}_fold_{k}.msgpack`), with `export_bundle` a
+serving bundle from them (`serving_bundle_{name}_fold_{k}.npz`, for the
+families with a GO topology), and last an atomic fold record
+(`fold_result_{name}_fold_{k}.npz`) of everything the aggregates need.
+`resume` restores the folds whose record matches this run's identity
+(`records.config_fingerprint`, the same int64 as the JAX package's) and
+trains only the rest; records written by either package resume in the
+other.
+
+Not ported yet, and refused: `external_test`, permutation tests and
+`fold_parallel`.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -40,9 +51,13 @@ from iggcn_tpu_torch.models.clusterlabel import ClusterLabelSGCN
 from iggcn_tpu_torch.models.fused_sgcn import FusedSGCN
 from iggcn_tpu_torch.models.guide import GuideImgSnp
 from iggcn_tpu_torch.models.sgcn_image import SGCNImage, SGCNOri
-from iggcn_tpu_torch.tools.convert import load_flax_variables
+from iggcn_tpu_torch.tools.convert import (load_flax_variables,
+                                           to_flax_variables)
+from iggcn_tpu_torch.tools.serve import save_bundle
 from iggcn_tpu_torch.train import artifacts, metrics
+from iggcn_tpu_torch.train.checkpoint import save_checkpoint
 from iggcn_tpu_torch.train.fold_loop import fold_perms, run_fold
+from iggcn_tpu_torch.train.records import config_fingerprint
 from iggcn_tpu_torch.train.steps import OBJECTIVES, TrainState
 from iggcn_tpu_torch.utils.platform import resolve_device
 
@@ -163,6 +178,62 @@ def write_importance(res_dir: str, result_file_name: str, fold: int,
                                          host(model.bias_n))
 
 
+# execution-strategy fields of TrainConfig whose results are identical:
+# left out of a record's run identity, so a resume may switch them
+EXECUTION_FIELDS = ("use_fold_scan", "fold_parallel", "device_gather",
+                    "dual_pass_vmap", "scan_unroll")
+# the per-fold parts of the aggregates, in a fold record under these keys
+FOLD_PARTS = ("hidden", "subid", "linear", "true_scores", "true_labels",
+              "pred_scores")
+
+
+def record_meta(tcfg: TrainConfig, mcfg: ModelConfig, model_kind: str,
+                external_test: bool = False, warm_start=None) -> np.ndarray:
+    """The int64 `meta` vector of a fold record: the explicit run axes,
+    then the fingerprint of the model kind, the ModelConfig and the
+    TrainConfig without its execution-strategy fields (plus the
+    warm-start tag), as the JAX package's `cross_validation` builds it."""
+    run_identity = dataclasses.asdict(tcfg)
+    for key in EXECUTION_FIELDS:
+        run_identity.pop(key)
+    if warm_start is not None:
+        run_identity["warm_start"] = str(warm_start[2])
+    return np.asarray(
+        [tcfg.epochs, tcfg.folds, tcfg.seed, tcfg.batch_size,
+         int(tcfg.no_val), int(tcfg.is_permut_test), int(external_test),
+         config_fingerprint(model_kind=model_kind, mcfg=mcfg,
+                            **run_identity)], np.int64)
+
+
+def load_fold_records(paths: List[str], want_meta: np.ndarray
+                      ) -> Dict[int, Dict[str, np.ndarray]]:
+    """{fold: record} of the readable records in `paths` (one per fold)
+    whose meta is `want_meta`; the others are reported and retrained."""
+    done = {}
+    for fold, path in enumerate(paths):
+        if not os.path.exists(path):
+            continue
+        try:
+            with np.load(path) as zf:
+                if not np.array_equal(zf["meta"], want_meta):
+                    print(f"[resume] {path} was written by a different "
+                          f"config (meta {zf['meta'].tolist()} vs "
+                          f"{want_meta.tolist()}); retraining fold {fold}")
+                    continue
+                done[fold] = {k: zf[k] for k in zf.files}
+        except Exception as e:  # any unreadable file is retrained
+            print(f"[resume] ignoring unreadable {path} ({e}); "
+                  f"retraining fold {fold}")
+    return done
+
+
+def write_fold_record(path: str, **arrays) -> None:
+    """Write a fold record atomically: a temporary file, then a rename."""
+    tmp = path + ".tmp.npz"   # savez appends .npz when absent
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
 def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
                      tcfg: TrainConfig, *,
                      res_dir: Optional[str] = None,
@@ -178,12 +249,13 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
                      device: str | torch.device | None = None) -> CVResult:
     """Run the CV experiment on `device` (default: the card). `warm_start`
     = (params, batch_stats, tag) flax trees start every fold (the
-    optimiser state starts fresh)."""
+    optimiser state starts fresh). With `res_dir`, every fold writes its
+    checkpoint and record (and with `export_bundle` its serving bundle);
+    `resume` restores the folds whose record matches this run."""
     if model_kind not in MODEL_FAMILIES:
         raise ValueError(f"unknown model_kind {model_kind}; "
                          f"one of {sorted(MODEL_FAMILIES)}")
-    refused = {"resume": resume, "export_bundle": export_bundle,
-               "external_test": external_test is not None,
+    refused = {"external_test": external_test is not None,
                "is_permut_test": tcfg.is_permut_test,
                "fold_parallel": tcfg.fold_parallel}
     for what, asked in refused.items():
@@ -200,15 +272,43 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
     score_names = (SCORE_NAMES_DEFAULT if clinical_score_index == -1
                    else [SCORE_NAMES_ALL[clinical_score_index]])
 
+    def fold_file(stem: str, fold: int, ext: str) -> str:
+        return os.path.join(res_dir,
+                            f"{stem}_{result_file_name}_fold_{fold}.{ext}")
+
+    want_meta = record_meta(tcfg, mcfg, model_kind, warm_start=warm_start)
+    done_folds: Dict[int, Dict[str, np.ndarray]] = {}
+    if resume and res_dir is not None:
+        done_folds = load_fold_records(
+            [fold_file("fold_result", f, "npz") for f in range(tcfg.folds)],
+            want_meta)
+
     all_score_results, test_losses, accs, durations = [], [], [], []
-    best_parts: Dict[str, List[np.ndarray]] = {
-        k: [] for k in ("hidden", "subid", "linear", "true_scores",
-                        "true_labels", "pred_scores")}
+    best_parts: Dict[str, List[np.ndarray]] = {k: [] for k in FOLD_PARTS}
     fold_graphs: List[int] = []
     fold_cold: List[bool] = []
     seen_shapes: set = set()
 
     for fold, split in enumerate(splits):
+        if fold in done_folds:
+            d = done_folds[fold]
+            test_losses.extend(d["test_losses"].tolist())
+            accs.extend(d["accs"].tolist())
+            all_score_results.append(d["score_result_epoch"])
+            for part in FOLD_PARTS:
+                best_parts[part].append(d[part])
+            # nothing trained: left out of the steady-state throughput
+            durations.append(0.0)
+            fold_graphs.append(0)
+            fold_cold.append(True)
+            msg = (f"[resume] fold {fold} restored from "
+                   f"{fold_file('fold_result', fold, 'npz')} "
+                   "(training skipped)")
+            if verbose:
+                print(msg)
+            if logger is not None:
+                logger(msg)
+            continue
         p = prepare_fold(cohort, full, split, fold, tcfg, clinical_score_index)
         n_train, n_test, n_val = p["n_train"], p["n_test"], p["n_val"]
         t_start = time.perf_counter()
@@ -272,19 +372,34 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         accs.extend(fold_accs)
         all_score_results.append(score_result_epoch)
 
-        if res_dir is not None:
-            write_importance(res_dir, result_file_name, fold, state.model)
         best_test = best["test"]
         zeros = np.zeros((int(wmask.sum()), 1), np.float32)
-        for part, key, missing in (("hidden", "out_lin", zeros),
-                                   ("linear", "linear_outf", zeros),
-                                   ("pred_scores", "our_reg",
-                                    np.zeros_like(clini_true))):
-            best_parts[part].append(best_test[key][wmask] if key in best_test
-                                    else missing)
-        best_parts["subid"].append(p["test_subids"])
-        best_parts["true_scores"].append(clini_true)
-        best_parts["true_labels"].append(y_true)
+        parts = {part: (best_test[key][wmask] if key in best_test
+                        else missing)
+                 for part, key, missing in (
+                     ("hidden", "out_lin", zeros),
+                     ("linear", "linear_outf", zeros),
+                     ("pred_scores", "our_reg", np.zeros_like(clini_true)))}
+        parts.update(subid=p["test_subids"], true_scores=clini_true,
+                     true_labels=y_true)
+        for part in FOLD_PARTS:
+            best_parts[part].append(parts[part])
+
+        if res_dir is not None:
+            best_vars = to_flax_variables(state.model, best["state"])
+            save_checkpoint(fold_file("gcn_state_dict", fold, "msgpack"),
+                            best_vars["params"], best_vars["batch_stats"])
+            write_importance(res_dir, result_file_name, fold, state.model)
+            if export_bundle and getattr(state.model, "topo", None) is not None:
+                save_bundle(fold_file("serving_bundle", fold, "npz"),
+                            state.model, best_vars["params"],
+                            best_vars["batch_stats"])
+            write_fold_record(
+                fold_file("fold_result", fold, "npz"),
+                score_result_epoch=np.asarray(score_result_epoch, np.float64),
+                test_losses=np.asarray(fold_test_losses, np.float64),
+                accs=np.asarray(fold_accs, np.float64),
+                **parts, score_names=np.asarray(score_names), meta=want_meta)
 
     loss_arr = np.asarray(test_losses).reshape(tcfg.folds, tcfg.epochs)
     acc_arr = np.asarray(accs).reshape(tcfg.folds, tcfg.epochs)
@@ -327,4 +442,3 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         score_result=score_result, durations=durations,
         throughput_graphs_per_sec=float(throughput),
         regression_summary=regression_summary)
-

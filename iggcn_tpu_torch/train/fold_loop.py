@@ -4,7 +4,11 @@
 Each epoch shuffles the padded train set with the fold's pre-drawn
 permutation, takes one step per batch, then evaluates the test set and,
 with a validation split, the val set. The best epoch (strictly lower val
-loss sum, or test loss sum without val) keeps its test outputs.
+loss sum, or test loss sum without val) keeps its test outputs and a
+device copy of the model's weights and batch statistics, which moves to
+the host once, at the fold's end (the counterpart of the best bundle of
+`fold_scan.py`; `train/cv.py` writes the fold checkpoint and serving
+bundle from it).
 The JAX package runs the same loop as one `lax.scan` per fold; it seeds
 its best copy with an evaluation before the first epoch, which the first
 epoch's finite loss always replaces, so this loop skips that evaluation
@@ -79,7 +83,8 @@ def run_fold(state: TrainState, train_data: Data, val_data: Optional[Data],
     `on_epoch(epoch, record)` sees each epoch's record as it ends.
     Returns (per_epoch, best, state): per_epoch stacks each epoch's
     train/val/test loss sums and test outputs over the epochs; best holds
-    the best epoch's test outputs and `val_loss_sum`.
+    the best epoch's test outputs, `val_loss_sum` and `state`, a host copy
+    of the model's `state_dict()` at that epoch.
     """
     device = train_data["w"].device
     records: List[Dict] = []
@@ -99,7 +104,10 @@ def run_fold(state: TrainState, train_data: Data, val_data: Optional[Data],
         if on_epoch is not None:
             on_epoch(epoch, record)
         if best is None or val_sum < best["val_loss_sum"]:
-            best = {"test": test_out, "val_loss_sum": val_sum}
+            best = {"test": test_out, "val_loss_sum": val_sum,
+                    "state": {k: v.clone() for k, v in
+                              state.model.state_dict().items()}}
+    best["state"] = {k: v.cpu() for k, v in best["state"].items()}
     per_epoch = {k: np.stack([np.asarray(r[k]) for r in records])
                  for k in records[0]}
     return per_epoch, best, state

@@ -119,9 +119,7 @@ def test_cross_validation_matches_jax(tmp_path, no_val):
 def test_cross_validation_refuses_what_is_not_ported():
     cohort = synthetic_cohort(np.random.default_rng(1), num_subjects=12)
     topo = synthetic_topology(np.random.default_rng(0))
-    for kwargs, tcfg in (({"resume": True}, TrainConfig()),
-                         ({"export_bundle": True}, TrainConfig()),
-                         ({"external_test": cohort}, TrainConfig()),
+    for kwargs, tcfg in (({"external_test": cohort}, TrainConfig()),
                          ({}, TrainConfig(is_permut_test=True)),
                          ({}, TrainConfig(fold_parallel=True))):
         with pytest.raises(NotImplementedError, match="not ported"):
@@ -157,22 +155,27 @@ def test_cli_defaults_to_the_card_and_refuses_other_models(monkeypatch,
                                                            tmp_path, capsys):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for model in port_main.FUSION_MODELS:
+    for model in (*port_main.FUSION_MODELS, *port_main.SNP_MODELS):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_main.main(["--model", model, "--synthetic", "--epochs", "1",
-                            "--no-search"])
+                            "--no-search", "--disease_id", "0"])
     for model, what in (("GIN", "not ported yet"),
-                        ("Gene_ontology_network", "not ported yet"),
-                        ("MLP_Model", "not ported yet"),
+                        ("NestedGCN", "not ported yet"),
                         ("BOGUS", "is unknown")):
         with pytest.raises(SystemExit):
             port_main.main(["--model", model, "--device", "cpu"])
         err = capsys.readouterr().err
         assert what in err and "SGCN_GCN_IMGSNP" in err, err
-    with pytest.raises(SystemExit):
-        port_main.main(["--clinical_score_index", "1", "--num_regr", "3",
-                        "--device", "cpu"])
-    assert "--num_regr must be 1" in capsys.readouterr().err
+        assert "Gene_ontology_network" in err, err
+    for argv, what in (
+            (["--clinical_score_index", "1", "--num_regr", "3"],
+             "--num_regr must be 1"),
+            (["--resume"], "--resume needs --save_appendix"),
+            (["--model", "SGCN_GCN", "--export_bundle"],
+             "--export_bundle does not support --model SGCN_GCN")):
+        with pytest.raises(SystemExit):
+            port_main.main([*argv, "--device", "cpu"])
+        assert what in capsys.readouterr().err
     assert not (tmp_path / "results").exists()
 
 

@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it imports nothing of JAX or of the JAX
-package, picks the card unless asked for the CPU, and pins fp32 numerics."""
+"""Guards of the PyTorch port: it imports nothing of JAX, flax, optax or
+msgpack, or of the JAX package, picks the card unless asked for the CPU,
+and pins fp32 numerics."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import torch
 from iggcn_tpu_torch.utils import platform
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "iggcn_tpu"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "msgpack", "iggcn_tpu"}
 
 
 def _port_sources():
@@ -33,10 +34,12 @@ def _import_roots(tree):
 
 def test_import_root_check_tells_the_packages_apart():
     tree = ast.parse("import iggcn_tpu_torch.ops\nfrom iggcn_tpu.ops import gcn\n"
-                     "from jax import numpy\n")
+                     "from jax import numpy\nimport msgpack\n"
+                     "from flax import serialization\n")
     roots = [r for r, _ in _import_roots(tree)]
-    assert roots == ["iggcn_tpu_torch", "iggcn_tpu", "jax"]
-    assert [r for r in roots if r in FORBIDDEN_ROOTS] == ["iggcn_tpu", "jax"]
+    assert roots == ["iggcn_tpu_torch", "iggcn_tpu", "jax", "msgpack", "flax"]
+    assert [r for r in roots if r in FORBIDDEN_ROOTS] == [
+        "iggcn_tpu", "jax", "msgpack", "flax"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -58,8 +61,11 @@ def test_importing_the_serving_tool_loads_no_jax():
             "import iggcn_tpu_torch.models.guide, iggcn_tpu_torch.ops.gat\n"
             "import iggcn_tpu_torch.models.sgcn_image\n"
             "import iggcn_tpu_torch.models.clusterlabel\n"
+            "import iggcn_tpu_torch.tools.explain\n"
+            "import iggcn_tpu_torch.train.snps_trainer\n"
+            "import iggcn_tpu_torch.train.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'iggcn_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'iggcn_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

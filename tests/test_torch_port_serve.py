@@ -120,10 +120,10 @@ def test_mismatched_cohort_and_other_families_are_refused(jax_bundle, tmp_path):
     empty = batched_forward(model, *(arrays[k][:0] for k in ("x", "adj", "snps")))
     assert empty["log_probs"].shape == (0, 2) and empty["pred"].shape == (0,)
     assert empty["our_reg"].shape == (0, 3)
-    other = str(tmp_path / "mlp.npz")
+    other = str(tmp_path / "other.npz")
     np.savez(other, __meta__=np.asarray(json.dumps(
-        {"model_class": "MLPModel", "ctor": {}})))
-    with pytest.raises(ValueError, match="later slice"):
+        {"model_class": "GIN", "ctor": {}})))
+    with pytest.raises(ValueError, match="unknown bundled model class GIN"):
         serve.load_bundle(other, device="cpu")
 
 
