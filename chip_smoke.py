@@ -7,9 +7,10 @@ Run from the repository root on a machine with a CUDA card:
 It imports nothing of JAX or of the JAX package. Phases, in order; any
 failure propagates and the script exits non-zero:
 
-  1. card and build: the `nvidia-smi` name/power-limit line, then every
-     CUDA source under iggcn_tpu_torch/csrc/ built by nvcc (one process
-     per source, all started together), with the build time and ptxas's
+  1. card and build: the `nvidia-smi` name/power-limit line, the python,
+     torch, CUDA, numpy and scipy versions, then every CUDA source under
+     iggcn_tpu_torch/csrc/ built by nvcc (one process per source, all
+     started together), with the build time and ptxas's
      register/shared-memory report;
   2. kernel vs plain on the card: `fused_gcn_stack` against
      `gcn_stack_reference` at every imaging-stack shape of both search
@@ -107,7 +108,34 @@ failure propagates and the script exits non-zero:
      the CPU under phase 7's rules (dropout 0); both fold-0 bundles served
      on the card against the CPU (prob within atol 1e-4, pred equal where
      |prob - 0.5| > 1e-4), the GO one also through the HTTP daemon's
-     SNP-only route; the kernel is launched 0 times in the phase.
+     SNP-only route; the kernel is launched 0 times in the phase;
+ 12. the real-cohort route on a layout the script fabricates in a temp dir
+     (`write_mat_layout`, `write_go_sources`): the reference's `.mat`
+     cohort of 874 subjects at 90 ROIs with the three multi-fusion
+     modality dirs, and GO sources that parse into 5 levels of
+     `REAL_GO_LEVELS` terms; `load_adni874` and `parse_go_json` timed on
+     the host; the flagship CLI over it (phase 7's setting, 2 epochs,
+     `--export_bundle`, a temp `--cohort_cache_dir`): finite losses, the
+     `Result -` line, the loop's launches; the same run again, which must
+     hit the cache, whose entry must equal `load_adni874`'s cohort; six
+     card steps of fold 0 against the CPU under phase 7's rules;
+     `--isMultiFusion` over the layout (L=3, H=10, 1 epoch, no cache) with
+     the loop's launches; `tools.export_cohort` of the layout, and the
+     flagship's fold-0 bundle served over it under phase 3's rule (1
+     launch per forward);
+ 13. the other routes, 1 epoch each, with the loop's launches:
+     `--isPermutTest --Seed4PermutTest 3` over the layout (results under
+     results_permuttest/, fold records only: no checkpoint, no npy);
+     `--isTestAdnitype` on phase 7's synthetic cohort (every fold tests on
+     exactly the held-out subjects); `--init_from_torch` from a `.pt` the
+     phase writes with `export_reference_state_dict` of seeded random
+     weights over the layout's GO DAG (fold 0's weights before its first
+     step bit-equal to the converted checkpoint, the tag line printed),
+     and the same `.pt` through `tools.import_torch` into a bundle served
+     under phase 3's rule (1 launch per forward).
+
+Phases 7-11 build their synthetic cohorts without the cohort cache
+(`--cohort_cache_dir ''`), so no cache hit changes their readings.
 
 It prints the `kernels` JSON line before the last line, and as the last
 line `{"ok": true, "device": {...}}`. Everything it measures is also
@@ -129,6 +157,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -137,6 +166,7 @@ import torch
 
 from iggcn_tpu_torch import main as port_main
 from iggcn_tpu_torch.config import ModelConfig
+from iggcn_tpu_torch.data import adni, cohort_cache, go_graph
 from iggcn_tpu_torch.data.batching import cohort_batch_arrays
 from iggcn_tpu_torch.data.go_graph import synthetic_topology
 from iggcn_tpu_torch.data.splits import k_fold
@@ -147,9 +177,12 @@ from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
 from iggcn_tpu_torch.data.sampler import (imbalanced_sample_indices,
                                           pad_epoch_indices)
 from iggcn_tpu_torch.predict import batched_forward, batched_forward_snps
-from iggcn_tpu_torch.tools import explain
+from iggcn_tpu_torch.tools import explain, export_cohort, import_torch
+from iggcn_tpu_torch.tools.convert import _flatten as flat_tree
+from iggcn_tpu_torch.tools.convert import to_flax_variables
 from iggcn_tpu_torch.tools.serve import (build_http_server, load_bundle,
                                          save_bundle)
+from iggcn_tpu_torch.train import cv as port_cv
 from iggcn_tpu_torch.train import fold_loop, snps_trainer, steps
 from iggcn_tpu_torch.train.cv import init_fold_model, prepare_fold, to_device
 from iggcn_tpu_torch.utils import cuda_build
@@ -186,13 +219,14 @@ GO_LEVELS = "250,120,50,15,1"
 def cli_argv(epochs, appendix, *extra):
     """The CLI route on the card: 874 synthetic subjects over the real-scale
     GO DAG, batch 32, 5 folds with val, --lambda_disease 1.0, the default
-    ModelConfig widths (L=2, H=16) unless `extra` says otherwise."""
+    ModelConfig widths (L=2, H=16) unless `extra` says otherwise; no
+    cohort cache, so that every run builds its cohort."""
     return ["--device", "cuda", "--synthetic", "--synthetic_subjects",
             str(COHORT), "--synthetic_go_levels", GO_LEVELS, "--epochs",
             str(epochs), "--fold", str(TRAIN_FOLDS), "--batch_size",
             str(TRAIN_BATCH), "--no-search", "--layers", "2", "--hiddens",
             "16", "--lambda_disease", "1.0", "--save_appendix", appendix,
-            *extra]
+            "--cohort_cache_dir", "", *extra]
 
 
 TRAIN_ARGV = cli_argv(TRAIN_EPOCHS, "_chip_smoke")
@@ -226,6 +260,10 @@ SERVE_CALLS = {"FusedSGCN": 1, "ClusterLabelSGCN": 1, "GuideImgSnp": 0}
 EXPLAIN_SUBJECTS = 64
 # phase 11: the SNP-only families, 3 epochs, binary (--disease_id 0)
 SNP_MODELS, SNP_EPOCHS = ("Gene_ontology_network", "MLP_Model"), 3
+# phases 12-13: the real-cohort route on a fabricated reference layout;
+# its GO sources parse into these level sizes (leaves first), the real
+# graph's scale
+REAL_GO_LEVELS, REAL_EPOCHS = (250, 120, 50, 15, 1), 2
 
 
 def snps_argv(appendix):
@@ -235,7 +273,7 @@ def snps_argv(appendix):
             str(COHORT), "--synthetic_go_levels", GO_LEVELS, "--epochs",
             str(SNP_EPOCHS), "--fold", str(TRAIN_FOLDS), "--batch_size",
             str(TRAIN_BATCH), "--disease_id", "0", "--save_appendix",
-            appendix, "--export_bundle"]
+            appendix, "--export_bundle", "--cohort_cache_dir", ""]
 EPOCH_LINE = re.compile(r"^Fold: (\d+), epoch:(\d+), train_loss: ([^,]+), "
                         r"val_loss: ([^,]+), test_loss: ([^,]+), acc:", re.M)
 
@@ -401,6 +439,10 @@ def phase_build():
                          text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    import scipy
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__} (CUDA "
+        f"{torch.version.cuda}), numpy {np.__version__}, scipy "
+        f"{scipy.__version__}")
     sources = sorted(os.path.basename(p) for p in
                      glob.glob(os.path.join(cuda_build.CSRC_DIR, "*.cu")))
     t0 = time.perf_counter()
@@ -800,7 +842,7 @@ def training_setup(dev, argv=TRAIN_ARGV):
     first batch, `eval_batch` is fold 0's first test batch."""
     args = port_main.build_parser().parse_args(argv)
     kind = port_main.FUSION_MODELS[args.model]
-    dcfg = port_main.DataConfig(disease_id=args.disease_id)
+    dcfg = port_main.build_dcfg(args)
     with contextlib.redirect_stdout(io.StringIO()):
         cohort, topo = port_main.load_cohort(args, dcfg,
                                              np.random.default_rng(args.seed))
@@ -838,15 +880,22 @@ def counted_launches(fn):
     return gcn_stack.fused_gcn_stack.launches
 
 
-def expected_launches(splits, tcfg, per_batch=2):
+def expected_launches(splits, tcfg, per_batch=2, test_size=None):
     """The kernel's launches over one CV run with a validation split, as
     the loop implies: `per_batch` per train step and per eval batch (2 for
     the two-pass families, 1 for GCN_IMGSNP, 0 where no stack runs), every
-    epoch, over the train, val and test batches."""
+    epoch, over the train, val and test batches; with `test_size` every
+    fold tests on an external cohort of that many subjects instead of its
+    test split."""
     b = tcfg.batch_size
-    return per_batch * sum(
-        tcfg.epochs * sum(math.ceil(len(idx) / b) for idx in split)
-        for split in splits)
+
+    def batches(split):
+        train, test, val = (len(idx) for idx in split)
+        if test_size is not None:
+            test = test_size
+        return sum(math.ceil(n / b) for n in (train, test, val))
+
+    return per_batch * sum(tcfg.epochs * batches(split) for split in splits)
 
 
 def phase_train_times(dev, train):
@@ -1003,18 +1052,29 @@ def recorded_activations(model):
             h.remove()
 
 
-def activation_ties(card, cpu):
-    """(flips, largest |input| at a flip): the activation inputs that the
-    card and the CPU put on opposite sides of the kink."""
-    if [a.shape for a in card] != [b.shape for b in cpu]:
-        raise AssertionError("card and CPU applied different activations")
-    flips, near = 0, 0.0
-    for a, b in zip(card, cpu):
+def activation_ties(card, cpu, exact):
+    """(flips, largest |input| at a flip, largest excess over the tie band)
+    of the activation inputs that the card and the CPU put on opposite
+    sides of the kink. A flip is a tie when both inputs lie within
+    `TIE_ATOL` plus twice the CPU's own departure from float64 at that
+    entry (`exact`) of the kink: fp32 cannot tell the side there, on either
+    device (a train-mode batch norm over near-constant features amplifies
+    rounding by up to 1/sqrt(eps)); a positive excess is a flip that
+    rounding does not explain."""
+    if not ([a.shape for a in card] == [b.shape for b in cpu]
+            == [e.shape for e in exact]):
+        raise AssertionError("card, CPU and float64 applied different "
+                             "activations")
+    flips, near, excess = 0, 0.0, -math.inf
+    for a, b, e in zip(card, cpu, exact):
         flip = (a > 0) != (b > 0)
         if flip.any():
             flips += int(flip.sum())
-            near = max(near, float(torch.maximum(a.abs(), b.abs())[flip].max()))
-    return flips, near
+            dist = torch.maximum(a.abs(), b.abs())[flip]
+            band = TIE_ATOL + 2 * (b - e).abs()[flip]
+            near = max(near, float(dist.max()))
+            excess = max(excess, float((dist - band).max()))
+    return flips, near, excess
 
 
 def fused_route(train):
@@ -1087,7 +1147,8 @@ def card_vs_cpu_steps(dev, route, n_steps=CARD_CPU_STEPS):
         (|g64| <= |g_cpu - g64|), which are logged, and except in a step
         where the card and the CPU put an activation input on opposite
         sides of its kink (relu, leaky relu, PReLU) within `TIE_ATOL` of
-        it: the gradient then takes the other branch there on one device
+        it, widened per entry by twice the CPU's own departure from float64
+        there (`activation_ties`): the gradient then takes the other branch there on one device
         (a tie that rounding decides), so the leaves upstream of it depart
         from float64 by more than rounding; such a step's gradient readings
         are logged as a tie, a flip farther from the kink fails;
@@ -1141,15 +1202,18 @@ def card_vs_cpu_steps(dev, route, n_steps=CARD_CPU_STEPS):
                             rel_tol=2e-4):
             failures.append(f"step {t}: loss sum {losses['card'][-1]} on the "
                             f"card, {losses['cpu'][-1]} on the CPU")
-        flips, near = activation_ties(acts["card"], acts["cpu"])
+        flips, near, excess = activation_ties(acts["card"], acts["cpu"],
+                                              acts["float64"])
         if flips:
             log(f"step {t}: {flips} activation input(s) on opposite sides of "
                 f"the kink on the card and the CPU, all within {near:.3e} "
-                f"of it")
-            ties.append({"step": t, "flips": flips, "max_abs_input": near})
-        if near > TIE_ATOL:
+                f"of it, {excess:.3e} past the tie band at most")
+            ties.append({"step": t, "flips": flips, "max_abs_input": near,
+                         "max_excess": excess})
+        if excess > 0:
             failures.append(f"step {t}: an activation input {near:.3e} from "
-                            "its kink flipped between the card and the CPU")
+                            "its kink flipped between the card and the CPU, "
+                            f"{excess:.3e} past its tie band")
         tie = flips > 0
         bound = 2 * adam_step_bound(route["lr"](t), t)
         cpu_state = sides["cpu"][0]
@@ -1273,7 +1337,8 @@ def run_route(train, per_batch):
     """The route's CLI experiment, `iggcn_tpu_torch.main.main(argv)`, on the
     card: every epoch line's losses finite, the `Result -` line printed,
     and the kernel's launches over the run equal to what the loop implies
-    at `per_batch` launches per train step and per eval batch."""
+    at `per_batch` launches per train step and per eval batch. Returns the
+    readings and the run's output (`text`)."""
     argv, tcfg = train["argv"], train["tcfg"]
     text, launches, wall_s, results = cli_run(argv)
     epochs = EPOCH_LINE.findall(text)
@@ -1287,18 +1352,20 @@ def run_route(train, per_batch):
     throughput = re.search(r"^\[throughput\] ([\d.]+) graphs/s$", text, re.M)
     if result is None or throughput is None:
         raise AssertionError("no `Result -` or `[throughput]` line")
-    want = expected_launches(train["splits"], tcfg, per_batch)
+    want = expected_launches(train["splits"], tcfg, per_batch,
+                             train.get("test_size"))
     if launches != want:
         raise AssertionError(f"the run launched the kernel {launches} "
                              f"times; the loop implies {want}")
     steps_run = sum(tcfg.epochs * math.ceil(len(tr) / tcfg.batch_size)
                     for tr, _, _ in train["splits"])
-    log(f"experiment {' '.join(argv[-6:])}: {wall_s:.3f} s wall, {launches} "
+    shown = " ".join(argv[argv.index("--save_appendix") + 1:])
+    log(f"experiment {shown}: {wall_s:.3f} s wall, {launches} "
         f"kernel launches (= {want} implied: {steps_run} train steps x "
         f"{per_batch} + eval batches x {per_batch}), {throughput.group(0)}, "
         f"{result.group(0)}")
     res = results[0]
-    return {"experiment_wall_s": wall_s, "launches": launches,
+    return {"text": text, "experiment_wall_s": wall_s, "launches": launches,
             "expected_launches": want, "train_steps": steps_run,
             "result_line": result.group(0),
             "throughput_graphs_per_s": res.throughput_graphs_per_sec,
@@ -1578,7 +1645,7 @@ def phase_snps(dev):
     args = port_main.build_parser().parse_args(argv)
     with contextlib.redirect_stdout(io.StringIO()):
         snps, labels, topo = port_main.snps_inputs(
-            args, None, port_main.DataConfig(disease_id=0),
+            args, None, port_main.build_dcfg(args),
             np.random.default_rng(args.seed))
     out, total_launches = {}, 0
     for model in SNP_MODELS:
@@ -1664,6 +1731,289 @@ def phase_snps(dev):
             "launches": total_launches}
 
 
+# ---------------------------------------------------------------------------
+# phases 12-13: the real-cohort route on a fabricated reference layout
+
+def write_go_sources(dirpath, rng, level_sizes=REAL_GO_LEVELS,
+                     num_snps=54, num_genes=300):
+    """A PANTHER-style GO analysis json, a root-connection file and a
+    `num_snps`-row snps_to_gene.txt under `dirpath` whose parse
+    (`parse_go_json`) is a five-level DAG of `level_sizes` terms, leaves
+    first. The connection chains `0008150.A.B.C` put every level-1 (A),
+    level-2 (B) and level-3 (C) term under the root; every pathway of the
+    json is [D, C] at PANTHER levels [1, 2], so the parser's edge runs from
+    C to D and the level-4 terms D hang under the C terms. Returns the
+    three paths."""
+    n4, n3, n2, n1, root = level_sizes
+    if root != 1:
+        raise ValueError("the root level has one term")
+    ids = iter(range(1, 10 ** 7))
+
+    def fresh(n):
+        return [f"{next(ids):07d}" for _ in range(n)]
+
+    lvl1, lvl2, lvl3, lvl4 = fresh(n1), fresh(n2), fresh(n3), fresh(n4)
+    genes = [f"GENE{i}" for i in range(num_genes)]
+
+    def term(num, level):
+        mapped = list(rng.choice(genes, size=int(rng.integers(1, 4)),
+                                 replace=False))
+        return {"term": {"id": f"GO:{num}", "level": level},
+                "input_list": {"mapped_id_list": {
+                    "mapped_id": mapped if len(mapped) > 1 else mapped[0]}}}
+
+    groups = [{"result": [term(d, 1), term(lvl3[i % n3], 2)]}
+              for i, d in enumerate(lvl4)]
+    paths = (os.path.join(dirpath, "analysis.json"),
+             os.path.join(dirpath, "go_root_connection.txt"),
+             os.path.join(dirpath, "snps_to_gene.txt"))
+    with open(paths[0], "w") as fh:
+        json.dump({"overrepresentation": {"group": groups}}, fh)
+    with open(paths[1], "w") as fh:
+        for i, c in enumerate(lvl3):
+            b = i % n2
+            fh.write(f"0008150.{lvl1[b % n1]}.{lvl2[b]}.{c}\n")
+    with open(paths[2], "w") as fh:
+        for _ in range(num_snps):
+            fh.write(";".join(rng.choice(genes, size=int(rng.integers(1, 6)),
+                                         replace=False)) + "\n")
+    return paths
+
+
+def write_mat_layout(base, rng, subjects=COHORT, rois=90, feat=3,
+                     num_snps=54, multi_fusion=True):
+    """The reference's `.mat` cohort layout under `base` (what
+    `load_adni874` reads): `knn/5/` with subject ids, demographics with NaN
+    holes and their filled copy, SNPs with NaNs, raw labels 1..5,
+    symmetric positive correlation matrices, ROI features with a NaN,
+    cluster labels (`center_2/`) and the PET similarity features; with
+    `multi_fusion` the three modality dirs' `knn/5/corr_data.mat` too."""
+    import scipy.io as sio
+
+    kdir = os.path.join(base, "knn", "5")
+    os.makedirs(os.path.join(kdir, "center_2"), exist_ok=True)
+
+    def corr():
+        a = np.abs(rng.normal(size=(subjects, rois, rois)))
+        return (a + a.transpose(0, 2, 1)) / 2 + 0.05
+
+    scores = rng.normal(size=(subjects, 9))
+    holes = scores.copy()
+    holes[rng.random(holes.shape) < 0.1] = np.nan
+    snps = rng.random((subjects, num_snps))
+    snps[rng.random(snps.shape) < 0.02] = np.nan
+    img = rng.normal(size=(subjects, rois, feat))
+    img[0, 0, 0] = np.nan
+    for name, key, value in (
+            ("sbjID_int", "sbjID_int",
+             np.arange(1000, 1000 + subjects).reshape(-1, 1)),
+            ("score_excel_val_adni874_fill", "info_score_val_fill", scores),
+            ("score_excel_val_adni874", "info_score_val_subs", holes),
+            ("SNPS_data", "SNPS_data", snps),
+            ("BL_DXGrp_label", "BL_DXGrp_label",
+             rng.integers(1, 6, size=(subjects, 1))),
+            ("corr_data", "corr_data", corr()),
+            ("imgData_mat_normalized_fix", "imgData_mat_normalized", img)):
+        sio.savemat(os.path.join(kdir, f"{name}.mat"), {key: value})
+    np.save(os.path.join(kdir, "center_2", "clusters_pred_label.npy"),
+            rng.integers(0, 2, subjects))
+    np.save(os.path.join(kdir, "pet_for_similarity.npy"),
+            rng.normal(size=(subjects, 8)).astype(np.float32))
+    if multi_fusion:
+        for mod in ("MRI", "FDG-PET", "AV45-PET"):
+            mdir = os.path.join(base, mod, "knn", "5")
+            os.makedirs(mdir, exist_ok=True)
+            sio.savemat(os.path.join(mdir, "corr_data.mat"),
+                        {"corr_data": corr()})
+
+
+def real_layout(root):
+    """The fabricated real-data layout of phases 12-13 under `root`: the
+    874-subject `.mat` cohort at 90 ROIs (with the multi-fusion dirs), the
+    GO sources of `REAL_GO_LEVELS` and a cohort cache dir."""
+    rng = np.random.default_rng(6)
+    data = os.path.join(root, "preprocessing")
+    write_mat_layout(data, rng, subjects=COHORT)
+    go = write_go_sources(root, rng)
+    return {"data_path": data, "go": go, "cache": os.path.join(root, "cache")}
+
+
+def real_argv(layout, epochs, appendix, *extra):
+    """The real-cohort CLI route on the card at phase 7's setting (batch 32,
+    5 folds with val, --lambda_disease 1.0, L=2, H=16) over `layout`."""
+    json_path, conn_path, genes_path = layout["go"]
+    return ["--device", "cuda", "--data_path", layout["data_path"],
+            "--json_path", json_path, "--go_connection_path", conn_path,
+            "--snps_to_gene_path", genes_path, "--epochs", str(epochs),
+            "--fold", str(TRAIN_FOLDS), "--batch_size", str(TRAIN_BATCH),
+            "--no-search", "--layers", "2", "--hiddens", "16",
+            "--lambda_disease", "1.0", "--save_appendix", appendix, *extra]
+
+
+def phase_real_cohort(dev, layout):
+    log("== phase 12: the real-cohort route (fabricated reference layout)")
+    args = port_main.build_parser().parse_args(
+        real_argv(layout, REAL_EPOCHS, "_chip_smoke_real"))
+    dcfg = port_main.build_dcfg(args)
+    t0 = time.perf_counter()
+    cohort = adni.load_adni874(dcfg)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    topo = go_graph.parse_go_json(*layout["go"])
+    parse_s = time.perf_counter() - t0
+    log(f"load_adni874: {len(cohort)} subjects, x {cohort.x.shape}, adj "
+        f"{cohort.adj.shape}, classes {np.bincount(cohort.y).tolist()} in "
+        f"{load_s:.3f} s; parse_go_json: {topo.n} terms, pool {topo.pool} "
+        f"in {parse_s:.3f} s (host)")
+    if len(topo.pool) != 5 or min(topo.pool) < 1 or topo.pool[-1] != 1:
+        raise AssertionError(f"the GO sources parse into pool {topo.pool}, "
+                             "not five non-empty levels under one root")
+
+    cached = real_argv(layout, REAL_EPOCHS, "_chip_smoke_real",
+                       "--export_bundle", "--cohort_cache_dir",
+                       layout["cache"])
+    train = training_setup(dev, real_argv(layout, REAL_EPOCHS,
+                                          "_chip_smoke_real",
+                                          "--cohort_cache_dir", ""))
+    per_batch = STACK_CALLS["SGCN_GCN_IMGSNP"]
+    first = run_route(dict(train, argv=cached), per_batch)
+    entries = glob.glob(os.path.join(layout["cache"], "adni874-*.npz"))
+    if len(entries) != 1:
+        raise AssertionError(f"cache entries after the first run: {entries}")
+    again = run_route(dict(train, argv=real_argv(
+        layout, REAL_EPOCHS, "_chip_smoke_real_again", "--cohort_cache_dir",
+        layout["cache"])), per_batch)
+    text = again.pop("text")
+    hit = re.search(r"^\[data\] cohort loaded from cache \((adni874-\w+)\)$",
+                    text, re.M)
+    if hit is None or not cohort_cache.equal_cohorts(
+            cohort_cache.load_cohort(entries[0]), cohort):
+        raise AssertionError("the second run did not hit the cache, or the "
+                             "cached cohort differs from load_adni874's")
+    log(f"cohort cache: first run {first['experiment_wall_s']:.3f} s (miss, "
+        f"entry written), second {again['experiment_wall_s']:.3f} s (hit "
+        f"{hit.group(1)}); the entry equals load_adni874's cohort")
+    first["card_vs_cpu"] = card_vs_cpu_steps(dev, fused_route(train))
+
+    multi_tcfg = dataclasses.replace(train["tcfg"], epochs=1)
+    multi = run_route(dict(train, tcfg=multi_tcfg, argv=real_argv(
+        layout, 1, "_chip_smoke_real_multi", "--isMultiFusion", "--layers",
+        "3", "--hiddens", "10", "--cohort_cache_dir", "")), per_batch)
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    served_npz = os.path.join(OUT_DIR, "real_cohort.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_cohort.main(["--data_path", layout["data_path"], "--out",
+                            served_npz])
+    with np.load(served_npz) as zf:
+        exported = tuple(zf[k] for k in ("x", "adj", "snps"))
+    bundle = os.path.join(run_dir("_chip_smoke_real"),
+                          f"serving_bundle_{result_name(2, 16)}_fold_0.npz")
+    served = serve_bundle(dev, bundle, exported,
+                          "real-cohort flagship bundle over the exported npz")
+    readings = {"load_adni874_s": load_s, "parse_go_json_s": parse_s,
+                "go_pool": topo.pool, "subjects": len(cohort), "run": first,
+                "cached_run": again, "cache_key": hit.group(1),
+                "multi_fusion": multi, "serving": served}
+    return readings, {"train": train, "exported": exported}
+
+
+def phase_other_routes(dev, layout, real):
+    log("== phase 13: the permutation test, the held-out ADNI type and "
+        "--init_from_torch")
+    train = real["train"]
+    per_batch = STACK_CALLS["SGCN_GCN_IMGSNP"]
+    one_epoch = dataclasses.replace(train["tcfg"], epochs=1)
+
+    appendix = "_chip_smoke_permut"
+    permut_dir = os.path.join(os.getcwd(), "results_permuttest",
+                              f"ADNI{appendix}")
+    shutil.rmtree(permut_dir, ignore_errors=True)
+    permut = run_route(dict(train, tcfg=one_epoch, argv=real_argv(
+        layout, 1, appendix, "--isPermutTest", "--Seed4PermutTest", "3",
+        "--cohort_cache_dir", "")), per_batch)
+    written = sorted(os.listdir(permut_dir))
+    kept = [f for f in written if f.endswith((".npy", ".msgpack"))]
+    records = [f for f in written if f.startswith("fold_result_")]
+    if kept or len(records) != TRAIN_FOLDS:
+        raise AssertionError(f"the permutation run wrote {written}: it must "
+                             "write fold records only, no checkpoint or npy")
+    log(f"--isPermutTest: {permut_dir} holds {written}")
+    permut["written"] = written
+
+    argv = cli_argv(1, "_chip_smoke_adnitype", "--isTestAdnitype")
+    args = port_main.build_parser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cohort, _ = port_main.load_cohort(args, port_main.build_dcfg(args),
+                                          np.random.default_rng(args.seed))
+    held_in, held_out = adni.separate_data_adnitype(
+        cohort, args.disease_id4Adnitype, args.adnitype_id)
+    tcfg = dataclasses.replace(one_epoch, seed=args.seed)
+    adnitype = run_route(dict(
+        train, argv=argv, tcfg=tcfg, test_size=len(held_out),
+        splits=k_fold(held_in.y, tcfg.folds, tcfg.seed)), per_batch)
+    subids = np.load(os.path.join(run_dir("_chip_smoke_adnitype"),
+                                  f"subids_{result_name(2, 16)}.npy"))
+    want_ids = cohort.sbj_id[cohort.adni_type == args.adnitype_id]
+    if not np.array_equal(subids, np.tile(want_ids, tcfg.folds)):
+        raise AssertionError("the external test pass did not cover exactly "
+                             "the held-out subjects in every fold")
+    log(f"--isTestAdnitype: {len(held_in)} subjects in the folds, every fold "
+        f"tested on the {len(held_out)} held-out ones")
+    adnitype.update(train_subjects=len(held_in), held_out=len(held_out))
+
+    topo = go_graph.parse_go_json(*layout["go"])
+    model = FusedSGCN(ModelConfig(num_classes=3), topo,
+                      generator=torch.Generator().manual_seed(5))
+    variables = to_flax_variables(model)
+    ckpt = os.path.join(OUT_DIR, "reference_state_dict.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                import_torch.export_reference_state_dict(
+                    variables["params"], variables["batch_stats"], topo,
+                    model.cfg).items()}, ckpt)
+    sd = import_torch._load_state_dict(ckpt)
+    params, stats = import_torch.convert_fused_state_dict(
+        sd, topo, import_torch.infer_model_config(sd, topo))
+    want = flat_tree({"params": params, "batch_stats": stats}, ())
+    seen = []
+    fold_init = port_cv.init_fold_model
+
+    def capture(*a, **kw):
+        fold_model, generator = fold_init(*a, **kw)
+        if not seen:
+            seen.append(flat_tree(to_flax_variables(fold_model), ()))
+        return fold_model, generator
+
+    port_cv.init_fold_model = capture
+    try:
+        warm = run_route(dict(train, tcfg=one_epoch, argv=real_argv(
+            layout, 1, "_chip_smoke_warm", "--init_from_torch", ckpt,
+            "--cohort_cache_dir", "")), per_batch)
+    finally:
+        port_cv.init_fold_model = fold_init
+    text = warm.pop("text")
+    if re.search(r"^\[init_from_torch\] warm-starting every fold from "
+                 r"reference_state_dict\.pt:\w+$", text, re.M) is None:
+        raise AssertionError("no `[init_from_torch]` tag line")
+    if seen[0].keys() != want.keys() or any(
+            not np.array_equal(seen[0][k], want[k]) for k in want):
+        raise AssertionError("fold 0's weights before its first step differ "
+                             "from the converted checkpoint")
+    log(f"--init_from_torch: fold 0 starts from the converted checkpoint, "
+        f"{len(want)} leaves bit-equal")
+    bundle = os.path.join(OUT_DIR, "imported_bundle.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if import_torch.main(["--ckpt", ckpt, "--out", bundle,
+                              "--json_path", layout["go"][0],
+                              "--go_connection_path", layout["go"][1],
+                              "--snps_to_gene_path", layout["go"][2]]):
+            raise AssertionError("import_torch failed on the exported .pt")
+    served = serve_bundle(dev, bundle, real["exported"],
+                          "imported reference .pt bundle")
+    return {"permut": permut, "adnitype": adnitype, "init_from_torch": warm,
+            "imported_serving": served}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -1684,12 +2034,27 @@ def main() -> int:
     families = phase_families(dev)
     artifacts = phase_artifacts(dev, train, cohort)
     snps = phase_snps(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as root:
+        layout = real_layout(root)
+        real, real_ctx = phase_real_cohort(dev, layout)
+        other = phase_other_routes(dev, layout, real_ctx)
 
     serving, *others = times["shapes"]
     # per route: the kernel's launches per train step and per eval batch,
     # and over the route's whole CLI run against the loop's count
     routes = {"SGCN_GCN_IMGSNP": training, "SGCN_GCN_IMGSNP --isMultiFusion":
-              multi, **families}
+              multi, **families,
+              "SGCN_GCN_IMGSNP real cohort": real["run"],
+              "SGCN_GCN_IMGSNP real cohort, cache hit": real["cached_run"],
+              "SGCN_GCN_IMGSNP --isMultiFusion real cohort":
+                  real["multi_fusion"],
+              "SGCN_GCN_IMGSNP --isPermutTest": other["permut"],
+              "SGCN_GCN_IMGSNP --isTestAdnitype": other["adnitype"],
+              "SGCN_GCN_IMGSNP --init_from_torch":
+                  other["init_from_torch"]}
+    served_bundles = {**artifacts["serving"],
+                      "real-cohort flagship": real["serving"],
+                      "imported reference .pt": other["imported_serving"]}
     per_route = {name: {
         "launches_per_train_step": run.get(
             "launches_per_train_step",
@@ -1737,7 +2102,7 @@ def main() -> int:
             "retrained_folds")},
         "served_bundles": {what: {k: row[k] for k in (
             "model_class", "launches", "launches_per_forward", "forwards")}
-            for what, row in artifacts["serving"].items()},
+            for what, row in served_bundles.items()},
         "snps_only_launches": snps["launches"],
         "shapes": [{k: row[k] for k in (
             "shape", "B", "N", "F0", "widths", "kernel_ms", "kernel_cold_ms",
@@ -1760,11 +2125,15 @@ def main() -> int:
                  "throughput_graphs_per_s": run["throughput_graphs_per_s"],
                  "epochs": run["epochs"], "result_line": run["result_line"],
                  "card_vs_cpu_loss_max_rel_diff":
-                     run["card_vs_cpu"]["loss_max_rel_diff"]}
+                     run["card_vs_cpu"]["loss_max_rel_diff"]
+                     if "card_vs_cpu" in run else None}
                  for name, run in routes.items()},
+             "real_cohort": {k: real[k] for k in (
+                 "load_adni874_s", "parse_go_json_s", "go_pool", "subjects",
+                 "cache_key")},
              "bundles": {what: {k: row[k] for k in (
                  "subjects", "cohort_wall_s", "log_probs_max_abs_diff")}
-                 for what, row in artifacts["serving"].items()},
+                 for what, row in served_bundles.items()},
              "resume": {"wall_s": artifacts["resume"]["wall_s"],
                         "retrained_test_loss_max_rel_diff": max(
                             artifacts["resume"][
@@ -1784,6 +2153,7 @@ def main() -> int:
                    "profile": profile, "training": training,
                    "multi_fusion": multi, "families": families,
                    "artifacts": artifacts, "snps_only": snps,
+                   "real_cohort": real, "other_routes": other,
                    "device": device}, fh, indent=1, default=float)
     log(card)
     log(json.dumps(serve))

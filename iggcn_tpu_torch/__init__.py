@@ -2,8 +2,9 @@
 
 The subpackage layout mirrors `iggcn_tpu/` module for module, so each
 port module's counterpart is found under the same name there. The port
-imports torch and numpy (and scipy for the heat-kernel diffusion only):
-nothing of JAX, nothing of `iggcn_tpu`, no scikit-learn.
+imports torch and numpy (and scipy, lazily, for the `.mat` loaders and
+the heat-kernel diffusion): nothing of JAX, nothing of `iggcn_tpu`, no
+scikit-learn.
 
 Importing the package pins fp32 matmul numerics (TF32 off) once, in
 `utils.platform`.

@@ -125,8 +125,9 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Ingestion and preprocessing settings. The port reads only the
-    synthetic cohort so far; the paths are kept for the real-data loaders."""
+    """Ingestion and preprocessing settings: the real-data paths and the
+    loader options of `data/adni.py:load_adni874` (and the CLI's cohort
+    cache key), the same fields as the JAX package's."""
 
     data_path: str = "./data/snps/data/preprocessing/"
     json_path: str = "./data/snps/analysis.json"

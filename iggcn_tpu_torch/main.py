@@ -1,13 +1,18 @@
 """Experiment CLI of the port: the fused-family and SNP-only routes of the
 JAX package's `main.py` on the card.
 
-    python -m iggcn_tpu_torch.main --synthetic --synthetic_subjects 874 \\
-        --epochs 200 --lambda_disease 1.0 --no-search --layers 2 --hiddens 16
+    python -m iggcn_tpu_torch.main --data_path DIR --json_path J \\
+        --go_connection_path C --snps_to_gene_path G --epochs 200 \\
+        --lambda_disease 1.0 --no-search --layers 2 --hiddens 16
 
-builds the synthetic ADNI-shaped cohort, runs k-fold CV with a validation
-split over the (layers, hiddens, h) grid (`--search`, the default, is the
-reference's five configurations; `--isMultiFusion` has its own) and prints
-the per-epoch lines, a `[throughput]` line per configuration and the
+reads the reference's `.mat` cohort under DIR/knn/<k>/ and the GO DAG
+from the three GO source files (`--synthetic`, or a missing DIR, builds
+the synthetic ADNI-shaped cohort and DAG instead), both through the
+processed-cohort cache (`--cohort_cache_dir`), runs k-fold CV with a
+validation split over the (layers, hiddens, h) grid (`--search`, the
+default, is the reference's five configurations; `--isMultiFusion` has
+its own) and prints the per-epoch lines, a `[throughput]` line per
+configuration and the
 `Result - <mean> +/- <std>, with L layers and H hidden units and h = ...`
 line; the npy artifacts, each fold's checkpoint and record (and with
 `--export_bundle` its serving bundle) go to results/ADNI<save_appendix>/,
@@ -15,14 +20,18 @@ and `--resume` with the same appendix restores the folds already done.
 `--model` takes the seven fused families of `FUSION_MODELS`, with the JAX
 CLI's routing, and the flagship's variant flags, and the two SNP-only
 families of `SNP_MODELS` (binary; a `Result - ... (SNP-only, <model>)`
-line). It runs on the card and raises without one unless `--device cpu`
-is given. The flags mean what they mean in the JAX package; the
-real-data loaders, the zoo and the batch/permutation routes are not
-ported yet.
+line). `--isTestAdnitype` tests every fold on a held-out ADNI type,
+`--isPermutTest` runs the permutation-test null (results under
+results_permuttest/), and `--init_from_torch` starts every fold from a
+reference `gcn_state_dict_*.pt`. It runs on the card and raises without
+one unless `--device cpu` is given. The flags mean what they mean in the
+JAX package, whose command lines of these routes parse here too; the
+zoo and the seed/batch-file routes are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import shlex
 import sys
@@ -55,6 +64,22 @@ NOT_PORTED = ("GCN", "GAT", "GIN", "GIN0", "GraphSAGE", "GraphSAGEWithoutJK",
 DEFAULT_GO_LEVELS = "24,16,10,6,1"
 
 
+def go_levels(text: str) -> List[int]:
+    """`--synthetic_go_levels`: five positive node counts, leaves first,
+    ending in the root's 1 (the five-level DAG `synthetic_topology`
+    builds); anything else is a parser error."""
+    try:
+        levels = [int(v) for v in text.split(",")]
+    except ValueError:
+        levels = []
+    if len(levels) != 5 or min(levels) < 1 or levels[-1] != 1:
+        raise argparse.ArgumentTypeError(
+            f"{text!r} is not five positive node counts ending in the "
+            f"root's 1 (e.g. {DEFAULT_GO_LEVELS}): the synthetic GO DAG has "
+            "five levels")
+    return levels
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="IG-GCN cross-validation on an NVIDIA GPU (PyTorch port)")
@@ -68,11 +93,69 @@ def build_parser() -> argparse.ArgumentParser:
                         "when the real data directory is absent)")
     p.add_argument("--synthetic_subjects", type=int, default=256,
                    help="subject count of the synthetic cohort")
-    p.add_argument("--synthetic_go_levels", type=str,
+    p.add_argument("--synthetic_go_levels", type=go_levels,
                    default=DEFAULT_GO_LEVELS,
-                   help="comma list of node counts per level of the "
-                        "synthetic GO DAG, leaves first, root last "
-                        "(250,120,50,15,1 is the real graph's scale)")
+                   help="comma list of the five node counts per level of "
+                        "the synthetic GO DAG, leaves first, ending in the "
+                        "root's 1 (250,120,50,15,1 is the real graph's "
+                        "scale)")
+    p.add_argument("--data_path", type=str,
+                   default="./data/snps/data/preprocessing/",
+                   help="ADNI preprocessing dir holding knn/<k>/ (falls "
+                        "back to the synthetic cohort when absent)")
+    p.add_argument("--json_path", type=str, default="./data/snps/analysis.json",
+                   help="PANTHER GO analysis json (GO term hierarchy)")
+    p.add_argument("--go_connection_path", type=str,
+                   default="./data/go_root_connection.txt",
+                   help="scraped GO root-connection list "
+                        "(build with iggcn_tpu_torch.data.go_scraper)")
+    p.add_argument("--snps_to_gene_path", type=str,
+                   default="./data/snps_to_gene.txt",
+                   help="SNP-to-gene mapping table")
+    p.add_argument("--cohort_cache_dir", type=str, default="./cohort_cache",
+                   help="directory for the processed-cohort npz cache "
+                        "(parity: ADNIDataset caches its pre_transformed "
+                        "tensors under ./<root>/processed/, "
+                        "sgcn_data.py:307,332-338); '' disables caching")
+    p.add_argument("--knn", type=int, default=5,
+                   help="k of the preprocessed kNN layout: mats are read "
+                        "under <data_path>/knn/<k>/")
+    p.add_argument("--isPPr", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="PPR graph-diffusion pre-transform "
+                        "(--no-isPPr switches to the heat kernel)")
+    p.add_argument("--isTopK", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="sparsify the diffused adjacency by per-row top-k "
+                        "(--no-isTopK applies the heat kernel instead)")
+    p.add_argument("--isMultilModal4Similarity", action="store_true",
+                   default=False,
+                   help="use the precomputed multimodal similarity features "
+                        "(multimodal_for_similarity.npy) instead of the PET "
+                        "features")
+    p.add_argument("--isTestAdnitype", action="store_true", default=False,
+                   help="train on CV folds, test on a held-out ADNI type")
+    p.add_argument("--adnitype_id", type=int, default=0,
+                   help="ADNI study-phase id held out as the external test "
+                        "cohort under --isTestAdnitype")
+    p.add_argument("--disease_id4Adnitype", type=int, default=0,
+                   help="disease task filtering the TRAIN side of the "
+                        "held-out-type split (labels binarized)")
+    p.add_argument("--isPermutTest", action="store_true", default=False,
+                   help="permutation-test control: shuffle the subject-to-"
+                        "score pairing (seed --Seed4PermutTest); results go "
+                        "to results_permuttest/ and importance npys are "
+                        "suppressed")
+    p.add_argument("--Seed4PermutTest", type=int, default=1,
+                   help="seed of the label permutation under --isPermutTest "
+                        "(vary it to build the null distribution)")
+    p.add_argument("--init_from_torch", type=str, default="",
+                   help="warm-start every fold of a SGCN_GCN_IMGSNP "
+                        "experiment from a reference-trained torch checkpoint "
+                        "(gcn_state_dict_*.pt, converted in-process by "
+                        "iggcn_tpu_torch.tools.import_torch; architecture "
+                        "must match the run's --layers/--hiddens). Optimizer "
+                        "state and data splits stay fresh")
     p.add_argument("--disease_id", type=int, default=3,
                    help="0=HC-vs-AD, 1=HC-vs-prodromal, 2=MCI-vs-AD "
                         "(binary), 3=HC/prodromal/AD (3-class)")
@@ -177,6 +260,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "(<root>/data_{AH,MH,AM}/{snp,dia}.csv) of the "
                         "SNP-only families; without them they train on the "
                         "cohort's SNP matrix")
+    # the JAX CLI's flags that choose nothing here, accepted so that its
+    # command lines parse: the port runs where --device says, has one
+    # implementation of the imaging stack (the kernel on the card) and one
+    # fold loop; the last three are dead in the reference too
+    p.add_argument("--cuda", type=int, default=None,
+                   help="ignored (reference compat): use --device")
+    p.add_argument("--cpu", action="store_true", default=False,
+                   help="ignored (reference compat): use --device cpu")
+    p.add_argument("--use_pallas_gcn", action="store_true", default=False,
+                   help="chooses nothing in the port (the imaging stack "
+                        "always runs its CUDA kernel on the card); recorded "
+                        "in the model config as the JAX CLI records it")
+    p.add_argument("--no_fold_scan", action="store_true", default=False,
+                   help="chooses nothing in the port (its folds always run "
+                        "as a Python epoch loop)")
+    p.add_argument("--clean", action="store_true", default=False,
+                   help="ignored (dead flag in the reference too)")
+    p.add_argument("--keep_old", action="store_true", default=False,
+                   help="ignored (dead flag in the reference too)")
+    p.add_argument("--reprocess", action="store_true", default=False,
+                   help="ignored (dead flag in the reference too)")
     return p
 
 
@@ -216,14 +320,15 @@ def fused_cfgs(args, dcfg: DataConfig, num_layers: int, hidden: int):
         is_use_prob4regr=args.isuseProb4Regr,
         model4eachregr=args.model4eachregr, is_image_only=args.isImageOnly,
         is_snps_only=args.isSNPsOnly, is_multi_fusion=args.isMultiFusion,
-        use_gat=args.model == "SGCN_GAT",
+        use_gat=args.model == "SGCN_GAT", use_pallas_gcn=args.use_pallas_gcn,
         go_attention_impl=args.go_attention_impl)
     tcfg = TrainConfig(
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
         weight_decay=args.weight_decay,
         lr_decay_factor=args.lr_decay_factor,
         lr_decay_step_size=args.lr_decay_step_size, folds=args.fold,
-        seed=args.seed, no_val=args.no_val, temperature=args.temperature,
+        seed=args.seed, no_val=args.no_val,
+        is_permut_test=args.isPermutTest, temperature=args.temperature,
         clinical_score_index=args.clinical_score_index,
         loss=LossWeights(args.lambda_disease, args.lambda_regr,
                          args.lambda_prob, args.lambda_reco,
@@ -231,30 +336,112 @@ def fused_cfgs(args, dcfg: DataConfig, num_layers: int, hidden: int):
     return mcfg, tcfg
 
 
+def build_dcfg(args) -> DataConfig:
+    """The DataConfig of a command line, field for field as the JAX CLI's
+    `_build_dcfg` builds it."""
+    return DataConfig(
+        data_path=args.data_path, json_path=args.json_path,
+        go_connection_path=args.go_connection_path,
+        snps_to_gene_path=args.snps_to_gene_path, knn=args.knn,
+        disease_id=args.disease_id,
+        clinical_score_index=args.clinical_score_index,
+        is_ppr=args.isPPr, is_topk=args.isTopK, top_k=args.top_k,
+        is_multimodal4similarity=args.isMultilModal4Similarity,
+        is_multi_fusion=args.isMultiFusion, is_permut_test=args.isPermutTest,
+        seed4permut_test=args.Seed4PermutTest)
+
+
+# what the real route reads, named when a load fails
+REAL_LAYOUT = ("<data_path>/knn/<k>/{sbjID_int, score_excel_val_adni874, "
+               "score_excel_val_adni874_fill, SNPS_data, BL_DXGrp_label, "
+               "corr_data, imgData_mat_normalized_fix}.mat, "
+               "<data_path>/knn/<k>/center_2/clusters_pred_label.npy, "
+               "<data_path>/knn/<k>/pet_for_similarity.npy (or "
+               "multimodal_for_similarity.npy), with --isMultiFusion "
+               "<data_path>/{MRI,FDG-PET,AV45-PET}/knn/<k>/corr_data.mat, "
+               "and the three GO source files")
+
+
 def load_cohort(args, dcfg: DataConfig, rng: np.random.Generator):
-    """(cohort, topology) of the synthetic route; the topology is drawn
-    before the cohort from the same generator, as the JAX package does."""
-    from iggcn_tpu_torch.data import adni, go_graph
-    if not (args.synthetic or not os.path.isdir(dcfg.data_path)):
-        raise NotImplementedError(
-            f"{dcfg.data_path} exists, but the port's real-data loaders are "
-            f"not ported yet (ROADMAP Queue 1 item 7); pass --synthetic")
-    print("[data] using synthetic ADNI-shaped cohort")
-    levels = [int(v) for v in args.synthetic_go_levels.split(",")]
-    topo = go_graph.synthetic_topology(rng, level_sizes=levels)
-    rois, feat_dim = imaging_shape(args)
-    cohort = adni.synthetic_cohort(rng, num_subjects=args.synthetic_subjects,
-                                   rois=rois, feat_dim=feat_dim,
-                                   num_classes=dcfg.num_classes,
-                                   num_regr=regression_targets(args),
-                                   top_k=dcfg.top_k)
+    """(cohort, topology): the reference's `.mat` cohort and the GO DAG
+    parsed from its three source files when `--data_path` exists (and
+    `--synthetic` is not given), else the synthetic cohort over a
+    synthetic DAG; either cohort through the processed-cohort cache, with
+    the JAX CLI's keys (`_load_cohort`)."""
+    from iggcn_tpu_torch.data import adni, cohort_cache, go_graph
+    if args.synthetic or not os.path.isdir(dcfg.data_path):
+        print("[data] using synthetic ADNI-shaped cohort")
+        rois, feat_dim = imaging_shape(args)
+        # the topology is drawn BEFORE the cohort, so a cache hit (which
+        # skips the cohort's draws) leaves it as a miss would
+        topo = go_graph.synthetic_topology(
+            rng, level_sizes=args.synthetic_go_levels)
+        params = dict(seed=args.seed, num_subjects=args.synthetic_subjects,
+                      rois=rois, feat_dim=feat_dim,
+                      num_classes=dcfg.num_classes,
+                      num_regr=regression_targets(args), top_k=dcfg.top_k)
+        if args.synthetic_go_levels != go_levels(DEFAULT_GO_LEVELS):
+            # other levels draw other numbers before the cohort; the JAX
+            # CLI has no such flag, and the default key stays its key
+            params["go_levels"] = tuple(args.synthetic_go_levels)
+        key = cohort_cache.cohort_key("synthetic", **params)
+        cohort, hit = cohort_cache.load_or_build(
+            args.cohort_cache_dir, key,
+            lambda: adni.synthetic_cohort(
+                rng, num_subjects=args.synthetic_subjects, rois=rois,
+                feat_dim=feat_dim, num_classes=dcfg.num_classes,
+                num_regr=regression_targets(args), top_k=dcfg.top_k))
+        if dcfg.is_permut_test:
+            # after the cache, so that entries hold the true pairing; the
+            # real loader shuffles inside load_adni874
+            cohort = adni.permute_regression_targets(
+                cohort, dcfg.seed4permut_test)
+    else:
+        # the source files (name, size, mtime) and every loader field are
+        # in the key, the permutation seed too: load_adni874 shuffles
+        key = cohort_cache.cohort_key(
+            "adni874",
+            files=cohort_cache.dir_fingerprint(dcfg.data_path),
+            data_path=os.path.abspath(dcfg.data_path),
+            disease_id=dcfg.disease_id, knn=dcfg.knn,
+            num_cluster=dcfg.num_cluster,
+            clinical_score_index=dcfg.clinical_score_index,
+            is_ppr=dcfg.is_ppr, is_topk=dcfg.is_topk, top_k=dcfg.top_k,
+            ppr_alpha=dcfg.ppr_alpha, heat_t=dcfg.heat_t,
+            is_multimodal4similarity=dcfg.is_multimodal4similarity,
+            is_use_tsne4similar=dcfg.is_use_tsne4similar,
+            is_multi_fusion=dcfg.is_multi_fusion,
+            is_permut_test=dcfg.is_permut_test,
+            seed4permut_test=dcfg.seed4permut_test)
+        try:
+            cohort, hit = cohort_cache.load_or_build(
+                args.cohort_cache_dir, key, lambda: adni.load_adni874(dcfg))
+            topo = go_graph.parse_go_json(dcfg.json_path,
+                                          dcfg.go_connection_path,
+                                          dcfg.snps_to_gene_path)
+        except Exception as e:
+            # the data dir exists: name what failed and what the route
+            # reads, and re-raise unchanged (a code fault keeps its
+            # traceback)
+            print(f"[data] failed to load the ADNI cohort/GO sources "
+                  f"({type(e).__name__}: {e}) from --data_path "
+                  f"{dcfg.data_path} (--knn {dcfg.knn}), --json_path "
+                  f"{dcfg.json_path}, --go_connection_path "
+                  f"{dcfg.go_connection_path}, --snps_to_gene_path "
+                  f"{dcfg.snps_to_gene_path}. The route reads "
+                  f"{REAL_LAYOUT}.", file=sys.stderr)
+            raise
+    if hit:
+        print(f"[data] cohort loaded from cache ({key})")
     return cohort, topo
 
 
 def setup_run_dir(args, argv: Optional[List[str]]):
-    """Create results/ADNI<appendix>, record the command line, and return
-    (res_dir, logger) where logger appends a line to its log.txt."""
-    res_dir = os.path.join(os.getcwd(), "results", f"ADNI{args.save_appendix}")
+    """Create results/ADNI<appendix> (results_permuttest/ under
+    --isPermutTest), record the command line, and return (res_dir, logger)
+    where logger appends a line to its log.txt."""
+    sub = "results_permuttest" if args.isPermutTest else "results"
+    res_dir = os.path.join(os.getcwd(), sub, f"ADNI{args.save_appendix}")
     os.makedirs(res_dir, exist_ok=True)
     cmd = ("python -m iggcn_tpu_torch.main "
            + shlex.join(sys.argv[1:] if argv is None else argv))
@@ -270,8 +457,9 @@ def setup_run_dir(args, argv: Optional[List[str]]):
 
 def snps_inputs(args, parser, dcfg: DataConfig, rng: np.random.Generator):
     """(snps, labels, topology) of the SNP-only families: the standalone
-    csv cohort when it is there (not with --synthetic), else the cohort's
-    SNP matrix and labels, as the JAX CLI's `_snps_inputs`."""
+    csv cohort when it is there (not with --synthetic), with the GO DAG
+    parsed from its source files when all three are there, else the
+    cohort's SNP matrix and labels, as the JAX CLI's `_snps_inputs`."""
     from iggcn_tpu_torch.data import go_graph
     from iggcn_tpu_torch.data.snps import load_snps_csv
     if dcfg.num_classes != 2:
@@ -290,15 +478,13 @@ def snps_inputs(args, parser, dcfg: DataConfig, rng: np.random.Generator):
     go_files = (dcfg.json_path, dcfg.go_connection_path,
                 dcfg.snps_to_gene_path)
     if all(os.path.exists(p) for p in go_files):
-        raise NotImplementedError(
-            "the GO source files are present, but the port's GO JSON/DAG "
-            "parser (data/go_graph.py:parse_go_json) is not ported yet "
-            "(ROADMAP Queue 1 item 7); the JAX CLI would parse them, so the "
-            "port does not fall back to a synthetic DAG")
-    print("[data] GO source files missing "
-          f"({[p for p in go_files if not os.path.exists(p)]}); using a "
-          "synthetic GO topology")
-    topo = go_graph.synthetic_topology(rng)
+        topo = go_graph.parse_go_json(*go_files)
+    else:
+        # parse_go_json needs all three source files
+        print("[data] GO source files missing "
+              f"({[p for p in go_files if not os.path.exists(p)]}); using a "
+              "synthetic GO topology")
+        topo = go_graph.synthetic_topology(rng)
     if args.model == "Gene_ontology_network" and \
             snps_csv[0].shape[1] != topo.go_snps.shape[1]:
         parser.error(f"csv cohort has {snps_csv[0].shape[1]} SNPs but the GO "
@@ -335,6 +521,51 @@ def improves(loss: float, best_loss: float) -> bool:
     return bool(np.isnan(best_loss)) or loss < best_loss
 
 
+def build_warm_start(args, dcfg: DataConfig, topo, grid, logger):
+    """`--init_from_torch` (a reference gcn_state_dict_*.pt) as the
+    `(params, batch_stats, tag)` warm start of `cross_validation`, as the
+    JAX CLI's `_build_warm_start` makes it: the checkpoint fixes one
+    architecture, so a grid is refused, and every architectural field must
+    match the run's configuration (no partial load); the tag (file name
+    and content hash) enters the fold records' run identity."""
+    import hashlib
+
+    from iggcn_tpu_torch.tools import import_torch as it
+
+    if len(grid) > 1:
+        print("[init_from_torch] a grid search cannot warm-start from one "
+              "fixed-architecture checkpoint; pass --no-search with the "
+              "checkpoint's --layers/--hiddens", file=sys.stderr)
+        raise SystemExit(2)
+    sd = it._load_state_dict(args.init_from_torch)
+    try:
+        icfg = it.infer_model_config(sd, topo)
+        mcfg, _ = fused_cfgs(args, dcfg, grid[0][0], grid[0][1])
+        arch_fields = ("num_layers", "hidden", "rois", "feat_dim",
+                       "num_classes", "num_regr", "hidden_linear", "l_dim",
+                       "go_in_f_dim", "go_n_l", "go_f_dim", "num_snps",
+                       "is_use_prob4regr")
+        mismatch = [f"{f}: checkpoint {getattr(icfg, f)} vs run "
+                    f"{getattr(mcfg, f)}" for f in arch_fields
+                    if getattr(icfg, f) != getattr(mcfg, f)]
+        if mismatch:
+            print("[init_from_torch] checkpoint architecture does not "
+                  "match the run's configuration:\n  "
+                  + "\n  ".join(mismatch), file=sys.stderr)
+            raise SystemExit(2)
+        params, batch_stats = it.convert_fused_state_dict(sd, topo, icfg)
+    except it.ImportError_ as e:
+        print(f"[init_from_torch] FAILED: {e}", file=sys.stderr)
+        raise SystemExit(2)
+    with open(args.init_from_torch, "rb") as fh:
+        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
+    tag = f"{os.path.basename(args.init_from_torch)}:{digest}"
+    msg = f"[init_from_torch] warm-starting every fold from {tag}"
+    print(msg)
+    logger(msg)
+    return params, batch_stats, tag
+
+
 def main(argv: Optional[List[str]] = None):
     """Run the experiment; returns the CVResult of every configuration, or
     the SnpsCVResult of a SNP-only family."""
@@ -345,6 +576,9 @@ def main(argv: Optional[List[str]] = None):
                 else "is unknown")
         parser.error(f"--model {args.model!r} {what}; the port has: "
                      f"{', '.join(tuple(FUSION_MODELS) + SNP_MODELS)}")
+    if args.cuda is not None or args.cpu:
+        print("[device] --cuda/--cpu are reference-compat no-ops: the port "
+              "runs where --device says (default cuda)", file=sys.stderr)
     if args.export_bundle and FUSION_MODELS.get(args.model) in ("sgcn_image",
                                                                 "sgcn_ori"):
         image_only = {m for m, k in FUSION_MODELS.items()
@@ -354,6 +588,26 @@ def main(argv: Optional[List[str]] = None):
             "serving bundles exist for the fused imaging-genetics families "
             f"({', '.join(sorted(set(FUSION_MODELS) - image_only))}) and the "
             f"SNP-only families ({', '.join(SNP_MODELS)})")
+    if args.export_bundle and args.isPermutTest:
+        parser.error("--export_bundle with --isPermutTest: permutation "
+                     "runs train on shuffled labels; refusing to export "
+                     "serving bundles from them")
+    if args.init_from_torch:
+        # the reference writes checkpoints of the fused flagship only
+        if FUSION_MODELS.get(args.model) != "sgcn_imgsnp":
+            parser.error("--init_from_torch supports --model "
+                         "SGCN_GCN_IMGSNP only (the one family the "
+                         "reference writes checkpoints for)")
+        if args.isTestAdnitype:
+            # the held-out-type split re-binarises the classifier head, so
+            # the checkpoint's head cannot match the run's
+            parser.error("--init_from_torch does not combine with "
+                         "--isTestAdnitype: the held-out-ADNI-type split "
+                         "re-binarizes the classifier head, so the "
+                         "checkpoint's head cannot match the run's")
+        if not os.path.exists(args.init_from_torch):
+            parser.error(f"--init_from_torch: {args.init_from_torch} "
+                         "does not exist")
     if args.resume and args.save_appendix == "":
         parser.error("--resume needs --save_appendix naming the results "
                      "dir of the interrupted run (a fresh timestamped dir "
@@ -364,15 +618,14 @@ def main(argv: Optional[List[str]] = None):
         parser.error("--clinical_score_index selects a single score; "
                      "--num_regr must be 1 (or left unset)")
     args.num_regr = regression_targets(args)
+    from iggcn_tpu_torch.data.adni import separate_data_adnitype
     from iggcn_tpu_torch.train.cv import cross_validation
     from iggcn_tpu_torch.utils.platform import resolve_device
     device = resolve_device(args.device)
     if args.save_appendix == "":
         args.save_appendix = "_" + time.strftime("%Y%m%d%H%M%S")
     res_dir, logger = setup_run_dir(args, argv)
-    dcfg = DataConfig(disease_id=args.disease_id,
-                      clinical_score_index=args.clinical_score_index,
-                      top_k=args.top_k, is_multi_fusion=args.isMultiFusion)
+    dcfg = build_dcfg(args)
     rng = np.random.default_rng(args.seed)
     if args.model in SNP_MODELS:
         # before the imaging cohort: a csv cohort needs none of it
@@ -389,20 +642,29 @@ def main(argv: Optional[List[str]] = None):
         print("[search] SGCN_Ori has a fixed architecture; running one "
               "configuration instead of the grid")
         grid = grid[:1]
+    warm_start = (build_warm_start(args, dcfg, topo, grid, logger)
+                  if args.init_from_torch else None)
+    train_cohort, external_test = cohort, None
+    if args.isTestAdnitype:
+        train_cohort, external_test = separate_data_adnitype(
+            cohort, args.disease_id4Adnitype, args.adnitype_id)
     best_hyper = grid[0]
     for num_layers, hidden, h in grid:
         mcfg, tcfg = fused_cfgs(args, dcfg, num_layers, hidden)
+        # the held-out-type split binarises the labels: the head and the
+        # metrics follow the cohort, not --disease_id
+        mcfg = dataclasses.replace(mcfg, num_classes=train_cohort.num_classes)
         msg = f"Using {num_layers} layers, {hidden} hidden units, h = {h}"
         print(msg)
         logger(msg)
         res = cross_validation(
-            cohort, topo, mcfg, tcfg, res_dir=res_dir,
+            train_cohort, topo, mcfg, tcfg, res_dir=res_dir,
             result_file_name=(f"result_sgcn_img_snp_layers{num_layers}"
                               f"_hidden{hidden}_h{h}"),
             clinical_score_index=args.clinical_score_index, logger=logger,
             model_kind=FUSION_MODELS[args.model],
-            export_bundle=args.export_bundle, resume=args.resume,
-            device=device)
+            external_test=external_test, export_bundle=args.export_bundle,
+            resume=args.resume, warm_start=warm_start, device=device)
         results.append(res)
         print(f"[throughput] {res.throughput_graphs_per_sec:.1f} graphs/s")
         if improves(res.mean_test_loss, best[0]):

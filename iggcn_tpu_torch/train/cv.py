@@ -27,8 +27,14 @@ families with a GO topology), and last an atomic fold record
 trains only the rest; records written by either package resume in the
 other.
 
-Not ported yet, and refused: `external_test`, permutation tests and
-`fold_parallel`.
+With `external_test` (the held-out-ADNI-type experiment) every fold
+tests on that cohort instead of its test split: its clinical scores are
+imputed per fold from its own demographics against the fold's train
+rows, and its subject ids go into the artifacts. A permutation-test run
+(`tcfg.is_permut_test`) keeps each fold's last epoch, not its best, and
+writes no checkpoint, bundle or npy artifact, only the fold records, as
+the JAX package does. `fold_parallel` (all folds as one batched program)
+is not ported yet and is refused.
 """
 from __future__ import annotations
 
@@ -104,32 +110,40 @@ if set(MODEL_FAMILIES) != set(OBJECTIVES):  # not assert: survives python -O
 
 
 def prepare_fold(cohort: AdniCohort, full: Dict[str, np.ndarray], split,
-                 fold: int, tcfg: TrainConfig, clinical_score_index: int
+                 fold: int, tcfg: TrainConfig, clinical_score_index: int,
+                 external_test: Optional[AdniCohort] = None
                  ) -> Dict[str, Any]:
     """Host-side data of one fold, all NumPy: per-fold imputed clinical
     scores, padded train/val/test arrays (val is None without a validation
-    split), the test subject ids and the epoch permutations."""
+    split), the test subject ids and the epoch permutations. With
+    `external_test` that cohort is the fold's test set, imputed from its
+    own demographics (the JAX package's `_impute_fold`)."""
     train_idx, test_idx, val_idx = split
     use_val = not tcfg.no_val
     if not use_val:
         train_idx = np.concatenate([train_idx, val_idx])
     demo = cohort.demographics
-    parts = ([train_idx, val_idx, test_idx] if use_val
-             else [train_idx, test_idx])
-    scores = knn_impute_scores([demo[i] for i in parts], cohort.scaler4score,
+    parts = [demo[train_idx]] + ([demo[val_idx]] if use_val else [])
+    parts.append(demo[test_idx] if external_test is None
+                 else external_test.demographics)
+    scores = knn_impute_scores(parts, cohort.scaler4score,
                                clinical_score_index)
 
-    def padded(idx, clini):
-        arrs = {k: v[idx] for k, v in full.items() if k != "sbj_id"}
+    def padded(arrays, idx, clini):
+        arrs = {k: v[idx] for k, v in arrays.items() if k != "sbj_id"}
         arrs["clini"] = clini
         return pad_to_batches(arrs, tcfg.batch_size)
 
-    train_data = padded(train_idx, scores[0])
+    test_full = full
+    if external_test is not None:
+        test_full = cohort_batch_arrays(external_test)
+        test_idx = np.arange(len(external_test))
+    train_data = padded(full, train_idx, scores[0])
     return dict(
         train_data=train_data,
-        val_data=padded(val_idx, scores[1]) if use_val else None,
-        test_data=padded(test_idx, scores[-1]),
-        test_subids=full["sbj_id"][test_idx],
+        val_data=padded(full, val_idx, scores[1]) if use_val else None,
+        test_data=padded(test_full, test_idx, scores[-1]),
+        test_subids=test_full["sbj_id"][test_idx],
         n_train=len(train_idx), n_test=len(test_idx),
         n_val=len(val_idx) if use_val else len(test_idx),
         perms=fold_perms(tcfg.seed, tcfg.epochs, fold, len(train_idx),
@@ -160,10 +174,11 @@ def init_fold_model(mcfg: ModelConfig, topo: GoTopology, seed: int,
 
 
 def write_importance(res_dir: str, result_file_name: str, fold: int,
-                     model: torch.nn.Module) -> None:
+                     model: torch.nn.Module, is_permut_test: bool = False
+                     ) -> None:
     """A fold's importance npys from its final weights: the ROI and edge
     importance (and the SNP importance where the family has it), or the
-    GUIDE family's Gumbel mask logits."""
+    GUIDE family's Gumbel mask logits; none in a permutation test."""
     def host(t):
         return t.detach().cpu().numpy()
 
@@ -172,10 +187,11 @@ def write_importance(res_dir: str, result_file_name: str, fold: int,
         artifacts.output_importance(
             res_dir, result_file_name, fold, host(model.prob),
             None if snps_prob is None else host(snps_prob),
-            host(model.prob_bias))
+            host(model.prob_bias), is_permut_test=is_permut_test)
     elif hasattr(model, "bias_n"):
         artifacts.output_mask_importance(res_dir, result_file_name, fold,
-                                         host(model.bias_n))
+                                         host(model.bias_n),
+                                         is_permut_test=is_permut_test)
 
 
 # execution-strategy fields of TrainConfig whose results are identical:
@@ -228,7 +244,9 @@ def load_fold_records(paths: List[str], want_meta: np.ndarray
 
 
 def write_fold_record(path: str, **arrays) -> None:
-    """Write a fold record atomically: a temporary file, then a rename."""
+    """Write a fold record atomically: a temporary file, then a rename.
+    Creates its directory: a permutation test writes nothing before it."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp.npz"   # savez appends .npz when absent
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
@@ -249,20 +267,18 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
                      device: str | torch.device | None = None) -> CVResult:
     """Run the CV experiment on `device` (default: the card). `warm_start`
     = (params, batch_stats, tag) flax trees start every fold (the
-    optimiser state starts fresh). With `res_dir`, every fold writes its
-    checkpoint and record (and with `export_bundle` its serving bundle);
-    `resume` restores the folds whose record matches this run."""
+    optimiser state starts fresh). `external_test` is a held-out cohort
+    that every fold tests on instead of its test split. With `res_dir`,
+    every fold writes its checkpoint and record (and with `export_bundle`
+    its serving bundle); `resume` restores the folds whose record matches
+    this run."""
     if model_kind not in MODEL_FAMILIES:
         raise ValueError(f"unknown model_kind {model_kind}; "
                          f"one of {sorted(MODEL_FAMILIES)}")
-    refused = {"external_test": external_test is not None,
-               "is_permut_test": tcfg.is_permut_test,
-               "fold_parallel": tcfg.fold_parallel}
-    for what, asked in refused.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP Queue 1); the port's CV "
-                f"trains the fused families without it")
+    if tcfg.fold_parallel:
+        raise NotImplementedError(
+            "fold_parallel is not ported yet (ROADMAP Queue 1 item 13); the "
+            "port's CV trains the folds one after the other")
     dev = resolve_device(device)
     if clinical_score_index is None:
         clinical_score_index = tcfg.clinical_score_index
@@ -276,7 +292,10 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         return os.path.join(res_dir,
                             f"{stem}_{result_file_name}_fold_{fold}.{ext}")
 
-    want_meta = record_meta(tcfg, mcfg, model_kind, warm_start=warm_start)
+    want_meta = record_meta(tcfg, mcfg, model_kind,
+                            external_test=external_test is not None,
+                            warm_start=warm_start)
+    permut = tcfg.is_permut_test
     done_folds: Dict[int, Dict[str, np.ndarray]] = {}
     if resume and res_dir is not None:
         done_folds = load_fold_records(
@@ -309,7 +328,8 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
             if logger is not None:
                 logger(msg)
             continue
-        p = prepare_fold(cohort, full, split, fold, tcfg, clinical_score_index)
+        p = prepare_fold(cohort, full, split, fold, tcfg, clinical_score_index,
+                         external_test)
         n_train, n_test, n_val = p["n_train"], p["n_test"], p["n_val"]
         t_start = time.perf_counter()
         wmask = p["test_data"]["w"] > 0
@@ -350,7 +370,7 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         state = TrainState(model, tcfg,
                            p["train_data"]["y"].shape[0] // tcfg.batch_size,
                            model_kind)
-        _, best, state = run_fold(
+        per_epoch, best, state = run_fold(
             state, to_device(p["train_data"], dev), to_device(p["val_data"], dev),
             to_device(p["test_data"], dev), p["perms"], mcfg, tcfg, generator,
             on_epoch)
@@ -372,7 +392,12 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         accs.extend(fold_accs)
         all_score_results.append(score_result_epoch)
 
-        best_test = best["test"]
+        # a permutation test keeps the last epoch, not the best, and of it
+        # the outputs the JAX package's fold scan keeps per epoch: its
+        # records hold zeros for the hidden and linear features
+        best_test = ({k: per_epoch[k][-1] for k in ("log_probs", "pred",
+                                                    "our_reg")
+                      if k in per_epoch} if permut else best["test"])
         zeros = np.zeros((int(wmask.sum()), 1), np.float32)
         parts = {part: (best_test[key][wmask] if key in best_test
                         else missing)
@@ -386,11 +411,14 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
             best_parts[part].append(parts[part])
 
         if res_dir is not None:
-            best_vars = to_flax_variables(state.model, best["state"])
-            save_checkpoint(fold_file("gcn_state_dict", fold, "msgpack"),
-                            best_vars["params"], best_vars["batch_stats"])
-            write_importance(res_dir, result_file_name, fold, state.model)
-            if export_bundle and getattr(state.model, "topo", None) is not None:
+            if not permut:
+                best_vars = to_flax_variables(state.model, best["state"])
+                save_checkpoint(fold_file("gcn_state_dict", fold, "msgpack"),
+                                best_vars["params"], best_vars["batch_stats"])
+            write_importance(res_dir, result_file_name, fold, state.model,
+                             permut)
+            if (export_bundle and not permut
+                    and getattr(state.model, "topo", None) is not None):
                 save_bundle(fold_file("serving_bundle", fold, "npz"),
                             state.model, best_vars["params"],
                             best_vars["batch_stats"])
@@ -409,11 +437,12 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
     cat = {k: np.concatenate(v) for k, v in best_parts.items()}
 
     if res_dir is not None:
-        artifacts.output_npy(f"{res_dir}/{result_file_name}.npy", score_result)
+        artifacts.output_npy(f"{res_dir}/{result_file_name}.npy", score_result,
+                             is_permut_test=permut)
         for name, key in (("hidden", "hidden"), ("subids", "subid"),
                           ("linear_out", "linear")):
             artifacts.output_npy(f"{res_dir}/{name}_{result_file_name}.npy",
-                                 cat[key])
+                                 cat[key], is_permut_test=permut)
 
     corr, r2s, mses = metrics.regression_metrics(cat["true_scores"],
                                                  cat["pred_scores"])
@@ -422,7 +451,7 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
     if res_dir is not None:
         artifacts.output_regression(res_dir, result_file_name, score_names,
                                     cat["true_scores"], cat["true_labels"],
-                                    cat["pred_scores"])
+                                    cat["pred_scores"], is_permut_test=permut)
         for nm, vals in regression_summary.items():
             msg = (f"Regression for all clinical score {nm}: correlation:"
                    f" {vals['corr']:.5f}, r2: {vals['r2']:.5f}, mse:"

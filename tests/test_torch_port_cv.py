@@ -8,7 +8,9 @@ rtol/atol 1e-3 (trained features after up to eight Adam steps: the GO
 latent columns pass train-mode batch norms over few rows, whose fp32
 cancellation moves them by up to 3e-4 while every loss still agrees to
 2e-4). Then the port's CLI (`python -m iggcn_tpu_torch.main`):
-it runs on the CPU when asked and raises without CUDA otherwise."""
+it runs on the CPU when asked and raises without CUDA otherwise. The
+external-test and permutation CVs are held against the JAX CV in
+`tests/test_torch_port_real_data.py`."""
 import os
 import re
 import shlex
@@ -119,12 +121,9 @@ def test_cross_validation_matches_jax(tmp_path, no_val):
 def test_cross_validation_refuses_what_is_not_ported():
     cohort = synthetic_cohort(np.random.default_rng(1), num_subjects=12)
     topo = synthetic_topology(np.random.default_rng(0))
-    for kwargs, tcfg in (({"external_test": cohort}, TrainConfig()),
-                         ({}, TrainConfig(is_permut_test=True)),
-                         ({}, TrainConfig(fold_parallel=True))):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cross_validation(cohort, topo, ModelConfig(), tcfg,
-                             device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        cross_validation(cohort, topo, ModelConfig(),
+                         TrainConfig(fold_parallel=True), device="cpu")
     # the zoo and SNP-only families are no model kind of this driver, as
     # in the JAX package
     for kind in ("gin", "snps_go"):

@@ -26,8 +26,11 @@ widths on the CPU:
     the mean test loss within rtol 2e-4, and the same fold records;
   * the CLI route of both models with `--device cpu`, and of the GO
     network over a csv cohort (a synthetic DAG without the GO source
-    files; with them the port refuses, as its GO parser is not ported)."""
+    files; with them, the DAG the port parses from them, equal to the JAX
+    parser's)."""
+import os
 import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +39,7 @@ import pytest
 import torch
 
 from iggcn_tpu.data import sampler as jax_sampler
+from iggcn_tpu.data.go_graph import parse_go_json as jax_parse_go_json
 from iggcn_tpu.data.go_graph import synthetic_topology as jax_topology
 from iggcn_tpu.data.snps import load_snps_csv as jax_load_snps_csv
 from iggcn_tpu.models import baselines as jax_baselines
@@ -336,33 +340,52 @@ def test_cli_route_trains_on_the_cpu(tmp_path, monkeypatch, capsys, model):
 
 @pytest.mark.parametrize("go_files", [False, True], ids=["no_go", "go"])
 def test_cli_reads_the_csv_cohort(tmp_path, monkeypatch, capsys, go_files):
-    """Without --synthetic the SNP-only route reads the csv cohort; with the
-    three GO source files present it refuses, since the JAX CLI would
-    parse them and the port's parser is not there yet."""
+    """Without --synthetic the SNP-only route reads the csv cohort, over a
+    synthetic GO DAG without the GO source files, and over the DAG the
+    port's parser builds from them (the committed PANTHER fixture, three
+    SNPs wide) when all three are present, as the JAX CLI does."""
     monkeypatch.chdir(tmp_path)
     rng = np.random.default_rng(2)
     base = tmp_path / "csv" / "data_AH"
     base.mkdir(parents=True)
-    np.savetxt(base / "snp.csv", rng.integers(0, 3, size=(30, 54)),
+    width = 3 if go_files else 54
+    np.savetxt(base / "snp.csv", rng.integers(0, 3, size=(30, width)),
                delimiter=",", fmt="%d", comments="",
-               header=",".join(f"rs{i}" for i in range(54)))
+               header=",".join(f"rs{i}" for i in range(width)))
     np.savetxt(base / "dia.csv", np.arange(30) % 2, fmt="%d", header="dia",
                comments="")
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures", "go")
     if go_files:
-        for name in ("data/snps/analysis.json", "data/go_root_connection.txt",
-                     "data/snps_to_gene.txt"):
+        for name, src in (("data/snps/analysis.json", "analysis.json"),
+                          ("data/go_root_connection.txt",
+                           "go_root_connection.txt"),
+                          ("data/snps_to_gene.txt", "snps_to_gene.txt")):
             (tmp_path / name).parent.mkdir(parents=True, exist_ok=True)
-            (tmp_path / name).write_text("{}")
+            shutil.copy(os.path.join(fixture, src), tmp_path / name)
+    topos = []
+    trainer = snps_trainer.cross_validation_snps
+
+    def recording(snps_x, snps_y, topo, **kw):
+        topos.append(topo)
+        return trainer(snps_x, snps_y, topo, **kw)
+
+    monkeypatch.setattr(snps_trainer, "cross_validation_snps", recording)
     argv = ["--model", "Gene_ontology_network", "--device", "cpu",
             "--snps_csv_root", str(tmp_path / "csv"), "--epochs", "1",
             "--fold", "3", "--batch_size", "16", "--disease_id", "0",
             "--save_appendix", "_csv"]
-    if go_files:
-        with pytest.raises(NotImplementedError, match="parse_go_json"):
-            port_main.main(argv)
-        return
     res = port_main.main(argv)
     out = capsys.readouterr().out
     assert "[data] SNP csv cohort: 30 subjects" in out
-    assert "using a synthetic GO topology" in out
+    assert ("using a synthetic GO topology" in out) != go_files
     assert res.score_result.shape == (3, 1, 5)
+    if go_files:
+        want = jax_parse_go_json(*(os.path.join(fixture, n) for n in (
+            "analysis.json", "go_root_connection.txt", "snps_to_gene.txt")))
+        assert topos[0].go_ids == want.go_ids
+        assert topos[0].pool == want.pool == [0, 1, 3, 4, 1]
+        np.testing.assert_array_equal(topos[0].adj_child_parent,
+                                      want.adj_child_parent)
+        np.testing.assert_array_equal(topos[0].go_snps, want.go_snps)
+    else:
+        assert topos[0].pool == [24, 16, 10, 6, 1]
