@@ -132,7 +132,18 @@ failure propagates and the script exits non-zero:
      weights over the layout's GO DAG (fold 0's weights before its first
      step bit-equal to the converted checkpoint, the tag line printed),
      and the same `.pt` through `tools.import_torch` into a bundle served
-     under phase 3's rule (1 launch per forward).
+     under phase 3's rule (1 launch per forward);
+ 14. the baseline, pooling and nested zoo: the 13 graph baselines of
+     `ZOO_MODELS` through the CLI on phase 7's synthetic 874-subject,
+     90-ROI cohort (one cohort build through a temp cache, then a graph
+     list), the 5 Nested* names on the synthetic TU benchmark (`--data
+     SYNTH --synthetic --h 2`: 120 graphs of 8-24 nodes), each L=2, H=16,
+     batch 32, 5 folds with val, 1 epoch: finite per-epoch accuracies, the
+     `Using` and `Result -` lines, the experiment wall and train graphs/s;
+     the kernel's launches over each run the loop's count (`--model GCN`:
+     1 per train step and per eval batch, counted in one of each too; 0
+     for the other 17); six card steps of fold 0 against the CPU under
+     phase 7's rules for GCN, GIN, DiffPool and TopK.
 
 Phases 7-11 build their synthetic cohorts without the cohort cache
 (`--cohort_cache_dir ''`), so no cache hit changes their readings.
@@ -160,6 +171,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -183,7 +195,7 @@ from iggcn_tpu_torch.tools.convert import to_flax_variables
 from iggcn_tpu_torch.tools.serve import (build_http_server, load_bundle,
                                          save_bundle)
 from iggcn_tpu_torch.train import cv as port_cv
-from iggcn_tpu_torch.train import fold_loop, snps_trainer, steps
+from iggcn_tpu_torch.train import fold_loop, generic_cv, snps_trainer, steps
 from iggcn_tpu_torch.train.cv import init_fold_model, prepare_fold, to_device
 from iggcn_tpu_torch.utils import cuda_build
 
@@ -264,6 +276,8 @@ SNP_MODELS, SNP_EPOCHS = ("Gene_ontology_network", "MLP_Model"), 3
 # its GO sources parse into these level sizes (leaves first), the real
 # graph's scale
 REAL_GO_LEVELS, REAL_EPOCHS = (250, 120, 50, 15, 1), 2
+# phase 14: the zoo, 1 epoch each; six card steps against the CPU for these
+ZOO_EPOCHS, ZOO_CARD_CPU = 1, ("GCN", "GIN", "DiffPool", "TopK")
 
 
 def snps_argv(appendix):
@@ -1732,6 +1746,165 @@ def phase_snps(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the baseline, pooling and nested zoo
+
+class ZooState:
+    """A zoo model, its optimiser, its generic train step and the count of
+    steps taken."""
+
+    def __init__(self, model, wiring):
+        self.model = model
+        self.optimizer = generic_cv.make_generic_optimizer(model)
+        self.train_step, _ = generic_cv.build_generic_steps(
+            model, self.optimizer, **wiring)
+        self.step = 0
+
+
+def zoo_argv(model, appendix, cache_dir):
+    """The zoo CLI route on the card: phase 7's synthetic 874-subject,
+    90-ROI cohort through a shared cohort cache (one build for the 13
+    runs), L=2, H=16, batch 32, 5 folds with val, 1 epoch."""
+    return ["--device", "cuda", "--model", model, "--synthetic",
+            "--synthetic_subjects", str(COHORT), "--synthetic_go_levels",
+            GO_LEVELS, "--no-search", "--layers", "2", "--hiddens", "16",
+            "--batch_size", str(TRAIN_BATCH), "--fold", str(TRAIN_FOLDS),
+            "--epochs", str(ZOO_EPOCHS), "--save_appendix", appendix,
+            "--cohort_cache_dir", cache_dir]
+
+
+def nested_argv(model, appendix):
+    """The Nested* CLI route on the card: the synthetic TU benchmark (no
+    raw SYNTH files under --tu_root) at h=2, otherwise `zoo_argv`'s."""
+    return ["--device", "cuda", "--model", model, "--data", "SYNTH",
+            "--synthetic", "--h", "2", "--no-search", "--layers", "2",
+            "--hiddens", "16", "--batch_size", str(TRAIN_BATCH), "--fold",
+            str(TRAIN_FOLDS), "--epochs", str(ZOO_EPOCHS), "--save_appendix",
+            appendix, "--tu_root", os.path.join(REPO, "results", "no_tu")]
+
+
+def zoo_data(argv):
+    """(args, dataset) of a zoo command line, built as the CLI builds it
+    (for the Nested* names, the graphs their nested dataset is made of:
+    same labels, so same splits)."""
+    args = port_main.build_parser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ds = port_main.zoo_dataset(args, port_main.build_dcfg(args),
+                                   np.random.default_rng(args.seed))
+    return args, ds
+
+
+def zoo_route(args, ds):
+    """`card_vs_cpu_steps`' route of a zoo model: fold 0 of the generic CV
+    at dropout 0 (its weights from seed + 0 on the CPU), the first epoch's
+    shuffled train batches, the generic train step (loss x sum(w)) at the
+    epoch-0 learning rate."""
+    template, kw = port_main.build_zoo_model(args.model, args.layers,
+                                             args.hiddens, ds)
+    model, _ = generic_cv.init_generic_model(template, args.seed, 0,
+                                             torch.device("cpu"))
+    wiring = {k: kw.get(k, False) for k in (
+        "needs_mask", "needs_assign", "adj_only", "aux_loss",
+        "takes_weight")}
+    train_idx = k_fold(ds.y, TRAIN_FOLDS, args.seed)[0][0]
+    idx, w = pad_epoch_indices(
+        np.random.default_rng(args.seed * 31).permutation(train_idx),
+        TRAIN_BATCH)
+    data = {k: getattr(ds, k)[idx] for k in generic_cv.BATCH_KEYS
+            if getattr(ds, k, None) is not None}
+    data["w"] = w
+    lr_t = snps_trainer.steplr_host(args.lr, args.lr_decay_factor,
+                                    args.lr_decay_step_size, 0)
+
+    def step(state, batch):
+        state.step += 1
+        return float(state.train_step(batch, None, lr_t) * batch["w"].sum())
+
+    return {"model": quiet(model), "batch": TRAIN_BATCH, "data": data,
+            "state": lambda m: ZooState(m, wiring), "step": step,
+            "lr": lambda t: lr_t}
+
+
+def run_zoo(dev, argv):
+    """One zoo CLI experiment on the card: every per-epoch accuracy finite,
+    the `Using` and `Result -` lines printed; returns its readings."""
+    args, ds = zoo_data(argv)
+    text, launches, wall_s, results = cli_run(argv)
+    accs = re.findall(r"^fold \d+ epoch \d+: acc (\S+)$", text, re.M)
+    if (len(accs) != TRAIN_FOLDS * ZOO_EPOCHS
+            or not all(np.isfinite(float(a)) for a in accs)):
+        raise AssertionError(f"{args.model}: per-epoch lines {accs}")
+    result = re.search(r"^Result - .*$", text, re.M)
+    if result is None or "Using 2 layers, 16 hidden units" not in text:
+        raise AssertionError(f"{args.model}: no `Using`/`Result -` line")
+    splits = k_fold(ds.y, TRAIN_FOLDS, args.seed)
+    graphs = ZOO_EPOCHS * sum(len(tr) for tr, _, _ in splits)
+    log(f"{args.model}: {wall_s:.3f} s wall, {graphs / wall_s:.1f} train "
+        f"graphs/s over the experiment, {launches} kernel launches, "
+        f"mean test loss {results[0].mean_loss:.5f}, {result.group(0)}")
+    return {"args": args, "dataset": ds, "splits": splits,
+            "experiment_wall_s": wall_s, "launches": launches,
+            "throughput_graphs_per_s": graphs / wall_s,
+            "result_line": result.group(0), "epochs": ZOO_EPOCHS,
+            "mean_test_loss": results[0].mean_loss,
+            "nodes": int(ds.x.shape[1]), "graphs": len(ds)}
+
+
+def gcn_launch_counts(dev, route):
+    """The kernel's launches in one generic train step and one eval batch
+    of the GCN route's first batch on the card (both must be 1)."""
+    card = route["state"](copy.deepcopy(route["model"]).to(dev))
+    batch = to_device({k: v[:TRAIN_BATCH] for k, v in route["data"].items()},
+                      dev)
+    _, evaluate = generic_cv.build_generic_steps(
+        card.model, card.optimizer, needs_mask=False, needs_assign=False,
+        adj_only=False, aux_loss=False, takes_weight=False)
+    per_step = counted_launches(lambda: card.train_step(batch, None, 1e-3))
+    per_eval = counted_launches(lambda: evaluate(batch))
+    if (per_step, per_eval) != (1, 1):
+        raise AssertionError(f"GCN: {per_step} / {per_eval} launches per "
+                             "train step / eval batch; expected 1 / 1")
+    return per_step, per_eval
+
+
+def phase_zoo(dev):
+    log("== phase 14: the baseline, pooling and nested zoo on the card")
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as cache:
+        for model in port_main.ZOO_MODELS:
+            appendix = f"_chip_smoke_zoo_{model}"
+            shutil.rmtree(run_dir(appendix), ignore_errors=True)
+            argv = (nested_argv(model, appendix)
+                    if model.startswith("Nested")
+                    else zoo_argv(model, appendix, cache))
+            run = run_zoo(dev, argv)
+            args, ds, splits = (run.pop(k) for k in ("args", "dataset",
+                                                     "splits"))
+            # the GCN stack's kernel runs in GCNFlat only: 1 launch per
+            # train step and per eval batch, 0 for every other name
+            want = expected_launches(
+                splits, types.SimpleNamespace(batch_size=args.batch_size,
+                                              epochs=args.epochs),
+                1 if model == "GCN" else 0)
+            if run["launches"] != want:
+                raise AssertionError(f"{model}: the run launched the kernel "
+                                     f"{run['launches']} times; the loop "
+                                     f"implies {want}")
+            run["expected_launches"] = want
+            if model in ZOO_CARD_CPU:
+                route = zoo_route(args, ds)
+                if model == "GCN":
+                    (run["launches_per_train_step"],
+                     run["launches_per_eval_batch"]) = gcn_launch_counts(
+                        dev, route)
+                run["card_vs_cpu"] = card_vs_cpu_steps(dev, route)
+            out[model] = run
+    total = time.perf_counter() - t0
+    log(f"phase 14: {total:.3f} s for the {len(out)} zoo names")
+    return {"models": out, "phase_s": total}
+
+
+# ---------------------------------------------------------------------------
 # phases 12-13: the real-cohort route on a fabricated reference layout
 
 def write_go_sources(dirpath, rng, level_sizes=REAL_GO_LEVELS,
@@ -2038,6 +2211,7 @@ def main() -> int:
         layout = real_layout(root)
         real, real_ctx = phase_real_cohort(dev, layout)
         other = phase_other_routes(dev, layout, real_ctx)
+    zoo = phase_zoo(dev)
 
     serving, *others = times["shapes"]
     # per route: the kernel's launches per train step and per eval batch,
@@ -2051,7 +2225,8 @@ def main() -> int:
               "SGCN_GCN_IMGSNP --isPermutTest": other["permut"],
               "SGCN_GCN_IMGSNP --isTestAdnitype": other["adnitype"],
               "SGCN_GCN_IMGSNP --init_from_torch":
-                  other["init_from_torch"]}
+                  other["init_from_torch"],
+              "GCN": zoo["models"]["GCN"]}
     served_bundles = {**artifacts["serving"],
                       "real-cohort flagship": real["serving"],
                       "imported reference .pt": other["imported_serving"]}
@@ -2138,6 +2313,12 @@ def main() -> int:
                         "retrained_test_loss_max_rel_diff": max(
                             artifacts["resume"][
                                 "retrained_test_loss_max_rel_diff"].values())},
+             "zoo": {"phase_s": zoo["phase_s"], **{model: {
+                 k: run[k] for k in (
+                     "experiment_wall_s", "throughput_graphs_per_s",
+                     "result_line", "launches", "expected_launches",
+                     "graphs", "nodes")}
+                 for model, run in zoo["models"].items()}},
              "snps_only": {model: {
                  "experiment_wall_s": run["experiment_wall_s"],
                  "result_line": run["result_line"],
@@ -2153,7 +2334,7 @@ def main() -> int:
                    "profile": profile, "training": training,
                    "multi_fusion": multi, "families": families,
                    "artifacts": artifacts, "snps_only": snps,
-                   "real_cohort": real, "other_routes": other,
+                   "real_cohort": real, "other_routes": other, "zoo": zoo,
                    "device": device}, fh, indent=1, default=float)
     log(card)
     log(json.dumps(serve))

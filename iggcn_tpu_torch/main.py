@@ -18,15 +18,23 @@ line; the npy artifacts, each fold's checkpoint and record (and with
 `--export_bundle` its serving bundle) go to results/ADNI<save_appendix>/,
 and `--resume` with the same appendix restores the folds already done.
 `--model` takes the seven fused families of `FUSION_MODELS`, with the JAX
-CLI's routing, and the flagship's variant flags, and the two SNP-only
+CLI's routing, and the flagship's variant flags, the two SNP-only
 families of `SNP_MODELS` (binary; a `Result - ... (SNP-only, <model>)`
-line). `--isTestAdnitype` tests every fold on a held-out ADNI type,
-`--isPermutTest` runs the permutation-test null (results under
-results_permuttest/), and `--init_from_torch` starts every fold from a
-reference `gcn_state_dict_*.pt`. It runs on the card and raises without
-one unless `--device cpu` is given. The flags mean what they mean in the
-JAX package, whose command lines of these routes parse here too; the
-zoo and the seed/batch-file routes are not ported yet.
+line) and the 18 baseline, pooling and nested models of `ZOO_MODELS`,
+trained by the generic CV (`train/generic_cv.py`) on the ADNI cohort as
+a graph list, on a raw TU benchmark under `--tu_root` (`--data NAME`),
+or with `--synthetic` on a synthetic TU benchmark when its files are
+missing; the Nested* names re-batch every graph as the union of its
+h-hop rooted subgraphs (`--h`, `--node_label`, `--use_rd`, `--use_rp`,
+`--max_nodes_per_hop`), which is for TU-sized graphs. `--isTestAdnitype`
+tests every fold on a held-out ADNI type, `--isPermutTest` runs the
+permutation-test null (results under results_permuttest/), and
+`--init_from_torch` starts every fold from a reference
+`gcn_state_dict_*.pt`. It runs on the card and raises without one unless
+`--device cpu` is given. The flags mean what they mean in the JAX
+package, whose command lines of these routes parse here too; the
+seed-batch and batch-file routes (`--cv_seeds`, `--permut_seeds`,
+`--batch_file`) are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from iggcn_tpu_torch.config import (DataConfig, LossWeights, ModelConfig,
                                     TrainConfig)
@@ -54,14 +63,17 @@ FUSION_MODELS = {
     "SGCN_Ori": "sgcn_ori",
 }
 SNP_MODELS = ("MLP_Model", "Gene_ontology_network")
-# the JAX CLI's other names: routes of the port's later slices
-NOT_PORTED = ("GCN", "GAT", "GIN", "GIN0", "GraphSAGE", "GraphSAGEWithoutJK",
+# the baseline, pooling and nested zoo of the generic trainer
+ZOO_MODELS = ("GCN", "GAT", "GIN", "GIN0", "GraphSAGE", "GraphSAGEWithoutJK",
               "TopK", "DiffPool", "SortPool", "Set2Set", "GlobalAttention",
               "Graclus", "CNN_Model", "NestedGCN", "NestedGAT", "NestedGIN",
               "NestedGIN0", "NestedGraphSAGE")
+# the JAX CLI's routes of a later slice (ROADMAP Queue 1 item 13)
+NOT_PORTED_FLAGS = ("--cv_seeds", "--permut_seeds", "--batch_file")
 # the GO DAG of the synthetic route: synthetic_topology's default levels,
 # as the JAX package's CLI draws it
 DEFAULT_GO_LEVELS = "24,16,10,6,1"
+KNOWN_MODELS = tuple(FUSION_MODELS) + SNP_MODELS + ZOO_MODELS
 
 
 def go_levels(text: str) -> List[int]:
@@ -85,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="IG-GCN cross-validation on an NVIDIA GPU (PyTorch port)")
     p.add_argument("--model", type=str, default="SGCN_GCN_IMGSNP",
                    help="model family by reference name; the port has "
-                        + ", ".join(tuple(FUSION_MODELS) + SNP_MODELS))
+                        + ", ".join(KNOWN_MODELS))
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--synthetic", action="store_true", default=False,
@@ -223,7 +235,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hidden width of the single configuration "
                         "(--no-search)")
     p.add_argument("--h", type=int, default=2,
-                   help="h of the single configuration (names the results)")
+                   help="h of the single configuration: the hop count of the "
+                        "Nested* subgraphs (it names the results of the "
+                        "other families)")
+    p.add_argument("--data", type=str, default="ADNI",
+                   help="dataset of the zoo models: ADNI (the cohort as a "
+                        "graph list) or a TU benchmark name under --tu_root "
+                        "(e.g. MUTAG)")
+    p.add_argument("--tu_root", type=str, default="./data",
+                   help="root directory holding raw TU datasets "
+                        "(<root>/<name>/<name>_A.txt ...)")
+    p.add_argument("--node_label", type=str, default="hop",
+                   choices=["hop", "spd", "spd2", "spd3", "drnl"],
+                   help="structural node-label scheme of the Nested* "
+                        "subgraphs (hop distance, shortest-path distances, "
+                        "or DRNL)")
+    p.add_argument("--use_rd", action="store_true", default=False,
+                   help="append resistance-distance features (Nested*)")
+    p.add_argument("--use_rp", type=int, default=None,
+                   help="random-walk return-probability feature steps "
+                        "(Nested*)")
+    p.add_argument("--max_nodes_per_hop", type=int, default=None,
+                   help="subsample each BFS frontier to this many nodes "
+                        "during Nested* subgraph extraction")
     p.add_argument("--search", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="sweep the reference's (layers, hiddens, h) triples; "
@@ -275,6 +309,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_fold_scan", action="store_true", default=False,
                    help="chooses nothing in the port (its folds always run "
                         "as a Python epoch loop)")
+    for flag in NOT_PORTED_FLAGS:
+        p.add_argument(flag, type=str, default=None,
+                       help="not ported yet (ROADMAP Queue 1 item 13)")
     p.add_argument("--clean", action="store_true", default=False,
                    help="ignored (dead flag in the reference too)")
     p.add_argument("--keep_old", action="store_true", default=False,
@@ -513,6 +550,129 @@ def run_snps_experiment(args, res_dir: str, logger, snps_x, snps_y, topo,
     return res
 
 
+def build_zoo_model(name: str, num_layers: int, hidden: int, dataset):
+    """(model, cv_kwargs) of a zoo name for `cross_validation_generic`, the
+    JAX CLI's `_build_zoo_model` table: the model is built on the CPU as
+    the template whose untrained copies train the folds, its input width
+    (and node count where the readout flattens) from the dataset."""
+    from iggcn_tpu_torch.models import baselines as B
+    from iggcn_tpu_torch.models import nested as N
+    nc = dataset.num_classes
+    f, n = dataset.num_features, dataset.x.shape[1]
+    common = dict(num_layers=num_layers, hidden=hidden, num_classes=nc,
+                  generator=torch.Generator().manual_seed(0))
+    mask = dict(needs_mask=True)
+    if name == "GCN":
+        return B.GCNFlat(f, n, **common), dict(needs_mask=False)
+    if name == "GAT":
+        return B.GATFlat(f, n, **common), dict(needs_mask=False)
+    if name in ("GIN", "GIN0"):
+        return (B.GIN(f, train_eps=name == "GIN", **common),
+                dict(needs_mask=True, takes_weight=True))
+    if name in ("GraphSAGE", "GraphSAGEWithoutJK"):
+        return B.GraphSAGE(f, jk=name == "GraphSAGE", **common), mask
+    if name == "TopK":
+        return B.TopK(f, **common), mask
+    if name == "DiffPool":
+        # the reference discards dense_diff_pool's link and entropy losses,
+        # so the objective is the plain NLL (aux_loss=False)
+        return (B.DiffPool(f, max_nodes=n, **common),
+                dict(needs_mask=True, aux_loss=False, takes_weight=True))
+    if name == "SortPool":
+        # k=30 whatever the graph size; smaller graphs are zero-padded to k
+        return B.SortPool(f, **common), mask
+    if name == "Set2Set":
+        return B.Set2SetNet(f, **common), mask
+    if name == "GlobalAttention":
+        return B.GlobalAttentionNet(f, **common), mask
+    if name == "Graclus":
+        return B.Graclus(f, **common), dict(needs_mask=True,
+                                            needs_assign=True)
+    if name == "CNN_Model":
+        return (B.CNNModel(num_classes=nc, rois=n,
+                           generator=common["generator"]),
+                dict(adj_only=True))
+    if name.startswith("Nested"):
+        factory = getattr(N, name)
+        return (factory(f, **common, num_subgraphs=dataset.num_subgraphs,
+                        use_z=getattr(dataset, "z", None) is not None,
+                        use_rd=getattr(dataset, "rd", None) is not None),
+                dict(needs_mask=True, needs_assign=True, takes_weight=True))
+    raise ValueError(name)
+
+
+def zoo_dataset(args, dcfg: DataConfig, rng: np.random.Generator):
+    """The zoo's dataset: the ADNI cohort as a fixed-size graph list
+    (`--data ADNI`), the raw TU files of `--data` under `--tu_root`, or,
+    with `--synthetic` when those are missing, the synthetic TU
+    benchmark drawn from `rng`."""
+    from iggcn_tpu_torch.data import tu
+    if args.data == "ADNI":
+        cohort, _ = load_cohort(args, dcfg, rng)
+        return tu.from_graph_list(list(cohort.x), list(cohort.adj),
+                                  cohort.y.astype(np.int64))
+    try:
+        return tu.read_tu_dir(args.tu_root, args.data)
+    except FileNotFoundError:
+        if not args.synthetic:
+            raise
+        print(f"[data] no raw {args.data} files under {args.tu_root}; using "
+              "a synthetic TU benchmark")
+        return tu.synthetic_tu_dataset(rng)
+
+
+def run_zoo_experiment(args, res_dir: str, logger, dataset, grid, device):
+    """Grid-search `cross_validation_generic` over one zoo model (the
+    Nested* names over the nested dataset of each configuration's h, built
+    once per h); prints and logs the `Using ...` line of each
+    configuration and the `Result - ...` line of the one with the lowest
+    mean test loss. Returns the `GenericCVResult` of every configuration."""
+    from iggcn_tpu_torch.data.nested import create_nested_dataset
+    from iggcn_tpu_torch.train.generic_cv import cross_validation_generic
+    nested = {}
+
+    def nested_for(h):
+        if h not in nested:
+            nested[h] = create_nested_dataset(
+                dataset, h=h, node_label=args.node_label, use_rd=args.use_rd,
+                use_return_prob=args.use_rp is not None,
+                return_prob_steps=(args.use_rp if args.use_rp is not None
+                                   else 16),
+                max_nodes_per_hop=args.max_nodes_per_hop, seed=args.seed)
+        return nested[h]
+
+    results = []
+    best = (float("inf"), 0.0, 0.0)
+    best_hyper = grid[0]
+    for num_layers, hidden, h in grid:
+        # h shapes only the Nested* datasets; the other models ignore it
+        combo_ds = (nested_for(h) if args.model.startswith("Nested")
+                    else dataset)
+        model, cv_kw = build_zoo_model(args.model, num_layers, hidden,
+                                       combo_ds)
+        msg = f"Using {num_layers} layers, {hidden} hidden units, h = {h}"
+        print(msg)
+        logger(msg)
+        res = cross_validation_generic(
+            combo_ds, model, folds=args.fold, epochs=args.epochs,
+            batch_size=args.batch_size, lr=args.lr,
+            lr_decay_factor=args.lr_decay_factor,
+            lr_decay_step_size=args.lr_decay_step_size,
+            weight_decay=args.weight_decay, seed=args.seed,
+            no_val=args.no_val, verbose=True, record_dir=res_dir,
+            record_tag=f"{args.model}_layers{num_layers}_hidden{hidden}_h{h}",
+            resume=args.resume, device=device, **cv_kw)
+        results.append(res)
+        if improves(res.mean_loss, best[0]):
+            best = (res.mean_loss, res.best_acc, res.best_acc_std)
+            best_hyper = (num_layers, hidden, h)
+    log = (f"Result - {best[1]:.3f} +/- {best[2]:.3f}, with {best_hyper[0]} "
+           f"layers and {best_hyper[1]} hidden units and h = {best_hyper[2]}")
+    print(log)
+    logger(log)
+    return results
+
+
 def improves(loss: float, best_loss: float) -> bool:
     """NaN-aware grid selection: a NaN loss only replaces the initial inf,
     any real loss beats a NaN best."""
@@ -571,18 +731,20 @@ def main(argv: Optional[List[str]] = None):
     the SnpsCVResult of a SNP-only family."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.model not in FUSION_MODELS and args.model not in SNP_MODELS:
-        what = ("is not ported yet" if args.model in NOT_PORTED
-                else "is unknown")
-        parser.error(f"--model {args.model!r} {what}; the port has: "
-                     f"{', '.join(tuple(FUSION_MODELS) + SNP_MODELS)}")
+    if args.model not in KNOWN_MODELS:
+        parser.error(f"--model {args.model!r} is unknown; the port has: "
+                     f"{', '.join(KNOWN_MODELS)}")
+    for flag in NOT_PORTED_FLAGS:
+        if getattr(args, flag[2:]) is not None:
+            parser.error(f"{flag} is not ported yet (ROADMAP Queue 1 item "
+                         "13)")
     if args.cuda is not None or args.cpu:
         print("[device] --cuda/--cpu are reference-compat no-ops: the port "
               "runs where --device says (default cuda)", file=sys.stderr)
-    if args.export_bundle and FUSION_MODELS.get(args.model) in ("sgcn_image",
-                                                                "sgcn_ori"):
-        image_only = {m for m, k in FUSION_MODELS.items()
-                      if k in ("sgcn_image", "sgcn_ori")}
+    image_only = {m for m, k in FUSION_MODELS.items()
+                  if k in ("sgcn_image", "sgcn_ori")}
+    if args.export_bundle and (args.model in image_only
+                               or args.model in ZOO_MODELS):
         parser.error(
             f"--export_bundle does not support --model {args.model}: "
             "serving bundles exist for the fused imaging-genetics families "
@@ -632,6 +794,10 @@ def main(argv: Optional[List[str]] = None):
         return run_snps_experiment(args, res_dir, logger,
                                    *snps_inputs(args, parser, dcfg, rng),
                                    device)
+    if args.model in ZOO_MODELS:
+        return run_zoo_experiment(args, res_dir, logger,
+                                  zoo_dataset(args, dcfg, rng), combos(args),
+                                  device)
     cohort, topo = load_cohort(args, dcfg, rng)
 
     results = []

@@ -73,6 +73,18 @@ def torch_linear_init(shape, fan_in: int, generator, device) -> torch.Tensor:
     return uniform(shape, 1.0 / math.sqrt(max(fan_in, 1)), generator, device)
 
 
+def lecun_normal(shape, fan_in: int, generator, device) -> torch.Tensor:
+    """flax's default kernel init (`nn.Conv`): a normal of variance
+    1 / fan_in truncated at two standard deviations, its scale corrected
+    for the truncation."""
+    std = math.sqrt(1.0 / max(fan_in, 1)) / 0.87962566103423978
+    src = generator.device if generator is not None else device
+    t = torch.nn.init.trunc_normal_(torch.empty(tuple(shape), device=src),
+                                    std=std, a=-2 * std, b=2 * std,
+                                    generator=generator)
+    return t.to(device)
+
+
 class TorchLinear(nn.Module):
     """nn.Linear semantics: y = x @ W^T + b, weight (out, in)."""
 

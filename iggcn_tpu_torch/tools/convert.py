@@ -4,9 +4,13 @@ The port's modules keep the flax module's names: a flax leaf
 `params/go_network/w_inc_0/kernel` is the port's
 `go_network.w_inc_0.weight`, transposed. Layers whose tensors map
 differently from "same name, same layout, in `params`" declare it in a
-`FLAX_LEAVES` table (`models/nn_compat.py`); every other parameter maps by
-name as is. Buffers are not weights unless a table names them (the BN
-running statistics, which live in `batch_stats`).
+`FLAX_LEAVES` table (`models/nn_compat.py`): attribute -> (collection,
+flax leaf, layout), where the layout is False (as is), True (a 2-D
+transpose) or the axis permutation that takes the flax array to the
+port's (a convolution kernel: flax (k, in, out) -> torch (out, in, k) is
+(2, 1, 0)); every other parameter maps by name as is. Buffers are not
+weights unless a table names them (the BN running statistics, which live
+in `batch_stats`).
 
 Both directions check every leaf: a missing or extra key or a shape that
 differs raises, so a tree never loads half-way unnoticed. The SNP-only
@@ -49,6 +53,18 @@ def _leaves(model: nn.Module, state: Optional[Mapping[str, torch.Tensor]]
                        transposed)
 
 
+def _to_port(arr: np.ndarray, layout) -> np.ndarray:
+    if layout is True:
+        return arr.T
+    return arr.transpose(layout) if layout else arr
+
+
+def _to_flax(arr: np.ndarray, layout) -> np.ndarray:
+    if layout is True:
+        return arr.T
+    return arr.transpose(np.argsort(layout)) if layout else arr
+
+
 def _flatten(tree: Dict[str, Any], prefix: Path) -> Dict[Path, Any]:
     out = {}
     for k, v in tree.items():
@@ -74,9 +90,8 @@ def load_flax_variables(model: nn.Module, params: Dict[str, Any],
                        f"missing {missing[:8]}, unexpected {extra[:8]}")
     with torch.no_grad():
         for path, (t, transposed) in want.items():
-            arr = np.asarray(given[path], dtype=np.float32)
-            if transposed:
-                arr = arr.T
+            arr = _to_port(np.asarray(given[path], dtype=np.float32),
+                           transposed)
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"{'/'.join(path)}: flax shape "
                                  f"{tuple(np.shape(given[path]))} does not fit "
@@ -102,5 +117,5 @@ def to_flax_variables(model: nn.Module,
         if path[-1] in node:
             raise ValueError(f"two port tensors map to {'/'.join(path)}")
         # np.array keeps a 0-d leaf (a PReLU slope) 0-d
-        node[path[-1]] = np.array(arr.T if transposed else arr, order="C")
+        node[path[-1]] = np.array(_to_flax(arr, transposed), order="C")
     return out

@@ -154,24 +154,30 @@ def test_cli_defaults_to_the_card_and_refuses_other_models(monkeypatch,
                                                            tmp_path, capsys):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for model in (*port_main.FUSION_MODELS, *port_main.SNP_MODELS):
+    assert len(port_main.ZOO_MODELS) == 18
+    for model in (*port_main.FUSION_MODELS, *port_main.SNP_MODELS,
+                  *port_main.ZOO_MODELS):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_main.main(["--model", model, "--synthetic", "--epochs", "1",
                             "--no-search", "--disease_id", "0"])
-    for model, what in (("GIN", "not ported yet"),
-                        ("NestedGCN", "not ported yet"),
-                        ("BOGUS", "is unknown")):
-        with pytest.raises(SystemExit):
-            port_main.main(["--model", model, "--device", "cpu"])
-        err = capsys.readouterr().err
-        assert what in err and "SGCN_GCN_IMGSNP" in err, err
-        assert "Gene_ontology_network" in err, err
+    with pytest.raises(SystemExit):
+        port_main.main(["--model", "BOGUS", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "is unknown" in err and "SGCN_GCN_IMGSNP" in err, err
+    assert "Gene_ontology_network" in err and "NestedGCN" in err, err
     for argv, what in (
             (["--clinical_score_index", "1", "--num_regr", "3"],
              "--num_regr must be 1"),
             (["--resume"], "--resume needs --save_appendix"),
             (["--model", "SGCN_GCN", "--export_bundle"],
-             "--export_bundle does not support --model SGCN_GCN")):
+             "--export_bundle does not support --model SGCN_GCN"),
+            (["--model", "GIN", "--export_bundle"],
+             "--export_bundle does not support --model GIN"),
+            (["--model", "GIN", "--init_from_torch", "x.pt"],
+             "--init_from_torch supports --model SGCN_GCN_IMGSNP only"),
+            *((["--model", "GIN", flag, "1,2"],
+              f"{flag} is not ported yet (ROADMAP Queue 1 item 13)")
+              for flag in ("--cv_seeds", "--permut_seeds", "--batch_file"))):
         with pytest.raises(SystemExit):
             port_main.main([*argv, "--device", "cpu"])
         assert what in capsys.readouterr().err
