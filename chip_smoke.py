@@ -23,7 +23,14 @@ failure propagates and the script exits non-zero:
      order), plus the autograd gradients through both, and at the training
      shape (B=32, N=90) with P built by `gcn_propagation_matrix` from an
      adjacency that requires grad (the transposed view the training path
-     passes), gradients into the adjacency included; rtol/atol 1e-4;
+     passes), gradients into the adjacency included; rtol/atol 1e-4; and
+     the grouped form (F weight sets of B samples in one launch, the
+     fold-parallel trainer's) against `gcn_stack_reference_grouped` at
+     F in {1, 5} x B=32 at N=90, F=5 at N=270 (the 2-CTA path) and the
+     3-seed x 5-fold batch (F=15), P in both layouts, one launch per
+     call, each set's samples bit-equal to a launch of that set alone,
+     and through `torch.func.vmap` over the fold axis as the model calls
+     it, gradients included;
   3. the serving slice at full width: the default ModelConfig over a GO
      topology at the real scale, random weights from a seeded
      torch.Generator, written with save_bundle, read back with load_bundle
@@ -47,6 +54,9 @@ failure propagates and the script exits non-zero:
      steps), its span on the card (CUDA events) and its host wall, the
      kernel's forward against the autograd backward (the recompute
      through the plain version) at B=32, and graphs/s over one epoch;
+     the grouped form likewise at the fold-parallel train batch (5 x 32,
+     N=90), the seed batch's (15 x 32) and multi-fusion's (5 x 32,
+     N=270), beside the library's batched-weight matmul + baddbmm;
   6. one torch.profiler pass over a warm serving forward of 256 subjects
      and one over a warm train step (each session records the second of
      two calls, after a warm-up cycle in which the tracer starts): the
@@ -143,7 +153,21 @@ failure propagates and the script exits non-zero:
      the kernel's launches over each run the loop's count (`--model GCN`:
      1 per train step and per eval batch, counted in one of each too; 0
      for the other 17); six card steps of fold 0 against the CPU under
-     phase 7's rules for GCN, GIN, DiffPool and TopK.
+     phase 7's rules for GCN, GIN, DiffPool and TopK;
+ 15. the batched routes on phase 7's cohort: the flagship with
+     `--fold_parallel` (2 epochs) beside the sequential 2-epoch run
+     (walls; printed per-epoch losses within 1e-3; launches the batched
+     loop's count, 2 per batched train step and eval batch: 58 per epoch
+     against 290); six fold-parallel steps of the 5 folds at dropout 0
+     against the same steps taken fold by fold on the card and in
+     float64 on the CPU, under phase 7's rules, then a warm batched
+     step's host wall, device busy and idle share; `--fold_parallel
+     --isMultiFusion` (1 epoch); `--cv_seeds 1:3 --fold_parallel` (one
+     program of 15 entries, the `Replication` line, every seed's fold
+     records against its standalone fold-parallel run); `--permut_seeds
+     1:3 --fold_parallel` and `tools.report --permut_null` over it (the
+     p-value printed); a `--batch_file` of a fused, a zoo and a failing
+     line (exit 1, the first two done).
 
 Phases 7-11 build their synthetic cohorts without the cohort cache
 (`--cohort_cache_dir ''`), so no cache hit changes their readings.
@@ -164,6 +188,7 @@ import json
 import math
 import os
 import re
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -189,7 +214,7 @@ from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
 from iggcn_tpu_torch.data.sampler import (imbalanced_sample_indices,
                                           pad_epoch_indices)
 from iggcn_tpu_torch.predict import batched_forward, batched_forward_snps
-from iggcn_tpu_torch.tools import explain, export_cohort, import_torch
+from iggcn_tpu_torch.tools import explain, export_cohort, import_torch, report
 from iggcn_tpu_torch.tools.convert import _flatten as flat_tree
 from iggcn_tpu_torch.tools.convert import to_flax_variables
 from iggcn_tpu_torch.tools.serve import (build_http_server, load_bundle,
@@ -278,6 +303,22 @@ SNP_MODELS, SNP_EPOCHS = ("Gene_ontology_network", "MLP_Model"), 3
 REAL_GO_LEVELS, REAL_EPOCHS = (250, 120, 50, 15, 1), 2
 # phase 14: the zoo, 1 epoch each; six card steps against the CPU for these
 ZOO_EPOCHS, ZOO_CARD_CPU = 1, ("GCN", "GIN", "DiffPool", "TopK")
+# the kernel's grouped form (fold-parallel training: F weight sets of B
+# samples in one launch), (F, B, N, F0, widths) held against its plain
+# version in phase 2: one fold and five folds at N=90, five at N=270 (the
+# 2-CTA cluster path), and the 3-seed x 5-fold seed batch
+GROUPED_CHECKS = [(1, 32, 90, 3, (16, 16)), (5, 32, 90, 3, (16, 16)),
+                  (5, 32, 270, 1, (10, 10, 10)), (15, 32, 90, 3, (16, 16))]
+# and timed in phase 5, (name, F, B, N, F0, widths): the fold-parallel
+# train batch, the seed batch's and the multi-fusion fold-parallel one
+GROUPED_TIMED = [("fold-parallel training", 5, 32, 90, 3, (16, 16)),
+                 ("seed batch training", 15, 32, 90, 3, (16, 16)),
+                 ("multi-fusion fold-parallel training", 5, 32, 270, 1,
+                  (10, 10, 10))]
+# phase 15: the batched routes; the flagship at FP_EPOCHS beside a
+# sequential run of as many epochs, the others at 1 epoch; FP_STEPS
+# fold-parallel steps against sequential ones; the seeds of the batches
+FP_EPOCHS, FP_STEPS, FP_SEEDS = 2, 6, "1:3"
 
 
 def snps_argv(appendix):
@@ -349,6 +390,43 @@ def library_stack(prop, x, weights, biases):
         h = torch.relu(torch.baddbmm(b, prop, torch.matmul(h, w)))
         feats.append(h)
     return torch.cat(feats, dim=-1)
+
+
+def grouped_inputs(rng, f, b, n, f0, widths, dev):
+    """`stack_inputs` of F*B samples (P in the transposed layout) with F
+    weight sets: weights (F, F_l, H_l), biases (F, H_l)."""
+    prop, x, _, _ = stack_inputs(rng, f * b, n, f0, widths, dev)
+    dims = [f0] + list(widths)
+    ws = [torch.from_numpy(rng.normal(0, (2.0 / (dims[i] + dims[i + 1])) ** 0.5,
+                                      (f, dims[i], dims[i + 1])).astype(
+        np.float32)).to(dev) for i in range(len(widths))]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, (f, h)).astype(np.float32)).to(dev)
+          for h in widths]
+    return prop, x, ws, bs
+
+
+def grouped_work(f, b, n, f0, widths):
+    """(bytes, flops) of the grouped form: `stack_work` of F*B samples with
+    F weight sets read once each."""
+    nbytes, flops = stack_work(f * b, n, f0, widths)
+    dims = [f0] + list(widths)
+    params = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(widths)))
+    return nbytes + 4 * (f - 1) * params, flops
+
+
+def library_stack_grouped(prop, x, weights, biases):
+    """The grouped stack as PyTorch library calls (torch.matmul with the
+    weights batched per set, baddbmm, relu). A yardstick only; the port
+    never calls it."""
+    f = weights[0].shape[0]
+    s, n, _ = prop.shape
+    h, feats = x.reshape(f, s // f, n, -1), []
+    for w, b in zip(weights, biases):
+        hw = torch.matmul(h, w[:, None]).reshape(s, n, -1)
+        bias = b[:, None, None, :].expand(f, s // f, 1, -1).reshape(s, 1, -1)
+        h = torch.relu(torch.baddbmm(bias, prop, hw)).reshape(f, s // f, n, -1)
+        feats.append(h)
+    return torch.cat(feats, dim=-1).reshape(s, n, -1)
 
 
 def device_ms(fn, runs=25, inner=10, sleep_cycles=20_000_000):
@@ -527,6 +605,8 @@ def phase_kernel_vs_plain(dev):
         else:
             raise AssertionError("wrapper took a P of another layout")
 
+    grouped_err = phase_grouped_vs_plain(dev)
+
     grads = []
     for fn in (gcn_stack.fused_gcn_stack, gcn_stack.gcn_stack_reference):
         prop, x, ws, bs = stack_inputs(np.random.default_rng(1), 7, 90, 3,
@@ -563,7 +643,87 @@ def phase_kernel_vs_plain(dev):
         log(f"training-shape gradient of {name}: max_abs_err "
             f"{float((g - r).abs().max()):.3e}")
     log(f"gradients agree; kernel max_abs_err over all shapes {max_err:.3e}")
-    return max_err, train_grad_err
+    return max_err, train_grad_err, grouped_err
+
+
+def phase_grouped_vs_plain(dev):
+    """The grouped form at `GROUPED_CHECKS`: against
+    `gcn_stack_reference_grouped` with P in both layouts (one launch per
+    call), every weight set's samples bit-equal to a shared-weight launch
+    of that set alone, and through `torch.func.vmap` over the fold axis as
+    the fold-parallel model calls it (P from `gcn_propagation_matrix`
+    inside, one launch for all folds), gradients included. Returns the
+    largest difference from the plain version."""
+    rng = np.random.default_rng(6)
+    max_err = 0.0
+
+    def held(what, out, ref, launches):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        if launches != 1:
+            raise AssertionError(f"{what}: {launches} launches, not 1")
+        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+        err = float((out - ref).abs().max())
+        max_err = max(max_err, err)
+        log(f"{what}: one launch, max_abs_err {err:.3e}")
+
+    for f, b, n, f0, widths in GROUPED_CHECKS:
+        prop, x, ws, bs = grouped_inputs(rng, f, b, n, f0, widths, dev)
+        plan = gcn_stack.plan_launch(f * b, n, (f0, *widths))
+        with torch.inference_mode():
+            for layout, p in (("transposed", prop),
+                              ("row-major", prop.contiguous())):
+                out = counted_out(lambda: gcn_stack.fused_gcn_stack(
+                    p, x, ws, bs))
+                held(f"grouped F={f} x B={b} N={n} F0={f0} H={widths} P "
+                     f"{layout} (cluster {plan.cluster})", out[0],
+                     gcn_stack.gcn_stack_reference_grouped(p, x, ws, bs),
+                     out[1])
+            grouped = gcn_stack.fused_gcn_stack(prop, x, ws, bs)
+            for k in range(f):
+                rows = slice(k * b, (k + 1) * b)
+                alone = gcn_stack.fused_gcn_stack(
+                    prop[rows], x[rows], [w[k] for w in ws], [v[k] for v in bs])
+                if not torch.equal(grouped[rows], alone):
+                    raise AssertionError(f"grouped F={f} N={n}: set {k}'s "
+                                         "samples differ from its own launch")
+        log(f"grouped F={f} N={n}: every set's samples bit-equal to a "
+            "shared-weight launch of that set")
+        adj = torch.from_numpy(np.abs(rng.normal(size=(f, b, n, n))).astype(
+            np.float32)).to(dev)
+        xf = x.reshape(f, b, n, f0)
+        layers = len(widths)
+
+        def per_fold(a, xx, *params):
+            return gcn_stack.fused_gcn_stack(gcn_propagation_matrix(a), xx,
+                                             params[:layers], params[layers:])
+
+        leaves = [t.clone().requires_grad_(True) for t in (adj, xf, *ws, *bs)]
+        out, launches = counted_out(lambda: torch.func.vmap(per_fold)(*leaves))
+        ref_leaves = [t.clone().requires_grad_(True) for t in (adj, xf, *ws, *bs)]
+        ref = gcn_stack.gcn_stack_reference_grouped(
+            gcn_propagation_matrix(ref_leaves[0]).reshape(f * b, n, n),
+            ref_leaves[1].reshape(f * b, n, f0), ref_leaves[2:2 + layers],
+            ref_leaves[2 + layers:]).reshape(f, b, n, -1)
+        held(f"vmap over F={f} folds of B={b}, N={n}", out.detach(),
+             ref.detach(), launches)
+        cot = torch.randn_like(out)
+        got = torch.autograd.grad(out, leaves, cot)
+        want = torch.autograd.grad(ref, ref_leaves, cot)
+        for name, g, r in zip(("adj", "x", *(f"W{i}" for i in range(layers)),
+                               *(f"b{i}" for i in range(layers))), got, want):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+        log(f"vmap over F={f}: gradients of adj, x, W, b agree (rtol/atol "
+            "1e-4)")
+    return max_err
+
+
+def counted_out(fn):
+    """(fn's result, the kernel's launches in that call)."""
+    gcn_stack.fused_gcn_stack.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, gcn_stack.fused_gcn_stack.launches
 
 
 def phase_serve(dev, cohort):
@@ -690,6 +850,30 @@ def phase_times(dev, card_name, model, cohort):
                 f"library {row['library_ms']:.5f} / {row['library_cold_ms']:.5f}, "
                 f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}; {nbytes} B, "
                 f"{flops} FLOP, {spec} peaks)")
+        grouped = []
+        for name, f, b, n, f0, widths in GROUPED_TIMED:
+            args = grouped_inputs(rng, f, b, n, f0, widths, dev)
+            fns = {"kernel": lambda: gcn_stack.fused_gcn_stack(*args),
+                   "plain": lambda: gcn_stack.gcn_stack_reference_grouped(
+                       *args),
+                   "library": lambda: library_stack_grouped(*args)}
+            nbytes, flops = grouped_work(f, b, n, f0, widths)
+            bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+            row = {"shape": name, "F": f, "B": b, "N": n, "F0": f0,
+                   "widths": list(widths), "bytes": nbytes, "flops": flops,
+                   "bound_ms": max(bytes_ms, flops_ms),
+                   "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+            for what, fn in fns.items():
+                row[f"{what}_ms"] = device_ms(fn)
+                row[f"{what}_cold_ms"] = cold_device_ms(fn, flush)
+            grouped.append(row)
+            log(f"gcn_stack grouped {name} F={f} x B={b} N={n} F0={f0} "
+                f"H={widths}: kernel {row['kernel_ms']:.5f} ms warm / "
+                f"{row['kernel_cold_ms']:.5f} cold, plain "
+                f"{row['plain_ms']:.5f} / {row['plain_cold_ms']:.5f}, library "
+                f"{row['library_ms']:.5f} / {row['library_cold_ms']:.5f}, "
+                f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}; {nbytes} "
+                f"B, {flops} FLOP, {spec} peaks)")
     del flush
     for row in shapes:
         b, n, f0, widths = row["B"], row["N"], row["F0"], tuple(row["widths"])
@@ -704,7 +888,7 @@ def phase_times(dev, card_name, model, cohort):
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
     log(f"serve {COHORT} subjects {wall:.6f} s")
-    return {"shapes": shapes, "spec": spec,
+    return {"shapes": shapes, "grouped": grouped, "spec": spec,
             "serve_cohort_s": wall}
 
 
@@ -879,7 +1063,8 @@ def training_setup(dev, argv=TRAIN_ARGV):
         f"fold 0 train {fold0['n_train']} / val {fold0['n_val']} / test "
         f"{fold0['n_test']}")
     return {"args": args, "argv": argv, "kind": kind, "mcfg": mcfg,
-            "tcfg": tcfg, "topo": topo, "splits": splits, "fold0": fold0,
+            "tcfg": tcfg, "topo": topo, "cohort": cohort, "splits": splits,
+            "fold0": fold0,
             "state": state, "generator": generator, "train_dev": train_dev,
             "eval_batch": eval_batch,
             "step": lambda: steps.train_step(state, batch, mcfg, tcfg,
@@ -888,10 +1073,7 @@ def training_setup(dev, argv=TRAIN_ARGV):
 
 def counted_launches(fn):
     """The kernel's launches in one call of `fn` (the wrapper's counter)."""
-    gcn_stack.fused_gcn_stack.launches = 0
-    fn()
-    torch.cuda.synchronize()
-    return gcn_stack.fused_gcn_stack.launches
+    return counted_out(fn)[1]
 
 
 def expected_launches(splits, tcfg, per_batch=2, test_size=None):
@@ -2187,6 +2369,369 @@ def phase_other_routes(dev, layout, real):
             "imported_serving": served}
 
 
+def fp_expected_launches(split_lists, batch, epochs, per_batch=2,
+                         no_val=False):
+    """The kernel's launches over one fold-parallel run of the fold entries
+    of `split_lists` (one list of splits per seed; all entries in one
+    batched program): `per_batch` per batched train step and per batched
+    eval batch, every epoch, each split kind padded to its largest entry's
+    batches."""
+    entries = [split for splits in split_lists for split in splits]
+    train = max(math.ceil(len(tr) / batch) for tr, _, _ in entries)
+    test = max(math.ceil(len(te) / batch) for _, te, _ in entries)
+    val = 0 if no_val else max(math.ceil(len(va) / batch)
+                               for _, _, va in entries)
+    return per_batch * epochs * (train + val + test)
+
+
+def epoch_losses(text):
+    """{(fold, epoch): (train, val, test) loss} of a run's epoch lines."""
+    return {(int(m[0]), int(m[1])): tuple(float(v) for v in m[2:])
+            for m in EPOCH_LINE.findall(text)}
+
+
+def fp_run(argv, split_lists, tcfg, what, epochs=1, per_batch=2):
+    """A fold-parallel CLI run on the card: the epoch lines of every fold
+    (of every seed) finite, a `Result -` line per seed, and the kernel's
+    launches equal to `fp_expected_launches`."""
+    text, launches, wall_s, results = cli_run(argv)
+    want = fp_expected_launches(split_lists, tcfg.batch_size, epochs,
+                                per_batch)
+    lines = EPOCH_LINE.findall(text)
+    if len(lines) != len(split_lists) * tcfg.folds * epochs or not all(
+            np.isfinite(float(v)) for e in lines for v in e[2:]):
+        raise AssertionError(f"{what}: epoch lines {lines}")
+    if len(re.findall(r"^Result - .*$", text, re.M)) != len(split_lists):
+        raise AssertionError(f"{what}: expected one `Result -` line per seed")
+    if launches != want:
+        raise AssertionError(f"{what}: the run launched the kernel {launches} "
+                             f"times; the batched loop implies {want}")
+    log(f"{what}: {wall_s:.3f} s wall, {launches} kernel launches (= {want}: "
+        f"{per_batch} per batched train step and eval batch)")
+    return {"text": text, "experiment_wall_s": wall_s, "launches": launches,
+            "expected_launches": want, "epochs": epochs,
+            "result_line": re.search(r"^Result - .*$", text, re.M).group(0)}
+
+
+def _adam_state(optimizer, model, exp_avg, exp_avg_sq, step, device, dtype):
+    """Set torch Adam's state of every param of `model` to the given
+    moments (name -> tensor) and step count."""
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(step)),
+            "exp_avg": exp_avg[name].detach().to(device, dtype).clone(),
+            "exp_avg_sq": exp_avg_sq[name].detach().to(device, dtype).clone()}
+
+
+def fold_parallel_vs_sequential_steps(dev, train, n_steps=FP_STEPS):
+    """`n_steps` fold-parallel train steps of all folds of phase 7's
+    experiment (dropout 0) on the card against the same steps taken one
+    fold at a time on the card (`steps.train_step`) and in float64 on the
+    CPU, each step from the fold-parallel state before it (params, batch
+    statistics, Adam's moments and step count), under
+    `card_vs_cpu_steps`' rules with the sequential card run in the CPU's
+    place: per fold, the loss sum within rtol 2e-4; each leaf's gradient
+    |g_fp - g64| <= 1e-3 |g64| + 2 |g_seq - g64| (leaves zero to rounding,
+    |g64| <= |g_seq - g64|, are logged); the params and batch statistics
+    after the step within 1e-4, widened by Adam's amplification of the
+    gradient difference, 2 `adam_sensitivity` |g_fp - g_seq|, and entries
+    whose gradient is zero to rounding within twice `adam_step_bound`."""
+    cpu = torch.device("cpu")
+    mcfg = dataclasses.replace(train["mcfg"], dropout_lin=0.0,
+                               dropout_regr=0.0, dropout_go=0.0,
+                               dropout_readout=0.0)
+    tcfg, kind, topo = train["tcfg"], train["kind"], train["topo"]
+    cohort = train["cohort"]
+    full = cohort_batch_arrays(cohort)
+    b = tcfg.batch_size
+    ps = [prepare_fold(cohort, full, split, f, tcfg, tcfg.clinical_score_index)
+          for f, split in enumerate(train["splits"])]
+    spe = [p["train_data"]["y"].shape[0] // b for p in ps]
+    data = [{k: v[p["perms"][0][:n_steps * b]] for k, v in
+             p["train_data"].items()} for p in ps]
+    models = [quiet(init_fold_model(mcfg, topo, tcfg.seed, f, cpu,
+                                    kind=kind)[0]) for f in range(len(ps))]
+    fp = steps.StackedState([copy.deepcopy(m).to(dev) for m in models], tcfg,
+                            spe, kind)
+    seq = [steps.TrainState(copy.deepcopy(m).to(dev), tcfg, n, kind)
+           for m, n in zip(models, spe)]
+    exact = [steps.TrainState(copy.deepcopy(m).double(), tcfg, n, kind)
+             for m, n in zip(models, spe)]
+    stacked = {k: torch.as_tensor(np.stack([d[k] for d in data]), device=dev)
+               for k in data[0]}
+    if steps.record_noise_shapes(fp, {k: v[:, :b] for k, v in stacked.items()},
+                                 mcfg, tcfg):
+        raise AssertionError("a dropout-0 flagship step drew noise")
+    failures, rel, grad_rel, state_max = [], 0.0, 0.0, 0.0
+    for t in range(1, n_steps + 1):
+        rows = slice((t - 1) * b, t * b)
+        for f, (sq, ex) in enumerate(zip(seq, exact)):
+            fold_sd = fp.fold_state_dict(f)
+            for state, device, dtype in ((sq, dev, torch.float32),
+                                         (ex, cpu, torch.float64)):
+                state.model.load_state_dict(
+                    {k: v.to(device, dtype if v.is_floating_point() else v.dtype)
+                     for k, v in fold_sd.items()})
+                _adam_state(state.optimizer, state.model,
+                            {k: v[f] for k, v in fp.exp_avg.items()},
+                            {k: v[f] for k, v in fp.exp_avg_sq.items()},
+                            fp.steps[f], device, dtype)
+                state.step = int(fp.steps[f])
+        lr = [steps.lr_at_step(tcfg, int(fp.steps[f]), spe[f])
+              for f in range(len(ps))]
+        batch = {k: v[:, rows] for k, v in stacked.items()}
+        loss_fp = steps.batched_train_step(fp, batch, mcfg, tcfg, None,
+                                           np.ones(len(ps), bool)).cpu()
+        for f, (sq, ex) in enumerate(zip(seq, exact)):
+            one = {k: v[f] for k, v in batch.items()}
+            loss_seq = float(steps.train_step(sq, one, mcfg, tcfg, None))
+            steps.train_step(ex, {k: v.to(cpu).double()
+                                  if v.is_floating_point() else v.to(cpu)
+                                  for k, v in one.items()}, mcfg, tcfg, None)
+            r = abs(float(loss_fp[f]) - loss_seq) / abs(loss_seq)
+            rel = max(rel, r)
+            if r > 2e-4:
+                failures.append(f"step {t} fold {f}: loss sum {float(loss_fp[f])}"
+                                f" fold-parallel, {loss_seq} sequential")
+            sens = adam_sensitivity(sq.optimizer, sq.model, lr[f])
+            zero = {}
+            for n, p in ex.model.named_parameters():
+                if p.grad is None:
+                    continue
+                g64 = p.grad.numpy()
+                g_fp = fp.params[n].grad[f].double().cpu().numpy()
+                g_seq = dict(sq.model.named_parameters())[n].grad.double(
+                    ).cpu().numpy()
+                rounding = np.maximum(np.abs(g_fp - g64), np.abs(g_seq - g64))
+                zero[n] = ((np.abs(g64) <= rounding) & (rounding > 0),
+                           np.abs(g_fp - g_seq))
+                norm = float(np.linalg.norm(g64))
+                seq_err = float(np.linalg.norm(g_seq - g64))
+                fp_err = float(np.linalg.norm(g_fp - g64))
+                if norm <= seq_err:
+                    log(f"step {t} fold {f} grad {n}: zero to rounding "
+                        f"(|g64| {norm:.3e}, |seq - g64| {seq_err:.3e})")
+                    continue
+                grad_rel = max(grad_rel, fp_err / norm)
+                if fp_err > 1e-3 * norm + 2 * seq_err:
+                    failures.append(f"step {t} fold {f} grad {n}: |fp - g64| "
+                                    f"{fp_err:.3e} > {1e-3 * norm + 2 * seq_err:.3e}")
+            bound = 2 * adam_step_bound(lr[f], t)
+            got = {k: v.detach().double().cpu().numpy()
+                   for k, v in fp.fold_state_dict(f).items()
+                   if v.is_floating_point()}
+            for n, want in _floats(sq.model).items():
+                diff = np.abs(got[n] - want)
+                walking, gdiff = zero.get(n, (np.zeros(diff.shape, bool), 0.0))
+                pin = 1e-4 + (2 * sens[n] * gdiff if n in sens else 0.0)
+                over = float((diff - pin)[~walking].max(initial=-1.0))
+                state_max = max(state_max, float(diff[~walking].max(initial=0.0)))
+                if over > 0:
+                    failures.append(f"step {t} fold {f} state {n}: "
+                                    f"{over:.3e} past its pin")
+                if float(diff[walking].max(initial=0.0)) > bound:
+                    failures.append(f"step {t} fold {f} state {n}: "
+                                    "zero-to-rounding entries past "
+                                    f"{bound:.3e}")
+    if failures:
+        raise AssertionError("fold-parallel vs sequential: "
+                             + "; ".join(failures))
+    out = {"steps": n_steps, "folds": len(ps), "loss_max_rel_diff": rel,
+           "grad_max_rel_err": grad_rel, "state_max_abs_diff": state_max}
+    log(f"fold-parallel vs sequential on the card over {n_steps} steps of "
+        f"{len(ps)} folds, each from the fold-parallel state: loss max rel "
+        f"diff {rel:.3e}, gradients max rel err vs float64 {grad_rel:.3e}, "
+        f"params/batch_stats max abs diff {state_max:.3e} (pin 1e-4)")
+    # a warm batched step of the 5 folds, as `step_breakdown` reads one
+    # fold's step in phase 8
+    first = {k: v[:, :b] for k, v in stacked.items()}
+    breakdown = step_breakdown({"step": lambda: steps.batched_train_step(
+        fp, first, mcfg, tcfg, None, np.ones(len(ps), bool))})
+    one = breakdown["profiled_step"]
+    log_profile(f"warm fold-parallel train step ({len(ps)} folds x "
+                f"B={b}, N=90)", one)
+    if one["gcn_stack_launches"] != 2:
+        raise AssertionError("a fold-parallel step must launch the kernel "
+                             "twice (plain and masked pass, all folds); the "
+                             f"profiler saw {one['gcn_stack_launches']}")
+    log(f"fold-parallel train step: host wall {breakdown['step_wall_ms']:.4f}"
+        f" ms (median of 10), device busy {breakdown['step_device_ms']:.4f} "
+        f"ms (profiler, 5 steps)")
+    out.update(step_wall_ms=breakdown["step_wall_ms"],
+               step_device_ms=breakdown["step_device_ms"],
+               profiled_step=one)
+    return out
+
+
+def fold_records(res_dir, name):
+    """{fold: record} of a results dir's fold records of stem `name`."""
+    out = {}
+    for path in glob.glob(os.path.join(res_dir, f"fold_result_{name}_fold_*.npz")):
+        with np.load(path) as zf:
+            out[int(path.rsplit("_", 1)[1][:-4])] = {k: zf[k] for k in zf.files}
+    return out
+
+
+# a seed of a 15-entry batch against its own 5-entry run: the two vmapped
+# programs run cuBLAS's batched GEMMs at other batch counts, so with other
+# kernels and summation orders, and 17 Adam steps compound the rounding
+# (1.330e-4 read on an NVIDIA H100 80GB HBM3 at 700 W)
+SEED_RECORD_RTOL = 1e-3
+
+
+def same_records(got, want, what):
+    """Two runs' fold records: the same folds and keys, equal subject ids,
+    labels, true scores and meta, test losses within SEED_RECORD_RTOL, and
+    accuracies equal but for at most one test subject per fold-epoch (a
+    class decision that rounding tips, as phase 10's resume allows)."""
+    if sorted(got) != sorted(want) or not got:
+        raise AssertionError(f"{what}: folds {sorted(got)} vs {sorted(want)}")
+    worst = 0.0
+    for fold in want:
+        a, b = got[fold], want[fold]
+        if set(a) != set(b):
+            raise AssertionError(f"{what} fold {fold}: keys differ")
+        for key in ("subid", "true_labels", "true_scores", "meta"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"{what} fold {fold}: {key} differs")
+        np.testing.assert_allclose(a["test_losses"], b["test_losses"],
+                                   rtol=SEED_RECORD_RTOL, err_msg=what)
+        worst = max(worst, float(np.max(np.abs(a["test_losses"] - b["test_losses"])
+                                        / np.abs(b["test_losses"]))))
+        n_test = len(b["true_labels"])
+        if np.any(np.abs(a["accs"] - b["accs"]) > 1.0 / n_test + 1e-9):
+            raise AssertionError(f"{what} fold {fold}: accuracies "
+                                 f"{a['accs']} vs {b['accs']}")
+    return worst
+
+
+def phase_fold_parallel(dev, train):
+    log("== phase 15: batched experiments on the card (--fold_parallel, "
+        "--cv_seeds, --permut_seeds, --batch_file)")
+    tcfg = train["tcfg"]
+    splits = train["splits"]
+    name = result_name(2, 16)
+    out = {}
+    seq_tcfg = dataclasses.replace(tcfg, epochs=FP_EPOCHS)
+    text, launches, seq_wall, _ = cli_run(cli_argv(FP_EPOCHS,
+                                                   "_chip_smoke_seq"))
+    want = expected_launches(splits, seq_tcfg)
+    if launches != want:
+        raise AssertionError(f"sequential {FP_EPOCHS}-epoch run: {launches} "
+                             f"launches, the loop implies {want}")
+    fp = fp_run(cli_argv(FP_EPOCHS, "_chip_smoke_fp", "--fold_parallel"),
+                [splits], tcfg, f"--fold_parallel {FP_EPOCHS} epochs",
+                epochs=FP_EPOCHS)
+    seq_losses, fp_losses = epoch_losses(text), epoch_losses(fp["text"])
+    if sorted(seq_losses) != sorted(fp_losses):
+        raise AssertionError("fold-parallel and sequential epoch lines differ")
+    worst = max(abs(a - b) / abs(b) for key in seq_losses
+                for a, b in zip(fp_losses[key], seq_losses[key]))
+    log(f"--fold_parallel vs sequential, {FP_EPOCHS} epochs, dropout on: "
+        f"per-epoch losses (as printed, 4 decimals) max rel diff {worst:.3e}; "
+        f"wall {fp['experiment_wall_s']:.3f} s against {seq_wall:.3f} s "
+        f"sequential ({seq_wall / fp['experiment_wall_s']:.2f}x); launches "
+        f"{fp['launches']} against {launches} "
+        f"({fp['launches'] // FP_EPOCHS} against {launches // FP_EPOCHS} per "
+        "epoch)")
+    if worst > 1e-3:
+        raise AssertionError("fold-parallel epoch losses depart from the "
+                             f"sequential run's by {worst:.3e} (> 1e-3 of the "
+                             "printed 4 decimals)")
+    out["flagship"] = {**{k: v for k, v in fp.items() if k != "text"},
+                       "sequential_wall_s": seq_wall,
+                       "sequential_launches": launches,
+                       "printed_loss_max_rel_diff": worst}
+    out["steps"] = fold_parallel_vs_sequential_steps(dev, train)
+
+    multi = fp_run(cli_argv(1, "_chip_smoke_fp_multi", "--fold_parallel",
+                            "--isMultiFusion", "--layers", "3", "--hiddens",
+                            "10"), [splits], tcfg,
+                   "--fold_parallel --isMultiFusion 1 epoch")
+    out["multi_fusion"] = {k: v for k, v in multi.items() if k != "text"}
+
+    seeds = port_main.parse_permut_seeds(FP_SEEDS, None)
+    seed_splits = [k_fold(train["cohort"].y, tcfg.folds, s) for s in seeds]
+    rep = fp_run(cli_argv(1, "_chip_smoke_seeds", "--fold_parallel",
+                          "--cv_seeds", FP_SEEDS), seed_splits, tcfg,
+                 f"--cv_seeds {FP_SEEDS} --fold_parallel 1 epoch")
+    line = re.search(r"^Replication over 3 seeds - acc .*$", rep["text"], re.M)
+    if line is None:
+        raise AssertionError("no `Replication over 3 seeds` line")
+    worst_seed = 0.0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seed_") as tmp:
+        for s in seeds:
+            alone = dataclasses.replace(tcfg, seed=s, epochs=1,
+                                        fold_parallel=True)
+            with contextlib.redirect_stdout(io.StringIO()):
+                port_cv.cross_validation(
+                    train["cohort"], train["topo"], train["mcfg"], alone,
+                    res_dir=os.path.join(tmp, str(s)), result_file_name=name,
+                    model_kind=train["kind"], device=dev)
+            worst_seed = max(worst_seed, same_records(
+                fold_records(run_dir(f"_chip_smoke_seeds_seed{s}"), name),
+                fold_records(os.path.join(tmp, str(s)), name),
+                f"seed {s} of the batch vs its standalone fold-parallel run"))
+    log(f"{line.group(0)}; every seed's fold records match its standalone "
+        f"fold-parallel run (test losses max rel diff {worst_seed:.3e})")
+    out["cv_seeds"] = {**{k: v for k, v in rep.items() if k != "text"},
+                       "replication_line": line.group(0),
+                       "records_test_loss_max_rel_diff": worst_seed}
+
+    permut = fp_run(cli_argv(1, "_chip_smoke_permut", "--fold_parallel",
+                             "--permut_seeds", FP_SEEDS), [splits] * 3, tcfg,
+                    f"--permut_seeds {FP_SEEDS} --fold_parallel 1 epoch")
+    nulls = [os.path.join(os.getcwd(), "results_permuttest",
+                          f"ADNI_chip_smoke_permut_permut{s}") for s in seeds]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = report.main([run_dir("_chip_smoke_fp"), "--permut_null", *nulls])
+    log(buf.getvalue().rstrip())
+    pvals = re.findall(r"^\| " + re.escape(name) + r" \| [\d.]+ \| 3 \| "
+                       r"[\d.]+ \| [\d.]+ \| ([\d.]+) \|$", buf.getvalue(),
+                       re.M)
+    if code != 0 or not pvals:
+        raise AssertionError("tools.report --permut_null printed no p-value")
+    log(f"permutation p-value of the observed accuracy over 3 nulls: "
+        f"{pvals[0]}")
+    out["permut_seeds"] = {**{k: v for k, v in permut.items() if k != "text"},
+                           "p_value": float(pvals[0])}
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "batch.txt")
+    fused = cli_argv(1, "_chip_smoke_batch_fused", "--fold_parallel")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_batch_") as cache:
+        zoo = zoo_argv("GCN", "_chip_smoke_batch_zoo", cache)
+        with open(path, "w") as fh:
+            fh.write("# fused, zoo, then a line that fails\n"
+                     + shlex.join(fused) + "\n\n" + shlex.join(zoo) + "\n"
+                     + "--device cuda --model BOGUS\n")
+        buf = io.StringIO()
+        gcn_stack.fused_gcn_stack.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            try:
+                port_main.main(["--batch_file", path])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        batch_wall = time.perf_counter() - t0
+    log(buf.getvalue().rstrip())
+    done = [os.path.exists(os.path.join(run_dir(a), "log.txt")) and
+            "Result - " in open(os.path.join(run_dir(a), "log.txt")).read()
+            for a in ("_chip_smoke_batch_fused", "_chip_smoke_batch_zoo")]
+    if code != 1 or not all(done) or "[batch] 2/3 experiments succeeded" \
+            not in buf.getvalue():
+        raise AssertionError(f"--batch_file: exit {code}, runs done {done}")
+    log(f"--batch_file of a fused, a zoo and a failing line: exit 1, the "
+        f"first two done, {batch_wall:.3f} s, "
+        f"{gcn_stack.fused_gcn_stack.launches} kernel launches")
+    out["batch_file"] = {"exit": code, "wall_s": batch_wall,
+                         "launches": gcn_stack.fused_gcn_stack.launches}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -2194,7 +2739,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     card, build_s = phase_build()
-    max_err, train_grad_err = phase_kernel_vs_plain(dev)
+    max_err, train_grad_err, grouped_err = phase_kernel_vs_plain(dev)
     cohort = make_cohort(np.random.default_rng(1), COHORT)
     model, served, launches = phase_serve(dev, cohort)
     http_times = phase_http(dev, model, cohort, served)
@@ -2212,8 +2757,10 @@ def main() -> int:
         real, real_ctx = phase_real_cohort(dev, layout)
         other = phase_other_routes(dev, layout, real_ctx)
     zoo = phase_zoo(dev)
+    batched = phase_fold_parallel(dev, train)
 
     serving, *others = times["shapes"]
+    fp_row = times["grouped"][0]
     # per route: the kernel's launches per train step and per eval batch,
     # and over the route's whole CLI run against the loop's count
     routes = {"SGCN_GCN_IMGSNP": training, "SGCN_GCN_IMGSNP --isMultiFusion":
@@ -2282,7 +2829,32 @@ def main() -> int:
         "shapes": [{k: row[k] for k in (
             "shape", "B", "N", "F0", "widths", "kernel_ms", "kernel_cold_ms",
             "plain_ms", "plain_cold_ms", "library_ms", "library_cold_ms",
-            "bound_ms", "bound_by")} for row in others]}]}
+            "bound_ms", "bound_by")} for row in others]}, {
+        # the same kernel's grouped form: the fold-parallel trainer's one
+        # launch per pass for all folds, each with its own weights
+        "name": "gcn_stack_grouped", "route": "cuda",
+        "source": "iggcn_tpu_torch/csrc/gcn_stack.cu",
+        "replaces": "iggcn_tpu/ops/pallas_gcn.py:83",
+        "launches": batched["flagship"]["launches"],
+        "max_abs_err": grouped_err,
+        "ms": fp_row["kernel_ms"], "cold_ms": fp_row["kernel_cold_ms"],
+        "plain_ms": fp_row["plain_ms"], "bound_ms": fp_row["bound_ms"],
+        "bound_by": fp_row["bound_by"], "library_ms": fp_row["library_ms"],
+        "routes": {what: {"launches_run": run["launches"],
+                          "expected_launches_run": run["expected_launches"]}
+                   for what, run in (
+                       ("SGCN_GCN_IMGSNP --fold_parallel",
+                        batched["flagship"]),
+                       ("SGCN_GCN_IMGSNP --fold_parallel --isMultiFusion",
+                        batched["multi_fusion"]),
+                       ("--cv_seeds " + FP_SEEDS, batched["cv_seeds"]),
+                       ("--permut_seeds " + FP_SEEDS,
+                        batched["permut_seeds"]))},
+        "shapes": [{k: row[k] for k in (
+            "shape", "F", "B", "N", "F0", "widths", "kernel_ms",
+            "kernel_cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
+            "library_cold_ms", "bound_ms", "bound_by")}
+            for row in times["grouped"]]}]}
     serve = {"serve": {"subjects": COHORT, "batch": BATCH,
                        "cohort_wall_s": times["serve_cohort_s"],
                        "request_subjects": BATCH, **http_times},
@@ -2319,6 +2891,22 @@ def main() -> int:
                      "result_line", "launches", "expected_launches",
                      "graphs", "nodes")}
                  for model, run in zoo["models"].items()}},
+             "fold_parallel": {
+                 "experiment_wall_s":
+                     batched["flagship"]["experiment_wall_s"],
+                 "sequential_wall_s":
+                     batched["flagship"]["sequential_wall_s"],
+                 "epochs": FP_EPOCHS,
+                 "steps_loss_max_rel_diff":
+                     batched["steps"]["loss_max_rel_diff"],
+                 "step_wall_ms": batched["steps"]["step_wall_ms"],
+                 "step_device_ms": batched["steps"]["step_device_ms"],
+                 "step_idle_share":
+                     batched["steps"]["profiled_step"]["idle_share"],
+                 "cv_seeds_wall_s": batched["cv_seeds"]["experiment_wall_s"],
+                 "permut_seeds_wall_s":
+                     batched["permut_seeds"]["experiment_wall_s"],
+                 "p_value": batched["permut_seeds"]["p_value"]},
              "snps_only": {model: {
                  "experiment_wall_s": run["experiment_wall_s"],
                  "result_line": run["result_line"],
@@ -2335,6 +2923,7 @@ def main() -> int:
                    "multi_fusion": multi, "families": families,
                    "artifacts": artifacts, "snps_only": snps,
                    "real_cohort": real, "other_routes": other, "zoo": zoo,
+                   "batched": batched,
                    "device": device}, fh, indent=1, default=float)
     log(card)
     log(json.dumps(serve))

@@ -95,8 +95,9 @@ class TrainConfig:
     packages; they choose execution strategies of the JAX package with
     identical results and choose nothing in the port, whose folds run as a
     Python epoch loop (`train/fold_loop.py`) with the two passes of a step
-    run one after the other. `fold_parallel=True` (all folds as one batched
-    program) is not ported yet and raises in `train/cv.py`.
+    run one after the other. `fold_parallel=True` trains all folds as one
+    batched program on the card (`train/fold_parallel.py`), each fold as
+    it would train alone.
     """
 
     epochs: int = 200

@@ -38,6 +38,12 @@
 // - Nothing is packed per call: the weight and bias pointers travel in the
 //   kernel's parameters (copied to shared memory by all threads at once),
 //   and the shared-memory attribute is set once per device and size.
+// - Grouped weights (the fold-parallel trainer: k folds' batches in one
+//   launch, each fold with its own weights). Sample s reads weight set
+//   s / group, at w_stride[l] / b_stride[l] floats per set; a shared-weight
+//   call has strides 0, so both run one code path. Every CTA of a cluster
+//   belongs to one sample and so reads one set. The bytes per sample do
+//   not change (each CTA copied the weights into shared memory anyway).
 // Accumulation is plain fp32 FMA (no TF32, no tensor cores) in the order
 // h @ W first, then P @ (h W), as the TPU kernel did.
 //
@@ -77,6 +83,7 @@ struct StackPlan {
   int total;         // JK output width, sum of H_l
   int p_transposed;  // P's memory holds P^T row by row
   int copy_bulk;     // the band is one 16-byte-aligned block: bulk copy
+  int group;         // samples per weight set: sample s reads set s / group
   int off_part;      // n8 x hs: this CTA's partial P hW (cluster > 1)
   int off_hw;        // kpad x hws: hW of this CTA's rows
   int off_h;         // hs x hts: this CTA's rows of h, transposed
@@ -86,6 +93,8 @@ struct StackPlan {
   int off_w[kMaxLayers];
   int off_b[kMaxLayers];
   int out_off[kMaxLayers];
+  int w_stride[kMaxLayers];  // floats between weight sets (0: shared)
+  int b_stride[kMaxLayers];  // floats between bias sets (0: shared)
 };
 
 struct StackArgs {
@@ -271,6 +280,7 @@ gcn_stack_kernel(const __grid_constant__ StackArgs a) {
   float* ht = smem + p.off_h;                 // ht[f * hts + j] = h[r0 + j][f]
   float* os = smem + p.off_o;                 // os[j * total + c] = out[r0 + j][c]
   const float* prop_s = sa.prop + sample * sa.p_batch_stride;
+  const long long wset = sample / p.group;    // this sample's weight set
 
   // 1. Queued first, so that they do not wait behind P: the weights and
   //    biases, zero-padded to multiples of 4, as 4-byte cp.asyncs, and
@@ -280,15 +290,17 @@ gcn_stack_kernel(const __grid_constant__ StackArgs a) {
     for (int l = 0; l < p.num_layers; ++l) {
       const int fin = p.dims[l], fout = p.dims[l + 1], fp = p.fout_p[l];
       float* ws = smem + p.off_w[l];
+      const float* wg = sa.w[l] + wset * p.w_stride[l];
       for (int idx = tid; idx < ((fin + 3) & ~3) * fp; idx += nthr) {
         const int f = idx / fp;
         const int c = idx - f * fp;
-        if (f < fin && c < fout) cp_async_4(ws + idx, sa.w[l] + f * fout + c);
+        if (f < fin && c < fout) cp_async_4(ws + idx, wg + f * fout + c);
         else ws[idx] = 0.f;
       }
       float* bs = smem + p.off_b[l];
+      const float* bg = sa.b[l] + wset * p.b_stride[l];
       for (int c = tid; c < fp; c += nthr) {
-        if (c < fout) cp_async_4(bs + c, sa.b[l] + c);
+        if (c < fout) cp_async_4(bs + c, bg + c);
         else bs[c] = 0.f;
       }
     }
@@ -512,8 +524,10 @@ extern "C" {
 
 // plan: from plan_launch; prop (B, N, N) fp32 with batch stride
 // p_batch_stride floats, row-major or transposed as plan->p_transposed
-// says; x (B, N, dims[0]) contiguous; weights[l] (dims[l], dims[l+1]) and
-// biases[l] (dims[l+1]) contiguous; out (B, N, total) contiguous; all on
+// says; x (B, N, dims[0]) contiguous; weights[l] B / group sets of
+// (dims[l], dims[l+1]), each contiguous, plan->w_stride[l] floats apart,
+// and biases[l] sets of (dims[l+1]) plan->b_stride[l] apart (strides 0:
+// one set for every sample); out (B, N, total) contiguous; all on
 // `device`.
 int gcn_stack_forward(const StackPlan* plan, const float* prop,
                       long long p_batch_stride, const float* x,
@@ -524,7 +538,7 @@ int gcn_stack_forward(const StackPlan* plan, const float* prop,
       p.threads < 32 || p.threads > kMaxThreads || p.cluster < 1 ||
       p.cluster > kMaxCluster || p.rows % kTileRows != 0 || p.n8 % kTileRows != 0 ||
       (p.ksplit != 1 && p.ksplit != 2 && p.ksplit != 4) ||
-      p.kpad % (4 * p.ksplit) != 0 || p.ps % 2 != 0) {
+      p.kpad % (4 * p.ksplit) != 0 || p.ps % 2 != 0 || p.group < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;

@@ -30,11 +30,19 @@ h-hop rooted subgraphs (`--h`, `--node_label`, `--use_rd`, `--use_rp`,
 tests every fold on a held-out ADNI type, `--isPermutTest` runs the
 permutation-test null (results under results_permuttest/), and
 `--init_from_torch` starts every fold from a reference
-`gcn_state_dict_*.pt`. It runs on the card and raises without one unless
+`gcn_state_dict_*.pt`. `--fold_parallel` trains the folds of a fused
+family as one batched program (each fold as it would train alone);
+`--cv_seeds` replicates the experiment over CV seeds
+(results/ADNI<appendix>_seed<s>, then a `Replication over N seeds` line)
+and `--permut_seeds` runs a permutation null
+(results_permuttest/ADNI<appendix>_permut<s>), with `--fold_parallel`
+as one batched program of seeds x folds entries for the fused families
+(at most `--spmd_batch_entries` per program), else one seed after the
+other; `--batch_file` runs every line of a file as its own command line
+in this process. Every results dir gets `cmd_input.txt`, `log.txt` and
+an `env.txt` manifest. It runs on the card and raises without one unless
 `--device cpu` is given. The flags mean what they mean in the JAX
-package, whose command lines of these routes parse here too; the
-seed-batch and batch-file routes (`--cv_seeds`, `--permut_seeds`,
-`--batch_file`) are not ported yet and are refused.
+package, whose command lines parse here too.
 """
 from __future__ import annotations
 
@@ -68,8 +76,6 @@ ZOO_MODELS = ("GCN", "GAT", "GIN", "GIN0", "GraphSAGE", "GraphSAGEWithoutJK",
               "TopK", "DiffPool", "SortPool", "Set2Set", "GlobalAttention",
               "Graclus", "CNN_Model", "NestedGCN", "NestedGAT", "NestedGIN",
               "NestedGIN0", "NestedGraphSAGE")
-# the JAX CLI's routes of a later slice (ROADMAP Queue 1 item 13)
-NOT_PORTED_FLAGS = ("--cv_seeds", "--permut_seeds", "--batch_file")
 # the GO DAG of the synthetic route: synthetic_topology's default levels,
 # as the JAX package's CLI draws it
 DEFAULT_GO_LEVELS = "24,16,10,6,1"
@@ -307,11 +313,56 @@ def build_parser() -> argparse.ArgumentParser:
                         "always runs its CUDA kernel on the card); recorded "
                         "in the model config as the JAX CLI records it")
     p.add_argument("--no_fold_scan", action="store_true", default=False,
-                   help="chooses nothing in the port (its folds always run "
-                        "as a Python epoch loop)")
-    for flag in NOT_PORTED_FLAGS:
-        p.add_argument(flag, type=str, default=None,
-                       help="not ported yet (ROADMAP Queue 1 item 13)")
+                   help="chooses nothing in the port (a sequential fold runs "
+                        "as a Python epoch loop either way); refused with "
+                        "--fold_parallel, as in the JAX CLI")
+    p.add_argument("--fold_parallel", action="store_true", default=False,
+                   help="train all CV folds of a fused family at once, as "
+                        "one batched program on the card (each fold with "
+                        "its own weights, dropout stream and learning-rate "
+                        "schedule, as it would train alone)")
+    p.add_argument("--permut_seeds", type=str, default=None,
+                   help="run a BATCH of permutation-test null experiments "
+                        "in one process: a comma list '1,2,3' or an "
+                        "inclusive range '1:100'; implies --isPermutTest; "
+                        "each seed writes its own dir "
+                        "results_permuttest/ADNI<appendix>_permut<seed>, "
+                        "aggregate with python -m "
+                        "iggcn_tpu_torch.tools.report --permut_null. With "
+                        "--fold_parallel (fused families) the whole "
+                        "seeds x folds grid trains as ONE batched program "
+                        "on the card (chunked per --spmd_batch_entries)")
+    p.add_argument("--cv_seeds", type=str, default=None,
+                   help="REPLICATE the experiment across N CV seeds on one "
+                        "fixed cohort (each seed redraws the stratified "
+                        "splits, per-fold imputation, parameter inits and "
+                        "epoch shuffling): a comma list '1,2,3' or an "
+                        "inclusive range '1:5'; each seed writes its own dir "
+                        "results/ADNI<appendix>_seed<seed> and an "
+                        "across-seed mean +/- std summary is printed. "
+                        "Supported by every model family: with "
+                        "--fold_parallel the fused families train the whole "
+                        "seeds x folds grid as ONE batched program on the "
+                        "card (chunked per --spmd_batch_entries); the zoo "
+                        "and SNP-only families replicate sequentially in "
+                        "one process. The dataset itself stays drawn from "
+                        "--seed")
+    p.add_argument("--spmd_batch_entries", type=int, default=64,
+                   help="seed batches (--permut_seeds / --cv_seeds with "
+                        "--fold_parallel): max seeds x folds entries per "
+                        "batched program; larger batches are chunked into "
+                        "ceil(entries/folds)-seed groups so device memory "
+                        "(the stacked fold copies scale with entries) stays "
+                        "bounded; 0 = unlimited")
+    p.add_argument("--batch_file", type=str, default=None,
+                   help="run MANY experiments from one process: each "
+                        "non-empty, non-# line of the file is a full "
+                        "command line (without 'python -m "
+                        "iggcn_tpu_torch.main'), executed in order with the "
+                        "built kernels and the processed-cohort cache "
+                        "shared; a failing line is reported and the batch "
+                        "continues (exit 1 if any line failed). Must be the "
+                        "only flag on the command line")
     p.add_argument("--clean", action="store_true", default=False,
                    help="ignored (dead flag in the reference too)")
     p.add_argument("--keep_old", action="store_true", default=False,
@@ -366,6 +417,7 @@ def fused_cfgs(args, dcfg: DataConfig, num_layers: int, hidden: int):
         lr_decay_step_size=args.lr_decay_step_size, folds=args.fold,
         seed=args.seed, no_val=args.no_val,
         is_permut_test=args.isPermutTest, temperature=args.temperature,
+        use_fold_scan=not args.no_fold_scan, fold_parallel=args.fold_parallel,
         clinical_score_index=args.clinical_score_index,
         loss=LossWeights(args.lambda_disease, args.lambda_regr,
                          args.lambda_prob, args.lambda_reco,
@@ -484,12 +536,45 @@ def setup_run_dir(args, argv: Optional[List[str]]):
            + shlex.join(sys.argv[1:] if argv is None else argv))
     with open(os.path.join(res_dir, "cmd_input.txt"), "a") as fh:
         fh.write(cmd + "\n")
+    write_env_manifest(res_dir, args.device)
 
     def logger(info):
         with open(os.path.join(res_dir, "log.txt"), "a") as fh:
             print(info, file=fh)
 
     return res_dir, logger
+
+
+def write_env_manifest(res_dir: str, device: str) -> None:
+    """Append the environment of a run to <res_dir>/env.txt (the JAX CLI's
+    `_write_env_manifest` fields): the python, torch, CUDA and numpy
+    versions, the device's name x count and the repository's commit.
+    Never fails the run."""
+    import platform
+    import subprocess
+    try:
+        lines = [f"python {platform.python_version()} "
+                 f"({platform.platform()})",
+                 f"torch {torch.__version__} (CUDA {torch.version.cuda})",
+                 f"numpy {np.__version__}"]
+        if torch.device(device).type == "cuda" and torch.cuda.is_available():
+            lines.append(f"device cuda ({torch.cuda.get_device_name(0)} "
+                         f"x{torch.cuda.device_count()})")
+        else:
+            lines.append(f"device {device} (x1)")
+        try:
+            sha = subprocess.run(
+                ["git", "rev-parse", "--short", "HEAD"],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=5).stdout.strip()
+            if sha:
+                lines.append(f"commit {sha}")
+        except Exception:
+            pass
+        with open(os.path.join(res_dir, "env.txt"), "a") as fh:
+            fh.write("\n".join(lines) + "\n---\n")
+    except Exception as e:  # never block the experiment
+        print(f"[env] manifest skipped ({e})", file=sys.stderr)
 
 
 def snps_inputs(args, parser, dcfg: DataConfig, rng: np.random.Generator):
@@ -726,18 +811,132 @@ def build_warm_start(args, dcfg: DataConfig, topo, grid, logger):
     return params, batch_stats, tag
 
 
+def parse_permut_seeds(spec: str, parser, flag: str = "--permut_seeds"
+                       ) -> List[int]:
+    """'1,2,3' or inclusive 'A:B' -> list of distinct non-negative seeds
+    (the JAX CLI's `_parse_permut_seeds`); anything else is a parser
+    error."""
+    try:
+        if ":" in spec:
+            lo_s, hi_s = spec.split(":", 1)
+            lo, hi = int(lo_s), int(hi_s)
+            if hi < lo:
+                parser.error(f"{flag} range {spec!r} is empty "
+                             "(end < start)")
+            seeds = list(range(lo, hi + 1))
+        else:
+            seeds = [int(v) for v in spec.split(",") if v.strip()]
+    except ValueError:
+        parser.error(f"{flag} {spec!r}: expected a comma list "
+                     "'1,2,3' or an inclusive range '1:100'")
+    if not seeds:
+        parser.error(f"{flag} named no seeds")
+    if any(v < 0 for v in seeds):
+        parser.error(f"{flag} {spec!r}: seeds must be non-negative")
+    if len(set(seeds)) != len(seeds):
+        parser.error(f"{flag} {spec!r} repeats a seed; each "
+                     "run must use a distinct seed")
+    return seeds
+
+
+def seed_chunks(seeds, folds: int, max_entries: int):
+    """Slices bounding seeds x folds entries per batched program (0:
+    unlimited), and the seeds per chunk."""
+    per_chunk = (len(seeds) if max_entries == 0
+                 else max(1, max_entries // folds))
+    return [slice(i, i + per_chunk)
+            for i in range(0, len(seeds), per_chunk)], per_chunk
+
+
+def run_batch_file(path: str, argv: Optional[List[str]], parser) -> None:
+    """`--batch_file`: run every non-empty, non-# line of `path` as its own
+    command line in this process, in order. A failing line is reported
+    and the batch goes on; exits 1 if any line failed. The file's lines
+    may not name --batch_file, and the command line may name nothing
+    else."""
+    import traceback
+
+    given = [a for a in (argv if argv is not None else sys.argv[1:])
+             if a != "--batch_file" and not a.startswith("--batch_file=")
+             and a != path]
+    if given:
+        parser.error("--batch_file runs self-contained command lines; "
+                     f"drop the extra arguments {given} (put them on the "
+                     "file's lines instead)")
+    try:
+        with open(path) as fh:
+            raw_lines = fh.readlines()
+    except OSError as e:
+        parser.error(f"--batch_file: cannot read {path!r} ({e})")
+    jobs = [(lineno, line.strip()) for lineno, line in
+            enumerate(raw_lines, start=1)
+            if line.strip() and not line.strip().startswith("#")]
+    if not jobs:
+        parser.error(f"--batch_file {path!r} has no runnable lines "
+                     "(all empty or #-comments)")
+    failures = []
+    for i, (lineno, line) in enumerate(jobs):
+        try:
+            job_argv = shlex.split(line)
+        except ValueError as e:
+            print(f"[batch] line {lineno} does not tokenize ({e}): {line}",
+                  file=sys.stderr)
+            failures.append((lineno, line, f"shlex: {e}"))
+            continue
+        if any(a == "--batch_file" or a.startswith("--batch_file=")
+               for a in job_argv):
+            print(f"[batch] line {lineno}: --batch_file does not nest; "
+                  "skipping", file=sys.stderr)
+            failures.append((lineno, line, "nested --batch_file"))
+            continue
+        print(f"[batch] {i + 1}/{len(jobs)} (line {lineno}): {line}")
+        try:
+            main(job_argv)
+        except SystemExit as e:
+            if e.code not in (None, 0):
+                failures.append((lineno, line, f"exit {e.code}"))
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:
+            traceback.print_exc()
+            failures.append((lineno, line, f"{type(e).__name__}: {e}"))
+    print(f"[batch] {len(jobs) - len(failures)}/{len(jobs)} experiments "
+          "succeeded")
+    for lineno, line, why in failures:
+        print(f"[batch] FAILED line {lineno} ({why}): {line}",
+              file=sys.stderr)
+    if failures:
+        raise SystemExit(1)
+
+
 def main(argv: Optional[List[str]] = None):
     """Run the experiment; returns the CVResult of every configuration, or
-    the SnpsCVResult of a SNP-only family."""
+    the SnpsCVResult of a SNP-only family (for --cv_seeds / --permut_seeds
+    a list of those, one per seed; nothing for --batch_file)."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.batch_file is not None:
+        run_batch_file(args.batch_file, argv, parser)
+        return None
     if args.model not in KNOWN_MODELS:
         parser.error(f"--model {args.model!r} is unknown; the port has: "
                      f"{', '.join(KNOWN_MODELS)}")
-    for flag in NOT_PORTED_FLAGS:
-        if getattr(args, flag[2:]) is not None:
-            parser.error(f"{flag} is not ported yet (ROADMAP Queue 1 item "
-                         "13)")
+    if args.fold_parallel and args.no_fold_scan:
+        parser.error("--fold_parallel requires the whole-fold scan; drop "
+                     "--no_fold_scan")
+    if args.permut_seeds is not None:
+        # a seed batch is a permutation-test run: every downstream guard
+        # (bundle refusal, results_permuttest/, no npys) follows
+        args.isPermutTest = True
+    if args.spmd_batch_entries < 0:
+        parser.error("--spmd_batch_entries must be >= 0")
+    if args.cv_seeds is not None and (args.permut_seeds is not None
+                                      or args.isPermutTest):
+        parser.error("--cv_seeds replicates the OBSERVED experiment; run "
+                     "the permutation nulls separately (--permut_seeds)")
+    if args.cv_seeds is not None and args.isTestAdnitype:
+        parser.error("--cv_seeds does not combine with --isTestAdnitype; "
+                     "loop --seed manually for the held-out-type analysis")
     if args.cuda is not None or args.cpu:
         print("[device] --cuda/--cpu are reference-compat no-ops: the port "
               "runs where --device says (default cuda)", file=sys.stderr)
@@ -760,6 +959,9 @@ def main(argv: Optional[List[str]] = None):
             parser.error("--init_from_torch supports --model "
                          "SGCN_GCN_IMGSNP only (the one family the "
                          "reference writes checkpoints for)")
+        if args.cv_seeds is not None or args.permut_seeds is not None:
+            parser.error("--init_from_torch does not combine with the "
+                         "--cv_seeds/--permut_seeds SPMD batch paths")
         if args.isTestAdnitype:
             # the held-out-type split re-binarises the classifier head, so
             # the checkpoint's head cannot match the run's
@@ -780,12 +982,45 @@ def main(argv: Optional[List[str]] = None):
         parser.error("--clinical_score_index selects a single score; "
                      "--num_regr must be 1 (or left unset)")
     args.num_regr = regression_targets(args)
-    from iggcn_tpu_torch.data.adni import separate_data_adnitype
-    from iggcn_tpu_torch.train.cv import cross_validation
     from iggcn_tpu_torch.utils.platform import resolve_device
     device = resolve_device(args.device)
     if args.save_appendix == "":
         args.save_appendix = "_" + time.strftime("%Y%m%d%H%M%S")
+
+    if args.cv_seeds is not None:
+        seeds = parse_permut_seeds(args.cv_seeds, parser, flag="--cv_seeds")
+        return run_cv_seed_batch(args, parser, argv, seeds, device)
+    if args.permut_seeds is not None:
+        seeds = parse_permut_seeds(args.permut_seeds, parser)
+        base = args.save_appendix
+        if (args.fold_parallel and args.model in FUSION_MODELS
+                and not args.resume and not args.isTestAdnitype):
+            # the fused families under --fold_parallel: the whole
+            # seeds x folds grid trains as one batched program
+            return run_permut_batch_parallel(args, parser, argv, seeds,
+                                             device)
+        results = []
+        for i, seed in enumerate(seeds):
+            run_args = argparse.Namespace(**vars(args))
+            run_args.Seed4PermutTest = seed
+            run_args.save_appendix = f"{base}_permut{seed}"
+            print(f"[permut] null run {i + 1}/{len(seeds)} "
+                  f"(Seed4PermutTest={seed}) -> "
+                  f"results_permuttest/ADNI{run_args.save_appendix}")
+            results.append(run_experiment(run_args, parser, argv, device))
+        print(f"[permut] {len(seeds)} null runs done; p-values: "
+              f"python -m iggcn_tpu_torch.tools.report <observed_dir> "
+              f"--permut_null results_permuttest/ADNI{base}_permut*")
+        return results
+    return run_experiment(args, parser, argv, device)
+
+
+def run_experiment(args, parser, argv: Optional[List[str]],
+                   device: torch.device):
+    """One experiment of a checked command line: its results dir, then the
+    SNP-only, zoo or fused route."""
+    from iggcn_tpu_torch.data.adni import separate_data_adnitype
+    from iggcn_tpu_torch.train.cv import cross_validation
     res_dir, logger = setup_run_dir(args, argv)
     dcfg = build_dcfg(args)
     rng = np.random.default_rng(args.seed)
@@ -802,12 +1037,7 @@ def main(argv: Optional[List[str]] = None):
 
     results = []
     best = (float("inf"), 0.0, 0.0)
-    grid = combos(args)
-    if args.search and FUSION_MODELS[args.model] == "sgcn_ori":
-        # a fixed architecture: the grid would train five identical models
-        print("[search] SGCN_Ori has a fixed architecture; running one "
-              "configuration instead of the grid")
-        grid = grid[:1]
+    grid = fused_grid(args)
     warm_start = (build_warm_start(args, dcfg, topo, grid, logger)
                   if args.init_from_torch else None)
     train_cohort, external_test = cohort, None
@@ -825,8 +1055,7 @@ def main(argv: Optional[List[str]] = None):
         logger(msg)
         res = cross_validation(
             train_cohort, topo, mcfg, tcfg, res_dir=res_dir,
-            result_file_name=(f"result_sgcn_img_snp_layers{num_layers}"
-                              f"_hidden{hidden}_h{h}"),
+            result_file_name=result_file_name(num_layers, hidden, h),
             clinical_score_index=args.clinical_score_index, logger=logger,
             model_kind=FUSION_MODELS[args.model],
             external_test=external_test, export_bundle=args.export_bundle,
@@ -841,6 +1070,251 @@ def main(argv: Optional[List[str]] = None):
     print(log)
     logger(log)
     return results
+
+
+def result_file_name(num_layers: int, hidden: int, h: int) -> str:
+    """The fused families' result file stem of one configuration."""
+    return f"result_sgcn_img_snp_layers{num_layers}_hidden{hidden}_h{h}"
+
+
+def fused_grid(args) -> List[tuple]:
+    """`combos` of a fused family: one configuration for SGCN_Ori, whose
+    architecture is fixed (the grid would train five identical models)."""
+    grid = combos(args)
+    if args.search and FUSION_MODELS[args.model] == "sgcn_ori":
+        print("[search] SGCN_Ori has a fixed architecture; running one "
+              "configuration instead of the grid")
+        grid = grid[:1]
+    return grid
+
+
+def dedup_cohort(base_cohort, cohort):
+    """Alias a permutation variant's seed-invariant arrays to the first
+    seed's, so that a --permut_seeds batch keeps one copy of the large
+    arrays in host memory. Values are compared first; a field that differs
+    is kept, and the batch trainer's variant check rejects it."""
+    repl = {}
+    for f in ("x", "adj", "raw_adj", "y", "clust_y", "snps", "sbj_id",
+              "tsne_fdim", "raw_y", "adni_type"):
+        a, b = getattr(base_cohort, f, None), getattr(cohort, f, None)
+        if a is None or b is None:
+            continue
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype.kind == "f" and b.dtype.kind == "f":
+            same = a.shape == b.shape and np.array_equal(a, b,
+                                                         equal_nan=True)
+        else:
+            same = np.array_equal(a, b)
+        if same:
+            repl[f] = getattr(base_cohort, f)
+    return dataclasses.replace(cohort, **repl)
+
+
+def fused_seed_sweep(base_args, dcfg: DataConfig, seeds, loggers,
+                     run_combo) -> List[tuple]:
+    """The (layers, hidden, h) sweep of the per-seed batch routes:
+    `run_combo(mcfg, tcfg, result_file_name)` returns one CVResult per
+    seed; each seed keeps its NaN-aware best and prints and logs its
+    `Result -` line. Returns the per-seed (loss, acc, std) bests."""
+    grid = fused_grid(base_args)
+    bests = [(float("inf"), 0.0, 0.0)] * len(seeds)
+    best_hypers = [grid[0]] * len(seeds)
+    for num_layers, hidden, h in grid:
+        mcfg, tcfg = fused_cfgs(base_args, dcfg, num_layers, hidden)
+        msg = f"Using {num_layers} layers, {hidden} hidden units, h = {h}"
+        print(msg)
+        for logger in loggers:
+            logger(msg)
+        results = run_combo(mcfg, tcfg, result_file_name(num_layers, hidden,
+                                                         h))
+        for i, res in enumerate(results):
+            print(f"[throughput] seed {seeds[i]}: "
+                  f"{res.throughput_graphs_per_sec:.1f} graphs/s")
+            if improves(res.mean_test_loss, bests[i][0]):
+                bests[i] = (res.mean_test_loss, res.best_acc,
+                            res.best_acc_std)
+                best_hypers[i] = (num_layers, hidden, h)
+    for i in range(len(seeds)):
+        log = (f"Result - {bests[i][1]:.3f} +/- {bests[i][2]:.3f}, with "
+               f"{best_hypers[i][0]} layers and {best_hypers[i][1]} hidden "
+               f"units and h = {best_hypers[i][2]}")
+        print(log)
+        loggers[i](log)
+    return bests
+
+
+def run_permut_batch_parallel(base_args, parser, argv, seeds, device):
+    """`--permut_seeds --fold_parallel` for a fused family: every seed's
+    permuted cohort is loaded (its own results dir under
+    results_permuttest/), and all seeds x folds entries train as one
+    batched program per chunk of `--spmd_batch_entries`
+    (`cv.cross_validation_permut_batch`). Returns the per-seed bests."""
+    from iggcn_tpu_torch.train.cv import cross_validation_permut_batch
+    base = base_args.save_appendix
+    res_dirs, loggers, variants = [], [], []
+    topo = None
+    for i, seed in enumerate(seeds):
+        a = argparse.Namespace(**vars(base_args))
+        a.Seed4PermutTest = seed
+        a.save_appendix = f"{base}_permut{seed}"
+        res_dir, logger = setup_run_dir(a, argv)
+        print(f"[permut] loading null {i + 1}/{len(seeds)} "
+              f"(Seed4PermutTest={seed}) -> "
+              f"results_permuttest/ADNI{a.save_appendix}")
+        cohort, topo = load_cohort(a, build_dcfg(a),
+                                   np.random.default_rng(a.seed))
+        if variants:
+            cohort = dedup_cohort(variants[0][1], cohort)
+        res_dirs.append(res_dir)
+        loggers.append(logger)
+        variants.append((seed, cohort))
+    dcfg = build_dcfg(base_args)
+    kind = FUSION_MODELS[base_args.model]
+    chunks, per_chunk = seed_chunks(seeds, base_args.fold,
+                                    base_args.spmd_batch_entries)
+    if len(chunks) > 1:
+        print(f"[permut] {len(seeds)} seeds x {base_args.fold} folds "
+              f"exceeds --spmd_batch_entries {base_args.spmd_batch_entries}; "
+              f"running {len(chunks)} batched programs of <= {per_chunk} "
+              "seeds")
+
+    def run_combo(mcfg, tcfg, name):
+        results = []
+        for ch in chunks:
+            results.extend(cross_validation_permut_batch(
+                variants[ch], topo, mcfg, tcfg, res_dirs=res_dirs[ch],
+                result_file_name=name,
+                clinical_score_index=base_args.clinical_score_index,
+                loggers=loggers[ch], model_kind=kind, device=device))
+        return results
+
+    bests = fused_seed_sweep(base_args, dcfg, seeds, loggers, run_combo)
+    print(f"[permut] {len(seeds)} null runs done (one batched program per "
+          f"configuration); p-values: python -m iggcn_tpu_torch.tools.report "
+          f"<observed_dir> --permut_null "
+          f"results_permuttest/ADNI{base}_permut*")
+    return bests
+
+
+def run_cv_seed_batch(base_args, parser, argv, seeds, device):
+    """`--cv_seeds`: the same experiment over CV seeds on one cohort drawn
+    from --seed; each seed redraws the splits, per-fold imputation, inits
+    and shuffling. The fused families train all seeds x folds entries as
+    one batched program per chunk under --fold_parallel
+    (`cv.cross_validation_seed_batch`), else one seed after the other
+    (which --resume resumes); the zoo and SNP-only families always run
+    one seed after the other. Ends with the `Replication over N seeds`
+    line. Returns the per-seed bests."""
+    if base_args.model not in FUSION_MODELS:
+        return run_cv_seed_batch_other(base_args, parser, argv, seeds, device)
+    from iggcn_tpu_torch.train.cv import (cross_validation,
+                                          cross_validation_seed_batch)
+    base = base_args.save_appendix
+    res_dirs, loggers = [], []
+    for seed in seeds:
+        a = argparse.Namespace(**vars(base_args))
+        a.seed = seed
+        a.save_appendix = f"{base}_seed{seed}"
+        res_dir, logger = setup_run_dir(a, argv)
+        res_dirs.append(res_dir)
+        loggers.append(logger)
+    # one cohort for every seed, drawn from the base --seed: the analysis
+    # seed varies on fixed data
+    dcfg = build_dcfg(base_args)
+    cohort, topo = load_cohort(base_args, dcfg,
+                               np.random.default_rng(base_args.seed))
+    kind = FUSION_MODELS[base_args.model]
+    batched = base_args.fold_parallel and not base_args.resume
+    if base_args.fold_parallel and base_args.resume:
+        print("[cv_seeds] --resume resumes seed-by-seed; running the seeds "
+              "sequentially instead of as one SPMD batch")
+    chunks, per_chunk = seed_chunks(seeds, base_args.fold,
+                                    base_args.spmd_batch_entries)
+    if batched and len(chunks) > 1:
+        print(f"[cv_seeds] {len(seeds)} seeds x {base_args.fold} folds "
+              f"exceeds --spmd_batch_entries {base_args.spmd_batch_entries};"
+              f" running {len(chunks)} batched programs of <= {per_chunk} "
+              "seeds")
+
+    def run_combo(mcfg, tcfg, name):
+        if batched:
+            results = []
+            for ch in chunks:
+                results.extend(cross_validation_seed_batch(
+                    cohort, seeds[ch], topo, mcfg, tcfg,
+                    res_dirs=res_dirs[ch], result_file_name=name,
+                    clinical_score_index=base_args.clinical_score_index,
+                    loggers=loggers[ch], model_kind=kind,
+                    export_bundle=base_args.export_bundle, device=device))
+            return results
+        return [cross_validation(
+            cohort, topo, mcfg, dataclasses.replace(tcfg, seed=seed),
+            res_dir=res_dirs[i], result_file_name=name,
+            clinical_score_index=base_args.clinical_score_index,
+            logger=loggers[i], model_kind=kind,
+            export_bundle=base_args.export_bundle, resume=base_args.resume,
+            device=device)
+            for i, seed in enumerate(seeds)]
+
+    bests = fused_seed_sweep(base_args, dcfg, seeds, loggers, run_combo)
+    replication_summary(seeds, [b[1] for b in bests], loggers, base)
+    return bests
+
+
+def replication_summary(seeds, accs, loggers, base: str) -> None:
+    """The across-seed `Replication over N seeds` line, printed and logged
+    to every seed's dir, then the report command that aggregates them."""
+    seed_accs = np.asarray(accs, dtype=np.float64)
+    summary = (f"Replication over {len(seeds)} seeds - acc "
+               f"{seed_accs.mean():.3f} +/- "
+               f"{seed_accs.std(ddof=1) if len(seeds) > 1 else 0.0:.3f} "
+               f"(per-seed: "
+               + ", ".join(f"{s}:{a:.3f}" for s, a in zip(seeds, seed_accs))
+               + ")")
+    print(summary)
+    for logger in loggers:
+        logger(summary)
+    print(f"[cv_seeds] aggregate across seeds with: "
+          f"python -m iggcn_tpu_torch.tools.report results/ADNI{base}_seed*")
+
+
+def run_cv_seed_batch_other(base_args, parser, argv, seeds, device):
+    """`--cv_seeds` for the zoo and SNP-only families: one seed after the
+    other in this process, on one dataset drawn from the base --seed; each
+    seed redraws the splits, inits and shuffling through the trainer's own
+    seed. Returns the per-seed best accuracies."""
+    if base_args.fold_parallel:
+        print("[cv_seeds] --fold_parallel is a fused-family SPMD path; "
+              f"--model {base_args.model} replicates sequentially")
+    base = base_args.save_appendix
+    dcfg = build_dcfg(base_args)
+    rng = np.random.default_rng(base_args.seed)
+    if base_args.model in ZOO_MODELS:
+        data = zoo_dataset(base_args, dcfg, rng)
+    else:
+        data = snps_inputs(base_args, parser, dcfg, rng)
+    accs, loggers = [], []
+    for i, seed in enumerate(seeds):
+        a = argparse.Namespace(**vars(base_args))
+        a.seed = seed
+        a.save_appendix = f"{base}_seed{seed}"
+        res_dir, logger = setup_run_dir(a, argv)
+        print(f"[cv_seeds] replication {i + 1}/{len(seeds)} "
+              f"(seed {seed}) -> results/ADNI{a.save_appendix}")
+        if base_args.model in ZOO_MODELS:
+            results = run_zoo_experiment(a, res_dir, logger, data,
+                                         combos(a), device)
+            best = (float("inf"), 0.0)
+            for res in results:
+                if improves(res.mean_loss, best[0]):
+                    best = (res.mean_loss, res.best_acc)
+            accs.append(best[1])
+        else:
+            accs.append(run_snps_experiment(a, res_dir, logger, *data,
+                                            device).best_acc)
+        loggers.append(logger)
+    replication_summary(seeds, accs, loggers, base)
+    return accs
 
 
 if __name__ == "__main__":

@@ -23,8 +23,9 @@ from torch import nn
 from iggcn_tpu_torch.config import ModelConfig
 from iggcn_tpu_torch.data.go_graph import GoTopology
 from iggcn_tpu_torch.models.go_network import GeneOntologyNetwork, PReLU
-from iggcn_tpu_torch.models.nn_compat import (BatchNorm1d, TorchLinear,
-                                              dropout, uniform)
+from iggcn_tpu_torch.models.nn_compat import (BatchNorm1d, NoiseSource,
+                                              TorchLinear, dropout, uniform,
+                                              uniform_noise)
 
 
 class GuideOutputs(NamedTuple):
@@ -39,15 +40,15 @@ class GuideOutputs(NamedTuple):
     imp_prob: torch.Tensor          # (rois * F0,) keep probabilities
 
 
-def gumbel_noise(shape, generator: torch.Generator | None,
+def gumbel_noise(shape, generator: torch.Generator | NoiseSource | None,
                  device: torch.device) -> torch.Tensor:
     """Standard Gumbel samples -log(-log U), U ~ U(0, 1), from an explicit
-    generator on `device`."""
+    generator on `device` (or the next draw of a `NoiseSource`)."""
     if generator is None:
         raise ValueError("train-mode Gumbel noise draws from an explicit "
                          "torch.Generator: pass generator= (on the inputs' "
                          "device), or set gumbel_zero")
-    u = torch.rand(shape, generator=generator, device=device)
+    u = uniform_noise(shape, generator, device)
     tiny = torch.finfo(u.dtype).tiny
     return -torch.log(-torch.log(u.clamp(min=tiny)))
 

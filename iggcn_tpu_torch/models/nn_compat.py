@@ -15,7 +15,12 @@ to carry weights across in both directions:
   * `NodeLayerNorm`: LayerNorm over the node axis of (B, N, F) with a
     per-node affine.
   * `dropout` / `node_dropout`: elementwise and Dropout2d-style (whole node
-    rows of a (B, N, F) tensor) dropout from an explicit generator.
+    rows of a (B, N, F) tensor) dropout from an explicit generator, or
+    from a `NoiseSource` of uniforms drawn beforehand (the fold-parallel
+    trainer draws each fold's from that fold's own generator, in the
+    order the sequential forward would, and hands them in stacked under
+    `torch.func.vmap`, where a generator cannot give each fold its own
+    stream). `ShapeRecorder` records the draws' shapes once.
   * `add_gat_params` / `gat_layer`: the per-layer leaves of the dense GAT
     stack (`ops/gat.py`) under the flax names `gat_*_{i}`.
 
@@ -206,36 +211,79 @@ class NodeLayerNorm(nn.Module):
         return y * self.scale[None, :, None] + self.bias[None, :, None]
 
 
-def _check_generator(generator, x: torch.Tensor) -> None:
+class NoiseSource:
+    """Uniforms drawn beforehand, handed to the random sites of a forward
+    in the order they draw (`uniform_noise`); used in place of a
+    generator. Each draw must have the shape that site asks for."""
+
+    def __init__(self, draws):
+        self._draws = list(draws)
+        self._next = 0
+
+    def take(self, shape) -> torch.Tensor:
+        if self._next >= len(self._draws):
+            raise ValueError(f"the forward drew more than the "
+                             f"{len(self._draws)} noise tensors given")
+        u = self._draws[self._next]
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"noise draw {self._next} has shape "
+                             f"{tuple(u.shape)}; the site asks for "
+                             f"{tuple(shape)}")
+        self._next += 1
+        return u
+
+    def done(self) -> bool:
+        return self._next == len(self._draws)
+
+
+class ShapeRecorder(NoiseSource):
+    """A noise source that records the shape of every draw (and returns
+    uniforms from a throwaway generator): one forward with it lists the
+    draws a forward of that model and batch shape makes."""
+
+    def __init__(self):
+        super().__init__(())
+        self.shapes = []
+        self._gen = torch.Generator().manual_seed(0)
+
+    def take(self, shape) -> torch.Tensor:
+        self.shapes.append(tuple(int(d) for d in shape))
+        return torch.rand(tuple(shape), generator=self._gen)
+
+
+def uniform_noise(shape, generator, device) -> torch.Tensor:
+    """U(0, 1) of `shape`: the next draw of a `NoiseSource`, or drawn from
+    an explicit torch.Generator on `device`."""
+    if isinstance(generator, NoiseSource):
+        return generator.take(shape)
     if generator is None:
         raise ValueError("train-mode dropout draws from an explicit "
                          "torch.Generator: pass generator= (on the inputs' "
                          "device), or set the dropout rates to 0")
-    if generator.device.type != x.device.type:
+    if generator.device.type != torch.device(device).type:
         raise ValueError(f"dropout generator is on {generator.device}, the "
-                         f"input on {x.device}")
+                         f"input on {device}")
+    return torch.rand(tuple(shape), generator=generator, device=device)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None
-            ) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | NoiseSource | None) -> torch.Tensor:
     """Elementwise dropout: zero each entry with probability `rate`, scale
     the kept ones by 1 / (1 - rate). Draws nothing at rate 0."""
     if rate == 0.0:
         return x
-    _check_generator(generator, x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = uniform_noise(x.shape, generator, x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), device=x.device))
 
 
 def node_dropout(x: torch.Tensor, rate: float,
-                 generator: torch.Generator | None) -> torch.Tensor:
+                 generator: torch.Generator | NoiseSource | None
+                 ) -> torch.Tensor:
     """Dropout2d on (B, N, F): zero whole node rows with probability `rate`,
     scale the kept rows by 1 / (1 - rate). Draws nothing at rate 0."""
     if rate == 0.0:
         return x
-    _check_generator(generator, x)
-    keep = torch.rand(x.shape[:2] + (1,), generator=generator,
-                      device=x.device) >= rate
+    keep = uniform_noise(x.shape[:2] + (1,), generator, x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), device=x.device))
 
 

@@ -15,6 +15,15 @@ Dispatch is by device, with no switch and no fallback: on CUDA tensors
 `gcn_stack_reference`. The backward is autograd through
 `gcn_stack_reference`, a recompute, exactly as the JAX custom VJP did; the
 JAX package has no backward kernel and neither does the port.
+
+Under `torch.func.vmap` over a fold axis (the fold-parallel trainer, the
+counterpart of the JAX package's vmapped fold program, where the
+`pallas_call` is batched with per-fold weights) the wrapper's vmap rule
+merges the fold and sample axes and runs the grouped form once: F folds
+of B samples in one launch, sample s reading weight set s // B (an
+operand without the fold axis is broadcast with a stride of 0). Its plain
+version, `gcn_stack_reference_grouped`, is the CPU path and the kernel's
+yardstick on the card.
 """
 from __future__ import annotations
 
@@ -42,6 +51,27 @@ def gcn_stack_reference(prop: torch.Tensor, x: torch.Tensor,
         h = torch.relu(prop @ (h @ w) + b)
         feats.append(h)
     return torch.cat(feats, dim=-1)
+
+
+def gcn_stack_reference_grouped(prop: torch.Tensor, x: torch.Tensor,
+                                weights: Sequence[torch.Tensor],
+                                biases: Sequence[torch.Tensor]
+                                ) -> torch.Tensor:
+    """Plain version of the grouped form: prop (G*B, N, N), x (G*B, N, F0),
+    weights[l] (G, F_l, H_l), biases[l] (G, H_l); sample s uses weight set
+    s // B. Returns (G*B, N, sum(H_l)), the per-group
+    `gcn_stack_reference` results stacked."""
+    g = weights[0].shape[0]
+    s, n, _ = prop.shape
+    p = prop.reshape(g, s // g, n, n)
+    h = x.reshape(g, s // g, n, x.shape[-1])
+    feats = []
+    for w, b in zip(weights, biases):
+        h = torch.relu(p @ torch.einsum("gbnf,gfh->gbnh", h, w)
+                       + b[:, None, None, :])
+        feats.append(h)
+    return torch.cat(feats, dim=-1).reshape(s, n, sum(w.shape[-1]
+                                                        for w in weights))
 
 
 # Hopper limits the plan is held to: 227 KB of dynamic shared memory per
@@ -160,17 +190,19 @@ class _CPlan(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "n", "num_layers", "cluster", "rows", "ksplit", "kpad", "threads",
         "smem_bytes", "ps", "n8", "hs", "hws", "hts", "total",
-        "p_transposed", "copy_bulk",
+        "p_transposed", "copy_bulk", "group",
         "off_part", "off_hw", "off_h", "off_o")] + [
             (name, ctypes.c_int * size) for name, size in (
                 ("dims", MAX_LAYERS + 1), ("fout_p", MAX_LAYERS),
                 ("off_w", MAX_LAYERS), ("off_b", MAX_LAYERS),
-                ("out_off", MAX_LAYERS))]
+                ("out_off", MAX_LAYERS), ("w_stride", MAX_LAYERS),
+                ("b_stride", MAX_LAYERS))]
 
 
 @functools.lru_cache(maxsize=64)
 def _c_plan(plan: LaunchPlan, n: int, dims: Tuple[int, ...], transposed: bool,
-            bulk: bool) -> _CPlan:
+            bulk: bool, group: int, w_strides: Tuple[int, ...],
+            b_strides: Tuple[int, ...]) -> _CPlan:
     def ints(values, size=MAX_LAYERS):
         return (ctypes.c_int * size)(*values)
     return _CPlan(
@@ -178,12 +210,13 @@ def _c_plan(plan: LaunchPlan, n: int, dims: Tuple[int, ...], transposed: bool,
         ksplit=plan.ksplit, kpad=plan.kpad, threads=plan.threads,
         smem_bytes=plan.smem_bytes, ps=plan.ps, n8=plan.n8, hs=plan.hs,
         hws=plan.hws, hts=plan.hts, total=sum(dims[1:]),
-        p_transposed=int(transposed), copy_bulk=int(bulk),
+        p_transposed=int(transposed), copy_bulk=int(bulk), group=group,
         off_part=plan.off_part, off_hw=plan.off_hw, off_h=plan.off_h,
         off_o=plan.off_o, dims=ints(dims, MAX_LAYERS + 1),
         fout_p=ints(plan.fout_p), off_w=ints(plan.off_w),
         off_b=ints(plan.off_b),
-        out_off=ints([sum(dims[1:1 + i]) for i in range(len(dims) - 1)]))
+        out_off=ints([sum(dims[1:1 + i]) for i in range(len(dims) - 1)]),
+        w_stride=ints(w_strides), b_stride=ints(b_strides))
 
 
 def _bulk_copyable(prop: torch.Tensor, plan: LaunchPlan) -> bool:
@@ -240,9 +273,18 @@ def _prop_transposed(prop: torch.Tensor) -> bool:
                      f"{tuple(prop.shape)}")
 
 
+def _weight_sets(weights) -> int:
+    """The number of weight sets G of the grouped form (weights
+    (G, F_l, H_l)); 0 for shared weights (F_l, H_l)."""
+    return int(weights[0].shape[0]) if weights[0].dim() == 3 else 0
+
+
 def _check_inputs(prop, x, weights, biases) -> Tuple[List[int], bool]:
     """Raise on anything the kernel does not take; return the layer widths
-    (F0, H_1, ..., H_L) and whether P is transposed in memory."""
+    (F0, H_1, ..., H_L) and whether P is transposed in memory. Weights are
+    shared, (F_l, H_l) and (H_l,), or grouped: every weight (G, F_l, H_l)
+    and every bias (G, H_l), each set contiguous, any stride between sets
+    (0 included), and G dividing B."""
     if prop.dim() != 3 or prop.shape[1] != prop.shape[2]:
         raise ValueError(f"prop must be (B, N, N); got {tuple(prop.shape)}")
     b, n, _ = prop.shape
@@ -252,27 +294,38 @@ def _check_inputs(prop, x, weights, biases) -> Tuple[List[int], bool]:
     if not 1 <= len(weights) <= MAX_LAYERS or len(biases) != len(weights):
         raise ValueError(f"need 1..{MAX_LAYERS} layers with one bias each; "
                          f"got {len(weights)} weights, {len(biases)} biases")
+    groups = _weight_sets(weights)
+    lead = (groups,) if groups else ()
+    if groups and b % groups:
+        raise ValueError(f"{b} samples do not split into {groups} weight "
+                         "sets")
     dims = [int(x.shape[2])]
     for i, (w, bb) in enumerate(zip(weights, biases)):
-        if w.dim() != 2 or w.shape[0] != dims[-1] or bb.shape != w.shape[1:]:
+        if (w.dim() != 2 + len(lead) or tuple(w.shape[:-2]) != lead
+                or w.shape[-2] != dims[-1]
+                or tuple(bb.shape) != lead + (w.shape[-1],)):
             raise ValueError(f"layer {i}: weight {tuple(w.shape)} / bias "
                              f"{tuple(bb.shape)} do not chain from width "
-                             f"{dims[-1]}")
-        dims.append(int(w.shape[1]))
+                             f"{dims[-1]}" + (f" in {groups} sets" if groups
+                                              else ""))
+        dims.append(int(w.shape[-1]))
     for name, t in [("prop", prop), ("x", x), *(("weight", w) for w in weights),
                     *(("bias", bb) for bb in biases)]:
         if t.device != prop.device:
             raise ValueError(f"{name} is on {t.device}, prop on {prop.device}")
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32; got {t.dtype}")
-        if name != "prop" and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        one_set = t[0] if groups and name in ("weight", "bias") else t
+        if name != "prop" and not one_set.is_contiguous():
+            raise ValueError(f"{name} must be contiguous" + (
+                " within each weight set" if one_set is not t else ""))
     return dims, _prop_transposed(prop)
 
 
 def _launch(prop, x, weights, biases) -> torch.Tensor:
     """Run the CUDA kernel on PyTorch's current stream; no synchronisation."""
     dims, transposed = _check_inputs(prop, x, weights, biases)
+    groups = _weight_sets(weights)
     b, n, _ = prop.shape
     index = (prop.device.index if prop.device.index is not None
              else torch.cuda.current_device())
@@ -281,10 +334,16 @@ def _launch(prop, x, weights, biases) -> torch.Tensor:
                       dtype=torch.float32)
     if b == 0:
         return out
-    c_plan = _c_plan(plan, n, tuple(dims), transposed,
-                     transposed and _bulk_copyable(prop, plan))
-    lib = _library()
     layers = len(weights)
+    # shared weights: one set, strides 0, so one code path takes both forms
+    w_strides = tuple(w.stride(0) if groups else 0 for w in weights)
+    b_strides = tuple(bb.stride(0) if groups else 0 for bb in biases)
+    c_plan = _c_plan(plan, n, tuple(dims), transposed,
+                     transposed and _bulk_copyable(prop, plan),
+                     b // groups if groups else b,
+                     w_strides + (0,) * (MAX_LAYERS - layers),
+                     b_strides + (0,) * (MAX_LAYERS - layers))
+    lib = _library()
     code = lib.gcn_stack_forward(
         ctypes.byref(c_plan), prop.data_ptr(), prop.stride(0), x.data_ptr(),
         (ctypes.c_void_p * layers)(*(w.data_ptr() for w in weights)),
@@ -298,21 +357,43 @@ def _launch(prop, x, weights, biases) -> torch.Tensor:
     return out
 
 
+def _plain(prop, x, weights, biases) -> torch.Tensor:
+    """The plain version of either form: grouped when the weights are 3-D."""
+    if _weight_sets(weights):
+        return gcn_stack_reference_grouped(prop, x, weights, biases)
+    return gcn_stack_reference(prop, x, weights, biases)
+
+
+def _to_front(t: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """`t` with its vmapped dim first; an operand without one is broadcast
+    over the `size` folds with a stride of 0 (a view, nothing copied)."""
+    if dim is None:
+        return t.expand(size, *t.shape)
+    return t.movedim(dim, 0)
+
+
 class _GcnStack(torch.autograd.Function):
-    """Forward: the kernel on CUDA, the plain version on the CPU. Backward:
-    autograd of the plain version on the saved inputs (a recompute)."""
+    """Forward: the kernel on CUDA, the plain version on the CPU; weights
+    (F_l, H_l) shared by every sample, or the grouped form (G, F_l, H_l).
+    Backward: autograd of the plain version on the saved inputs (a
+    recompute). Under `torch.func.vmap` the `vmap` rule below runs the
+    grouped form once for every fold."""
 
     @staticmethod
-    def forward(ctx, prop, x, num_layers, *params):
+    def forward(prop, x, num_layers, *params):
         weights, biases = params[:num_layers], params[num_layers:]
-        ctx.num_layers = num_layers
-        ctx.save_for_backward(prop, x, *params)
         if prop.device.type == "cuda":
             return _launch(prop, x, weights, biases)
         if prop.device.type == "cpu":
-            return gcn_stack_reference(prop, x, weights, biases)
+            return _plain(prop, x, weights, biases)
         raise ValueError(f"fused_gcn_stack runs on cuda or cpu tensors, not "
                          f"{prop.device}")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        prop, x, num_layers, *params = inputs
+        ctx.num_layers = num_layers
+        ctx.save_for_backward(prop, x, *params)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -322,11 +403,29 @@ class _GcnStack(torch.autograd.Function):
         prop, x, *params = saved
         nl = ctx.num_layers
         with torch.enable_grad():
-            out = gcn_stack_reference(prop, x, params[:nl], params[nl:])
+            out = _plain(prop, x, params[:nl], params[nl:])
             wanted = [t for t in saved if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, grad_out))
         full = [next(grads) if t.requires_grad else None for t in saved]
         return (full[0], full[1], None, *full[2:])
+
+    @staticmethod
+    def vmap(info, in_dims, prop, x, num_layers, *params):
+        """F folds of B samples each as one grouped call: the fold and
+        sample axes merged (P stays a view in its layout where the merge
+        allows, else it is copied row-major, a layout the kernel takes),
+        every weight and bias with the fold axis first, then the output
+        split back into (F, B, N, sum H)."""
+        f = info.batch_size
+        prop_f = _to_front(prop, in_dims[0], f)
+        x_f = _to_front(x, in_dims[1], f)
+        b, n = prop_f.shape[1], prop_f.shape[2]
+        merged_prop = prop_f.reshape(f * b, n, n)
+        merged_x = x_f.reshape(f * b, n, x_f.shape[-1]).contiguous()
+        grouped = [_to_front(t, d, f)
+                   for t, d in zip(params, in_dims[3:])]
+        out = _GcnStack.apply(merged_prop, merged_x, num_layers, *grouped)
+        return out.reshape(f, b, n, out.shape[-1]), 0
 
 
 def fused_gcn_stack(prop: torch.Tensor, x: torch.Tensor,
@@ -337,7 +436,10 @@ def fused_gcn_stack(prop: torch.Tensor, x: torch.Tensor,
     prop: (B, N, N) propagation matrix, row-major or in the transposed
     layout `gcn_propagation_matrix` returns; x: (B, N, F0);
     weights[l]: (F_l, H_l) in the JAX layout; biases[l]: (H_l,). Returns
-    (B, N, sum H_l). `fused_gcn_stack.launches` counts kernel launches.
+    (B, N, sum H_l). The grouped form takes weights[l] (G, F_l, H_l) and
+    biases[l] (G, H_l), sample s reading set s // (B / G); `torch.func.vmap`
+    of this function over a fold axis calls it once for all folds.
+    `fused_gcn_stack.launches` counts kernel launches.
     """
     return _GcnStack.apply(prop, x, len(weights), *weights, *biases)
 

@@ -33,8 +33,17 @@ imputed per fold from its own demographics against the fold's train
 rows, and its subject ids go into the artifacts. A permutation-test run
 (`tcfg.is_permut_test`) keeps each fold's last epoch, not its best, and
 writes no checkpoint, bundle or npy artifact, only the fold records, as
-the JAX package does. `fold_parallel` (all folds as one batched program)
-is not ported yet and is refused.
+the JAX package does.
+
+With `tcfg.fold_parallel` all folds train as one batched program
+(`fold_parallel.run_folds_parallel`), and each fold's outputs then go
+through the same per-fold post-processing as a sequential fold's: epoch
+lines, metrics, checkpoint, bundle, record, npy artifacts. A resume
+under it restores a complete set of saved folds; a partial set is
+retrained whole. `cross_validation_seed_batch` (one cohort, S CV seeds)
+and `cross_validation_permut_batch` (S permutation nulls) train all
+S x k fold entries as one such program and replay each seed's
+post-processing through `cross_validation`.
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ from iggcn_tpu_torch.tools.serve import save_bundle
 from iggcn_tpu_torch.train import artifacts, metrics
 from iggcn_tpu_torch.train.checkpoint import save_checkpoint
 from iggcn_tpu_torch.train.fold_loop import fold_perms, run_fold
+from iggcn_tpu_torch.train.fold_parallel import run_folds_parallel
 from iggcn_tpu_torch.train.records import config_fingerprint
 from iggcn_tpu_torch.train.steps import OBJECTIVES, TrainState
 from iggcn_tpu_torch.utils.platform import resolve_device
@@ -252,6 +262,29 @@ def write_fold_record(path: str, **arrays) -> None:
     os.replace(tmp, path)
 
 
+def fold_parallel_runs(entries: List[Dict[str, Any]], topo: GoTopology,
+                       mcfg: ModelConfig, tcfg: TrainConfig, kind: str,
+                       device: torch.device, warm_start=None
+                       ) -> List[Dict[str, Any]]:
+    """Train every fold entry at once (`run_folds_parallel`). An entry is
+    {"p": `prepare_fold`'s data, "seed": its init seed, "fold": its fold};
+    each gets back "per_epoch", "best", "model" (its final weights) and
+    "seconds" (its share of the run's wall time)."""
+    inits = [init_fold_model(mcfg, topo, e["seed"], e["fold"], device,
+                             warm_start, kind) for e in entries]
+    models = [m for m, _ in inits]
+    ps = [e["p"] for e in entries]
+    per_epoch, best, seconds = run_folds_parallel(
+        models, [g for _, g in inits], [p["train_data"] for p in ps],
+        None if tcfg.no_val else [p["val_data"] for p in ps],
+        [p["test_data"] for p in ps], [p["perms"] for p in ps],
+        [p["train_data"]["y"].shape[0] // tcfg.batch_size for p in ps],
+        mcfg, tcfg, kind)
+    return [{**e, "per_epoch": pe, "best": b, "model": m,
+             "seconds": seconds / len(entries)}
+            for e, pe, b, m in zip(entries, per_epoch, best, models)]
+
+
 def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
                      tcfg: TrainConfig, *,
                      res_dir: Optional[str] = None,
@@ -264,21 +297,22 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
                      export_bundle: bool = False,
                      resume: bool = False,
                      warm_start=None,
-                     device: str | torch.device | None = None) -> CVResult:
+                     device: str | torch.device | None = None,
+                     trained: Optional[List[Dict[str, Any]]] = None
+                     ) -> CVResult:
     """Run the CV experiment on `device` (default: the card). `warm_start`
     = (params, batch_stats, tag) flax trees start every fold (the
     optimiser state starts fresh). `external_test` is a held-out cohort
     that every fold tests on instead of its test split. With `res_dir`,
     every fold writes its checkpoint and record (and with `export_bundle`
     its serving bundle); `resume` restores the folds whose record matches
-    this run."""
+    this run. `tcfg.fold_parallel` trains the folds as one batched
+    program. `trained`: the folds already trained by a seed or
+    permutation batch (`fold_parallel_runs`' entries, one per fold), which
+    only go through the post-processing (the JAX package's `_injected`)."""
     if model_kind not in MODEL_FAMILIES:
         raise ValueError(f"unknown model_kind {model_kind}; "
                          f"one of {sorted(MODEL_FAMILIES)}")
-    if tcfg.fold_parallel:
-        raise NotImplementedError(
-            "fold_parallel is not ported yet (ROADMAP Queue 1 item 13); the "
-            "port's CV trains the folds one after the other")
     dev = resolve_device(device)
     if clinical_score_index is None:
         clinical_score_index = tcfg.clinical_score_index
@@ -301,6 +335,23 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         done_folds = load_fold_records(
             [fold_file("fold_result", f, "npz") for f in range(tcfg.folds)],
             want_meta)
+        if done_folds and tcfg.fold_parallel and len(done_folds) < tcfg.folds:
+            print(f"[resume] fold_parallel trains all folds in one program; "
+                  f"{len(done_folds)}/{tcfg.folds} saved folds is not a "
+                  "complete set — retraining everything (drop "
+                  "--fold_parallel to resume fold-by-fold)")
+            done_folds = {}
+
+    runs: Dict[int, Dict[str, Any]] = {}
+    if trained is not None:
+        runs = dict(enumerate(trained))
+    elif tcfg.fold_parallel and len(done_folds) < tcfg.folds:
+        entries = [{"p": prepare_fold(cohort, full, split, fold, tcfg,
+                                      clinical_score_index, external_test),
+                    "seed": tcfg.seed, "fold": fold}
+                   for fold, split in enumerate(splits)]
+        runs = dict(enumerate(fold_parallel_runs(
+            entries, topo, mcfg, tcfg, model_kind, dev, warm_start)))
 
     all_score_results, test_losses, accs, durations = [], [], [], []
     best_parts: Dict[str, List[np.ndarray]] = {k: [] for k in FOLD_PARTS}
@@ -328,8 +379,10 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
             if logger is not None:
                 logger(msg)
             continue
-        p = prepare_fold(cohort, full, split, fold, tcfg, clinical_score_index,
-                         external_test)
+        run = runs.get(fold)
+        p = run["p"] if run is not None else prepare_fold(
+            cohort, full, split, fold, tcfg, clinical_score_index,
+            external_test)
         n_train, n_test, n_val = p["n_train"], p["n_test"], p["n_val"]
         t_start = time.perf_counter()
         wmask = p["test_data"]["w"] > 0
@@ -365,29 +418,40 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
                 if logger is not None:
                     logger(msg)
 
-        model, generator = init_fold_model(mcfg, topo, tcfg.seed, fold, dev,
-                                           warm_start, model_kind)
-        state = TrainState(model, tcfg,
-                           p["train_data"]["y"].shape[0] // tcfg.batch_size,
-                           model_kind)
-        per_epoch, best, state = run_fold(
-            state, to_device(p["train_data"], dev), to_device(p["val_data"], dev),
-            to_device(p["test_data"], dev), p["perms"], mcfg, tcfg, generator,
-            on_epoch)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        durations.append(time.perf_counter() - t_start)
+        if run is not None:
+            # trained with the other folds in one batched program: its
+            # epoch records go through the same lines and metrics
+            per_epoch, best, model = run["per_epoch"], run["best"], run["model"]
+            for epoch in range(per_epoch["train_loss_sum"].shape[0]):
+                on_epoch(epoch + 1, {k: v[epoch] for k, v in per_epoch.items()})
+            durations.append(run["seconds"])
+            # the batched run's one-time costs are not split out, as the
+            # JAX package counts its fold-parallel execution whole
+            fold_cold.append(False)
+        else:
+            model, generator = init_fold_model(mcfg, topo, tcfg.seed, fold,
+                                               dev, warm_start, model_kind)
+            state = TrainState(model, tcfg, p["train_data"]["y"].shape[0]
+                               // tcfg.batch_size, model_kind)
+            per_epoch, best, state = run_fold(
+                state, to_device(p["train_data"], dev),
+                to_device(p["val_data"], dev), to_device(p["test_data"], dev),
+                p["perms"], mcfg, tcfg, generator, on_epoch)
+            model = state.model
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            durations.append(time.perf_counter() - t_start)
+            # the first fold of each new set of split sizes pays the
+            # one-time costs (kernel build, allocator and library warm-up):
+            # it is left out of the steady-state throughput, as the JAX
+            # package leaves out folds that compile
+            shape_key = tuple(p[k]["y"].shape[0] for k in ("train_data",
+                                                           "test_data"))
+            shape_key += (p["val_data"]["y"].shape[0] if use_val
+                          else shape_key[1],)
+            fold_cold.append(shape_key not in seen_shapes)
+            seen_shapes.add(shape_key)
         fold_graphs.append(n_train * tcfg.epochs)
-        # the first fold of each new set of split sizes pays the one-time
-        # costs (kernel build, allocator and library warm-up): it is left
-        # out of the steady-state throughput, as the JAX package leaves out
-        # folds that compile
-        shape_key = tuple(p[k]["y"].shape[0] for k in ("train_data",
-                                                       "test_data"))
-        shape_key += (p["val_data"]["y"].shape[0] if use_val
-                      else shape_key[1],)
-        fold_cold.append(shape_key not in seen_shapes)
-        seen_shapes.add(shape_key)
         test_losses.extend(fold_test_losses)
         accs.extend(fold_accs)
         all_score_results.append(score_result_epoch)
@@ -412,15 +476,14 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
 
         if res_dir is not None:
             if not permut:
-                best_vars = to_flax_variables(state.model, best["state"])
+                best_vars = to_flax_variables(model, best["state"])
                 save_checkpoint(fold_file("gcn_state_dict", fold, "msgpack"),
                                 best_vars["params"], best_vars["batch_stats"])
-            write_importance(res_dir, result_file_name, fold, state.model,
-                             permut)
+            write_importance(res_dir, result_file_name, fold, model, permut)
             if (export_bundle and not permut
-                    and getattr(state.model, "topo", None) is not None):
+                    and getattr(model, "topo", None) is not None):
                 save_bundle(fold_file("serving_bundle", fold, "npz"),
-                            state.model, best_vars["params"],
+                            model, best_vars["params"],
                             best_vars["batch_stats"])
             write_fold_record(
                 fold_file("fold_result", fold, "npz"),
@@ -471,3 +534,136 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         score_result=score_result, durations=durations,
         throughput_graphs_per_sec=float(throughput),
         regression_summary=regression_summary)
+
+
+def _batch_preconditions(tcfg: TrainConfig, what: str) -> None:
+    """The JAX package's preconditions of its batched CVs. `use_fold_scan`
+    and `device_gather` choose nothing in the port; the errors keep their
+    wording."""
+    if not (tcfg.fold_parallel and tcfg.use_fold_scan):
+        raise ValueError(f"{what} requires fold_parallel + use_fold_scan")
+    if not tcfg.device_gather:
+        raise ValueError(f"{what} requires device_gather (the batched fold "
+                         "assembly)")
+
+
+def _padded_sizes(entries: List[Dict[str, Any]]) -> Dict[str, int]:
+    """Per split kind, the largest padded size over a seed's folds."""
+    kinds = ("train_data", "val_data", "test_data")
+    return {k: max(e["p"][k]["y"].shape[0] for e in entries)
+            for k in kinds if entries[0]["p"][k] is not None}
+
+
+def cross_validation_seed_batch(cohort: AdniCohort, seeds, topo: GoTopology,
+                                mcfg: ModelConfig, tcfg: TrainConfig, *,
+                                res_dirs, result_file_name: str = "result",
+                                clinical_score_index: Optional[int] = None,
+                                loggers=None,
+                                model_kind: str = "sgcn_imgsnp",
+                                export_bundle: bool = False,
+                                verbose: bool = True,
+                                device: str | torch.device | None = None
+                                ) -> List[CVResult]:
+    """Replicate the same experiment across CV seeds as one batched
+    program (the JAX package's `cross_validation_seed_batch`): each seed
+    redraws the splits, the per-fold imputation, the inits, the dropout
+    streams and the epoch shuffling, and every seed x fold entry trains in
+    one `run_folds_parallel`. Each seed's outputs are then those of a
+    standalone fold-parallel run with `tcfg.seed = s`, written to its
+    `res_dirs` entry by `cross_validation`'s post-processing."""
+    _batch_preconditions(tcfg, "cross_validation_seed_batch")
+    if tcfg.is_permut_test:
+        raise ValueError("seed replication shuffles nothing; combine with "
+                         "--permut_seeds (per-seed null batch) instead of "
+                         "is_permut_test")
+    if clinical_score_index is None:
+        clinical_score_index = tcfg.clinical_score_index
+    seeds = list(seeds)
+    if len(res_dirs) != len(seeds):
+        raise ValueError("one res_dir per seed required")
+    dev = resolve_device(device)
+    full = cohort_batch_arrays(cohort)
+    tcfgs = [dataclasses.replace(tcfg, seed=s) for s in seeds]
+    by_seed = [[{"p": prepare_fold(cohort, full, split, fold, tc,
+                                   clinical_score_index),
+                 "seed": tc.seed, "fold": fold}
+                for fold, split in enumerate(k_fold(cohort.y, tc.folds,
+                                                    tc.seed))]
+               for tc in tcfgs]
+    sizes = [_padded_sizes(entries) for entries in by_seed]
+    if any(sz != sizes[0] for sz in sizes[1:]):
+        # cannot happen for stratified k-fold (sizes are seed-invariant);
+        # guard loudly rather than train misaligned stacked shapes
+        raise AssertionError(
+            f"seed-batch entries disagree on padded fold sizes ({sizes}); "
+            "splits must be size-invariant across seeds")
+    runs = fold_parallel_runs([e for entries in by_seed for e in entries],
+                              topo, mcfg, tcfg, model_kind, dev)
+    k = tcfg.folds
+    return [cross_validation(
+        cohort, topo, mcfg, tcfgs[i], res_dir=res_dirs[i],
+        result_file_name=result_file_name,
+        clinical_score_index=clinical_score_index,
+        logger=loggers[i] if loggers is not None else None,
+        model_kind=model_kind, verbose=verbose, export_bundle=export_bundle,
+        device=dev, trained=runs[i * k:(i + 1) * k])
+        for i in range(len(seeds))]
+
+
+# the cohort fields a permutation variant shares with the first one: only
+# the subject-to-score pairing may differ across permutation seeds
+PERMUT_SHARED_FIELDS = ("x", "adj", "snps", "y", "clust_y", "tsne_fdim")
+
+
+def cross_validation_permut_batch(variants, topo: GoTopology,
+                                  mcfg: ModelConfig, tcfg: TrainConfig, *,
+                                  res_dirs, result_file_name: str = "result",
+                                  clinical_score_index: Optional[int] = None,
+                                  loggers=None,
+                                  model_kind: str = "sgcn_imgsnp",
+                                  verbose: bool = True,
+                                  device: str | torch.device | None = None
+                                  ) -> List[CVResult]:
+    """A permutation null of S seeds as one batched program (the JAX
+    package's `cross_validation_permut_batch`). `variants` are
+    (seed label, cohort) pairs of the same subjects with per-seed shuffled
+    subject-to-score pairings; splits, inits, dropout streams and epoch
+    permutations are those of `tcfg.seed`, shared by every seed, and only
+    the imputed clinical scores differ. Each seed's outputs are those of a
+    standalone fold-parallel `--isPermutTest --Seed4PermutTest <s>` run."""
+    _batch_preconditions(tcfg, "cross_validation_permut_batch")
+    if not tcfg.is_permut_test:
+        raise ValueError("cross_validation_permut_batch is the permutation-"
+                         "null batch; tcfg.is_permut_test must be True")
+    if clinical_score_index is None:
+        clinical_score_index = tcfg.clinical_score_index
+    if len(res_dirs) != len(variants):
+        raise ValueError("one res_dir per variant required")
+    base = variants[0][1]
+    for label, c in variants[1:]:
+        for name in PERMUT_SHARED_FIELDS:
+            if not np.array_equal(np.asarray(getattr(base, name)),
+                                  np.asarray(getattr(c, name))):
+                raise ValueError(
+                    f"permut-batch variant {label!r} disagrees with the "
+                    f"first variant on cohort field {name!r}; only the "
+                    "subject->score pairing may differ across seeds")
+    dev = resolve_device(device)
+    splits = k_fold(base.y, tcfg.folds, tcfg.seed)
+    entries = []
+    for _, c in variants:
+        full = cohort_batch_arrays(c)
+        entries += [{"p": prepare_fold(c, full, split, fold, tcfg,
+                                       clinical_score_index),
+                     "seed": tcfg.seed, "fold": fold}
+                    for fold, split in enumerate(splits)]
+    runs = fold_parallel_runs(entries, topo, mcfg, tcfg, model_kind, dev)
+    k = tcfg.folds
+    return [cross_validation(
+        c, topo, mcfg, tcfg, res_dir=res_dirs[i],
+        result_file_name=result_file_name,
+        clinical_score_index=clinical_score_index,
+        logger=loggers[i] if loggers is not None else None,
+        model_kind=model_kind, verbose=verbose, device=dev,
+        trained=runs[i * k:(i + 1) * k])
+        for i, (_, c) in enumerate(variants)]

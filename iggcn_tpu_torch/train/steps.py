@@ -18,19 +18,34 @@ steps: StepLR per epoch, as `lr_at_step`.
 Batches are dicts of tensors on one device: x (B,N,D), adj (B,N,N),
 snps (B,S), y (B,), clini (B,R), clust_y (B,), tsne (B,F) and the 0/1 row
 weight w (B,). Padded rows have w = 0 and every reduction is weighted by
-w. The padding gate of the JAX package's fold-parallel mode (all-padding
-batches) is not ported: a sequential epoch pads within its last batch
-only, so every batch has real rows.
+w.
+
+The fold-batched steps (`batched_train_step`, `batched_eval_step`) run
+the same objectives for F folds at once, as the JAX package's vmapped
+fold program does: `torch.func.vmap` over `functional_call` of the
+fold-stacked params and batch statistics (`StackedState`), one backward
+of the summed (F,) losses, then Adam with coupled L2 written out over
+the stacked tensors, with each fold's own step count and learning rate
+(from its own real steps per epoch). Dropout draws each fold's uniforms
+from that fold's generator beforehand (`draw_fold_noise`), in the order
+the sequential forward would, so a fold trains as it would alone. The
+padding gate: a fold whose batch has no real rows (only cross-fold
+equalisation makes such batches) keeps its params, batch statistics,
+Adam moments and step count, as `iggcn_tpu/train/steps.py`'s
+`gate_padding` does.
 """
 from __future__ import annotations
 
+import copy
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from iggcn_tpu_torch.config import ModelConfig, TrainConfig
+from iggcn_tpu_torch.models.nn_compat import NoiseSource, ShapeRecorder
 from iggcn_tpu_torch.train import losses
 
 Batch = Dict[str, torch.Tensor]
@@ -287,7 +302,13 @@ def eval_step(model: nn.Module, batch: Batch, mcfg: ModelConfig,
     """Loss (all terms, eval mode) and the plain pass's per-sample outputs
     of one batch: log_probs, pred and those of `EVAL_FIELDS` the family's
     model has."""
-    loss, aux = OBJECTIVES[kind](model, batch, mcfg, tcfg, train=False)
+    return _eval_outputs(
+        OBJECTIVES[kind](model, batch, mcfg, tcfg, train=False), batch)
+
+
+def _eval_outputs(objective_out, batch: Batch) -> Dict[str, torch.Tensor]:
+    """What an eval step returns from its objective's (loss, aux)."""
+    loss, aux = objective_out
     out = aux["out"]
     result = {"loss_sum": loss * batch["w"].sum(),
               "log_probs": out.log_probs,
@@ -295,3 +316,197 @@ def eval_step(model: nn.Module, batch: Batch, mcfg: ModelConfig,
     result.update({f: getattr(out, f) for f in EVAL_FIELDS
                    if getattr(out, f, None) is not None})
     return result
+
+
+# Adam's constants, torch.optim.Adam's defaults (make_optimizer keeps them)
+ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
+
+
+class StackedState:
+    """F folds' train states stacked on a leading fold axis: the params
+    (leaf tensors that take gradients), the persistent buffers (the batch
+    norms' running statistics), Adam's two moments, and per fold the
+    count of completed steps and the real steps per epoch (host ints).
+    `model` is the module `functional_call` runs with those tensors in
+    place of its own; its non-persistent buffers (the GO topology) are
+    shared by every fold."""
+
+    def __init__(self, models: Sequence[nn.Module], tcfg: TrainConfig,
+                 steps_per_epoch: Sequence[int], kind: str,
+                 steps: Optional[Sequence[int]] = None):
+        if kind not in OBJECTIVES:
+            raise ValueError(f"unknown model kind {kind!r}; one of "
+                             f"{sorted(OBJECTIVES)}")
+        self.model = models[0]
+        self.kind = kind
+        self.weight_decay = tcfg.weight_decay
+        names = dict(self.model.named_parameters())
+        persistent = [k for k in self.model.state_dict() if k not in names]
+        with torch.no_grad():
+            self.params = {k: torch.stack([dict(m.named_parameters())[k]
+                                           .detach() for m in models])
+                           .requires_grad_(True) for k in names}
+            self.buffers = {k: torch.stack([m.state_dict()[k]
+                                            for m in models]).clone()
+                            for k in persistent}
+        self.exp_avg = {k: torch.zeros_like(v) for k, v in self.params.items()}
+        self.exp_avg_sq = {k: torch.zeros_like(v)
+                           for k, v in self.params.items()}
+        self.steps = np.asarray(steps if steps is not None
+                                else [0] * len(models), np.int64)
+        self.steps_per_epoch = np.asarray(steps_per_epoch, np.int64)
+
+    @property
+    def folds(self) -> int:
+        return len(self.steps)
+
+    def fold_tensors(self) -> Dict[str, torch.Tensor]:
+        """The stacked params and buffers, under their state_dict names."""
+        return {**self.params, **self.buffers}
+
+    def fold_state_dict(self, f: int) -> Dict[str, torch.Tensor]:
+        """Fold f's `state_dict()` (views into the stacked tensors)."""
+        out = {k: v[f].detach() for k, v in self.params.items()}
+        out.update({k: v[f] for k, v in self.buffers.items()})
+        return out
+
+
+class _Objective(nn.Module):
+    """The family's objective as a module around the fold model, so that
+    `functional_call` swaps every tensor the objective reads (the
+    forward's and the sparsity penalties' params alike)."""
+
+    def __init__(self, model: nn.Module, mcfg: ModelConfig,
+                 tcfg: TrainConfig, kind: str):
+        super().__init__()
+        self.model, self.mcfg, self.tcfg, self.kind = model, mcfg, tcfg, kind
+
+    def forward(self, batch, train: bool, noise):
+        return OBJECTIVES[self.kind](self.model, batch, self.mcfg, self.tcfg,
+                                     train=train, generator=noise)
+
+
+def record_noise_shapes(state: StackedState, batch: Batch, mcfg: ModelConfig,
+                        tcfg: TrainConfig) -> List[Tuple[int, ...]]:
+    """The shapes of the uniforms one train step of this model draws, in
+    order, at this batch's shape: one forward of fold 0 on a CPU copy of
+    the model (nothing runs on the card, no state moves)."""
+    cpu = torch.device("cpu")
+    model = copy.deepcopy(state.model).to(cpu)
+    model.load_state_dict({k: v.detach().to(cpu) for k, v in
+                           state.fold_state_dict(0).items()})
+    recorder = ShapeRecorder()
+    with torch.no_grad():
+        OBJECTIVES[state.kind](model, {k: v[0].to(cpu)
+                                       for k, v in batch.items()},
+                               mcfg, tcfg, train=True, generator=recorder)
+    return recorder.shapes
+
+
+def draw_fold_noise(shapes: Sequence[Tuple[int, ...]],
+                    generators: Sequence[Optional[torch.Generator]],
+                    device: torch.device) -> Optional[List[torch.Tensor]]:
+    """Each fold's uniforms for one train step, drawn from its own
+    generator in the forward's order and stacked per site: (F, *shape).
+    A fold whose generator is None (its batch is all padding, so the
+    sequential run takes no such step) draws nothing and gets zeros."""
+    if not shapes:
+        return None
+    per_fold = [[torch.rand(shape, generator=g, device=device)
+                 if g is not None else torch.zeros(shape, device=device)
+                 for shape in shapes] for g in generators]
+    return [torch.stack(site) for site in zip(*per_fold)]
+
+
+def _vmapped(state: StackedState, mcfg: ModelConfig, tcfg: TrainConfig,
+             train: bool, fn):
+    """The per-fold function that torch.func.vmap maps over the stacked
+    params, buffers, batch and noise: `fn(objective's (loss, aux), batch)`
+    of one fold."""
+    objective = _Objective(state.model, mcfg, tcfg, state.kind)
+
+    def one_fold(params, buffers, batch, noise):
+        source = NoiseSource(noise) if noise is not None else None
+        out = torch.func.functional_call(
+            objective, ({f"model.{k}": v for k, v in params.items()},
+                        {f"model.{k}": v for k, v in buffers.items()}),
+            (batch, train, source), strict=False)
+        if source is not None and not source.done():
+            raise ValueError("the forward drew fewer noise tensors than "
+                             "were recorded for it")
+        return fn(out, batch)
+    return one_fold
+
+
+def _adam_update(state: StackedState, lrs: np.ndarray) -> None:
+    """One step of Adam with coupled L2 over the stacked params, in
+    torch.optim.Adam's arithmetic, at each fold's own learning rate and
+    step count (`state.steps` + 1)."""
+    b1, b2 = ADAM_BETAS
+    f = state.folds
+    t = state.steps + 1
+    ref = next(iter(state.params.values()))
+    step_size = torch.as_tensor(lrs / (1 - b1 ** t), dtype=torch.float32,
+                                device=ref.device)
+    bc2_sqrt = torch.as_tensor(np.sqrt(1 - b2 ** t), dtype=torch.float32,
+                               device=ref.device)
+    with torch.no_grad():
+        for k, p in state.params.items():
+            if p.grad is None:      # a param the objective never reads
+                continue
+            shape = (f,) + (1,) * (p.dim() - 1)
+            grad = p.grad
+            if state.weight_decay != 0:
+                grad = grad.add(p, alpha=state.weight_decay)
+            m, v = state.exp_avg[k], state.exp_avg_sq[k]
+            m.lerp_(grad, 1 - b1)
+            v.mul_(b2).addcmul_(grad, grad, value=1 - b2)
+            denom = (v.sqrt() / bc2_sqrt.reshape(shape)).add_(ADAM_EPS)
+            p.sub_(step_size.reshape(shape) * m / denom)
+
+
+def batched_train_step(state: StackedState, batch: Batch, mcfg: ModelConfig,
+                       tcfg: TrainConfig, noise: Optional[List[torch.Tensor]],
+                       has_real: np.ndarray) -> torch.Tensor:
+    """One optimiser step of every fold on its (F, B, ...) batch, with the
+    padding gate for the folds where `has_real` is False. Returns each
+    fold's loss * sum(w) as a detached (F,) device tensor."""
+    lrs = np.asarray([lr_at_step(tcfg, int(s), int(spe)) for s, spe in
+                      zip(state.steps, state.steps_per_epoch)], np.float64)
+    gate = not bool(np.all(has_real))
+    if gate:
+        kept = {name: {k: v.detach().clone() for k, v in tensors.items()}
+                for name, tensors in (("params", state.params),
+                                      ("buffers", state.buffers),
+                                      ("exp_avg", state.exp_avg),
+                                      ("exp_avg_sq", state.exp_avg_sq))}
+    for p in state.params.values():
+        p.grad = None
+    fold_fn = _vmapped(state, mcfg, tcfg, True, lambda out, _: out[0])
+    in_dims = (0, 0, 0, 0 if noise is not None else None)
+    loss = torch.func.vmap(fold_fn, in_dims=in_dims)(
+        state.params, state.buffers, batch, noise)
+    loss.sum().backward()
+    _adam_update(state, lrs)
+    if gate:
+        real = torch.as_tensor(has_real, device=loss.device)
+        with torch.no_grad():
+            for name, tensors in (("params", state.params),
+                                  ("buffers", state.buffers),
+                                  ("exp_avg", state.exp_avg),
+                                  ("exp_avg_sq", state.exp_avg_sq)):
+                for k, v in tensors.items():
+                    mask = real.reshape((-1,) + (1,) * (v.dim() - 1))
+                    v.copy_(torch.where(mask, v, kept[name][k]))
+    state.steps += np.asarray(has_real, np.int64)
+    return loss.detach() * batch["w"].sum(dim=1)
+
+
+@torch.no_grad()
+def batched_eval_step(state: StackedState, batch: Batch, mcfg: ModelConfig,
+                      tcfg: TrainConfig) -> Dict[str, torch.Tensor]:
+    """`eval_step` of every fold on its (F, B, ...) batch: the same keys,
+    each with the fold axis in front."""
+    fold_fn = _vmapped(state, mcfg, tcfg, False, _eval_outputs)
+    return torch.func.vmap(fold_fn, in_dims=(0, 0, 0, None))(
+        state.params, state.buffers, batch, None)

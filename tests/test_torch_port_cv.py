@@ -121,11 +121,9 @@ def test_cross_validation_matches_jax(tmp_path, no_val):
 def test_cross_validation_refuses_what_is_not_ported():
     cohort = synthetic_cohort(np.random.default_rng(1), num_subjects=12)
     topo = synthetic_topology(np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cross_validation(cohort, topo, ModelConfig(),
-                         TrainConfig(fold_parallel=True), device="cpu")
     # the zoo and SNP-only families are no model kind of this driver, as
-    # in the JAX package
+    # in the JAX package (fold_parallel is ported: test_torch_port_fold_
+    # parallel.py holds it against the sequential and the JAX CV)
     for kind in ("gin", "snps_go"):
         with pytest.raises(ValueError, match="unknown model_kind"):
             cross_validation(cohort, topo, ModelConfig(), TrainConfig(),
@@ -175,9 +173,12 @@ def test_cli_defaults_to_the_card_and_refuses_other_models(monkeypatch,
              "--export_bundle does not support --model GIN"),
             (["--model", "GIN", "--init_from_torch", "x.pt"],
              "--init_from_torch supports --model SGCN_GCN_IMGSNP only"),
-            *((["--model", "GIN", flag, "1,2"],
-              f"{flag} is not ported yet (ROADMAP Queue 1 item 13)")
-              for flag in ("--cv_seeds", "--permut_seeds", "--batch_file"))):
+            # the batched routes are ported (test_torch_port_seed_batch.py,
+            # test_torch_port_batch_file.py); their checks refuse here
+            (["--model", "GIN", "--cv_seeds", "1,1"], "repeats a seed"),
+            (["--model", "GIN", "--permut_seeds", "3:1"], "is empty"),
+            (["--model", "GIN", "--batch_file", "x.txt"],
+             "runs self-contained command lines")):
         with pytest.raises(SystemExit):
             port_main.main([*argv, "--device", "cpu"])
         assert what in capsys.readouterr().err

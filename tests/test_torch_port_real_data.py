@@ -476,7 +476,7 @@ def test_cli_permutation_test(tmp_path, monkeypatch, capsys, real_layout):
     assert "Result - " in capsys.readouterr().out
     assert not (tmp_path / "results").exists()
     written = sorted(os.listdir(tmp_path / "results_permuttest" / "ADNI_p"))
-    assert written == ["cmd_input.txt"] + [
+    assert written == ["cmd_input.txt", "env.txt"] + [
         f"fold_result_result_sgcn_img_snp_layers2_hidden8_h2_fold_{k}.npz"
         for k in range(3)] + ["log.txt"]
     with pytest.raises(SystemExit):
