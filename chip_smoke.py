@@ -168,6 +168,29 @@ failure propagates and the script exits non-zero:
      1:3 --fold_parallel` and `tools.report --permut_null` over it (the
      p-value printed); a `--batch_file` of a fused, a zoo and a failing
      line (exit 1, the first two done).
+ 16. bf16 serving, the tools and the diffusion backends: the GCN stack's
+     bf16-operand form against its plain version (the fp32 stack on the
+     upcasts) at every grid shape x B {1, 7, 32, 256} in both P layouts,
+     at `BF16_BRANCH_SHAPES` (every cluster and K split its plan can
+     choose) and on a P whose samples start 2 bytes off, at rtol 1e-4 /
+     atol 1e-5, one launch per call; its warm and cold times at the
+     serving shapes (N=90 and N=270, B=256) beside its bound, the plain
+     version and the library composition; phase 3's bundle served in bf16
+     to the 874-subject cohort (the bf16 form's launches counted from 0:
+     one per forward) against the CPU's bf16 plain path (atol
+     `BF16_SERVE_ATOL`) and the card's fp32 (the JAX package's bf16 rule),
+     the cohort walls of fp32 and bf16 in turns; every phase-10 bundle
+     likewise (1, 1, 1 and 0 bf16 launches per forward); a `--bf16`
+     daemon's /health and /predict; `tools.profile_step` on the card and a
+     short `--profile_dir` run, its trace's files listed; the doctor on
+     phase 12's layout (exit 0) and with one file removed (exit 1); the
+     `auto` (within 1e-12, the same sparsity) and `device` (within 2e-5
+     and the same sparsity on every column whose k-th and (k+1)-th PPR
+     values are more than `DIFFUSION_TIE` apart, relative: closer ones
+     fp32 cannot order) diffusion backends against `numpy` on an 874 x 90
+     cohort, with the three walls. It says in one line that `--plot` and
+     `data/cluster.py` are not run on the card (no matplotlib or
+     scikit-learn there).
 
 Phases 7-11 build their synthetic cohorts without the cohort cache
 (`--cohort_cache_dir ''`), so no cache hit changes their readings.
@@ -213,7 +236,8 @@ from iggcn_tpu_torch.ops import gcn_stack
 from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
 from iggcn_tpu_torch.data.sampler import (imbalanced_sample_indices,
                                           pad_epoch_indices)
-from iggcn_tpu_torch.predict import batched_forward, batched_forward_snps
+from iggcn_tpu_torch.predict import (batched_forward, batched_forward_snps,
+                                     cast_floating)
 from iggcn_tpu_torch.tools import explain, export_cohort, import_torch, report
 from iggcn_tpu_torch.tools.convert import _flatten as flat_tree
 from iggcn_tpu_torch.tools.convert import to_flax_variables
@@ -246,6 +270,12 @@ TIMED_SHAPES = [("serving", BATCH, 90, 3, (16, 16)),
 # other branches: (cluster, K split) = (1, 1), (2, 4), (4, 1), (8, 1), (8, 2)
 BRANCH_SHAPES = [(90, 3, (64, 64)), (270, 1, (3, 3)), (400, 1, (10, 10)),
                  (500, 1, (10, 10)), (600, 1, (4, 4))]
+# the same for the kernel's bf16 form, whose P takes half the room:
+# (cluster, K split) = (1, 1), (2, 1), (2, 4), (4, 1), (4, 2), (8, 1),
+# (8, 2); the grids give (1, 2) and (1, 4), and an odd N the per-value copy
+BF16_BRANCH_SHAPES = [(90, 3, (64, 64)), (400, 1, (10, 10)),
+                      (380, 1, (4, 4)), (500, 1, (10, 10)), (600, 1, (4, 4)),
+                      (700, 1, (10, 10)), (800, 1, (4, 4)), (91, 3, (16, 16))]
 FLUSH_BYTES = 256 * 2**20        # written between cold calls; L2 is 50 MB
 # phase 7: the training route at full width (default ModelConfig L=2, H=16;
 # the real GO graph's scale; batch 32; 5 folds with val; 3 epochs)
@@ -2731,6 +2761,421 @@ def phase_fold_parallel(dev, train):
                          "launches": gcn_stack.fused_gcn_stack.launches}
     return out
 
+# phase 16: bf16 serving. The bf16 form against its plain version at the
+# fp32 tolerances RTOL / ATOL (both sum fp32 products of the same bf16
+# values); bf16 serving on the card against the CPU's bf16 plain path
+# within BF16_SERVE_ATOL (log_probs, our_reg, prob: the outputs are fp32,
+# their inputs bf16-rounded alike, so the card and the CPU differ by the
+# summation order of fp32 sums and by bf16 roundings of intermediate
+# products that land on either side of a tie: ~1e-4 measured on the CPU
+# against the JAX package at full width), pred equal where the decision is
+# wider than that; and against the card's fp32 under the JAX package's own
+# bf16 rule (tests/test_predict.py: atol 0.15, agreement >= 0.9)
+BF16_SERVE_ATOL = 2e-3
+BF16_FP32_ATOL, BF16_FP32_AGREE = 0.15, 0.9
+# the timed bf16 shapes: serving at N=90 and multi-fusion serving at N=270
+BF16_TIMED = [("serving", BATCH, 90, 3, (16, 16)),
+              ("multi-fusion", BATCH, 270, 1, (10, 10, 10))]
+# phase 16's short --profile_dir run and the diffusion cohort
+PROFILE_SUBJECTS, DIFFUSION_SUBJECTS = 120, COHORT
+# relative gap of a column's k-th and (k+1)-th PPR values below which the
+# fp32 device backend may select otherwise than float64 numpy (~1e-7 seen)
+DIFFUSION_TIE = 1e-5
+
+
+def to_bf16(args):
+    """(prop, x, weights, biases) with every tensor in bf16."""
+    prop, x, ws, bs = args
+    b16 = torch.bfloat16
+    return (prop.to(b16), x.to(b16), [w.to(b16) for w in ws],
+            [b.to(b16) for b in bs])
+
+
+def plain_stack_bf16(prop, x, weights, biases):
+    """The bf16 form's plain version: the fp32 stack on the upcasts."""
+    return gcn_stack.gcn_stack_reference(
+        prop.float(), x.float(), [w.float() for w in weights],
+        [b.float() for b in biases])
+
+
+def library_stack_bf16(prop, x, weights, biases):
+    """The upcast, then PyTorch's matmul + baddbmm + relu. A yardstick
+    only; the port never calls it."""
+    return library_stack(prop.float(), x.float(), [w.float() for w in weights],
+                         [b.float() for b in biases])
+
+
+def stack_work_bf16(b, n, f0, widths):
+    """(bytes, flops) of the bf16 form: bf16 inputs read once, the fp32
+    output written once; the same FLOPs as the fp32 form."""
+    dims = [f0] + list(widths)
+    params = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(widths)))
+    nbytes = 2 * (b * n * n + b * n * f0 + params) + 4 * b * n * sum(widths)
+    return nbytes, stack_work(b, n, f0, widths)[1]
+
+
+def compare_bf16(got, want, what, atol):
+    """Every float output within `atol`, finite, of the expected shape;
+    pred equal wherever the decision is wider than `atol`."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} vs {sorted(want)}")
+    worst = 0.0
+    for key in sorted(set(want) - {"pred"}):
+        if got[key].shape != want[key].shape or not np.isfinite(got[key]).all():
+            raise AssertionError(f"{what}: {key} shape {got[key].shape} vs "
+                                 f"{want[key].shape}, or not finite")
+        err = float(np.abs(got[key] - want[key]).max(initial=0.0))
+        if err > atol:
+            raise AssertionError(f"{what}: {key} differs by {err} > {atol}")
+        worst = max(worst, err)
+    if "prob" in want:
+        decided = np.abs(want["prob"] - 0.5) > atol
+    else:
+        lp = np.sort(want["log_probs"], axis=1)
+        decided = lp[:, -1] - lp[:, -2] > atol
+    if not np.array_equal(got["pred"][decided], want["pred"][decided]):
+        raise AssertionError(f"{what}: pred differs on decided subjects")
+    return worst
+
+
+def bf16_vs_fp32(got, fp32, what):
+    """The JAX package's bf16 rule against fp32 on the same device."""
+    for key in sorted(set(fp32) - {"pred"}):
+        err = float(np.abs(got[key] - fp32[key]).max(initial=0.0))
+        if err > BF16_FP32_ATOL:
+            raise AssertionError(f"{what}: bf16 {key} {err} from fp32")
+    agree = float(np.mean(got["pred"] == fp32["pred"]))
+    if agree < BF16_FP32_AGREE:
+        raise AssertionError(f"{what}: bf16/fp32 prediction agreement {agree}")
+    return agree
+
+
+def counted_bf16(fn):
+    """(fn's result, the bf16 form's launches in that call)."""
+    gcn_stack.fused_gcn_stack.launches_bf16 = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, gcn_stack.fused_gcn_stack.launches_bf16
+
+
+def phase_bf16_kernel(dev):
+    """The bf16 form against its plain version at every grid shape and
+    batch, both P layouts, the bf16 branch shapes and a P whose samples
+    start 2 bytes off (the per-value copy); one launch per call, none of
+    the fp32 form."""
+    rng = np.random.default_rng(16)
+    max_err, calls = 0.0, 0
+    gcn_stack.fused_gcn_stack.launches = 0
+    gcn_stack.fused_gcn_stack.launches_bf16 = 0
+
+    def check(what, args):
+        nonlocal max_err, calls
+        with torch.inference_mode():
+            out = gcn_stack.fused_gcn_stack(*args)
+            ref = plain_stack_bf16(*args)
+        torch.cuda.synchronize()
+        calls += 1
+        if out.dtype != torch.float32:
+            raise AssertionError(f"bf16 form {what}: output {out.dtype}")
+        err = float((out - ref).abs().max())
+        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL,
+                                   msg=lambda m: f"bf16 form {what}: {m}")
+        max_err = max(max_err, err)
+
+    for n, f0, widths in STACK_SHAPES:
+        for b in STACK_BATCHES:
+            args = to_bf16(stack_inputs(rng, b, n, f0, widths, dev))
+            check((b, n, f0, widths), args)
+            check((b, n, f0, widths, "row-major"),
+                  (args[0].contiguous(),) + args[1:])
+    for n, f0, widths in BF16_BRANCH_SHAPES:
+        for b in (1, 7):
+            args = to_bf16(stack_inputs(rng, b, n, f0, widths, dev))
+            check((b, n, f0, widths), args)
+    prop, x, ws, bs = to_bf16(stack_inputs(rng, 7, 90, 3, (16, 16), dev))
+    flat = torch.zeros(7 * 90 * 90 + 1, dtype=torch.bfloat16, device=dev)
+    flat[1:] = prop.transpose(1, 2).reshape(-1)
+    shifted = flat[1:].reshape(7, 90, 90).transpose(1, 2)
+    check("P 2 bytes off", (shifted, x, ws, bs))
+    launches = gcn_stack.fused_gcn_stack.launches_bf16
+    if launches != calls or gcn_stack.fused_gcn_stack.launches:
+        raise AssertionError(f"{calls} bf16 calls launched the bf16 form "
+                             f"{launches} times and the fp32 form "
+                             f"{gcn_stack.fused_gcn_stack.launches}")
+    log(f"bf16 form vs plain: {calls} calls ({len(STACK_SHAPES)} grid shapes "
+        f"x B {STACK_BATCHES} x both P layouts, {len(BF16_BRANCH_SHAPES)} "
+        f"branch shapes x B (1, 7), a 2-byte-offset P), max abs err "
+        f"{max_err:.3e} (rtol {RTOL}, atol {ATOL}), one launch each")
+    return max_err, calls
+
+
+def phase_bf16_times(dev, card_name):
+    """Warm and cold device ms of the bf16 form, its plain version and the
+    library composition at BF16_TIMED, beside the bound."""
+    spec, bw, peak = card_spec(card_name)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(17)
+    rows = []
+    with torch.inference_mode():
+        for name, b, n, f0, widths in BF16_TIMED:
+            args = to_bf16(stack_inputs(rng, b, n, f0, widths, dev))
+            fns = {"kernel": lambda: gcn_stack.fused_gcn_stack(*args),
+                   "plain": lambda: plain_stack_bf16(*args),
+                   "library": lambda: library_stack_bf16(*args)}
+            nbytes, flops = stack_work_bf16(b, n, f0, widths)
+            bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+            plan = gcn_stack.plan_launch(b, n, (f0, *widths), elem_bytes=2)
+            row = {"shape": name, "B": b, "N": n, "F0": f0,
+                   "widths": list(widths), "bytes": nbytes, "flops": flops,
+                   "bound_ms": max(bytes_ms, flops_ms),
+                   "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+                   "plan": {"cluster": plan.cluster, "ksplit": plan.ksplit,
+                            "threads": plan.threads,
+                            "smem_bytes": plan.smem_bytes}}
+            for what, fn in fns.items():
+                row[f"{what}_ms"] = device_ms(fn)
+                row[f"{what}_cold_ms"] = cold_device_ms(fn, flush)
+            rows.append(row)
+            log(f"gcn_stack bf16 {name} B={b} N={n} F0={f0} H={widths} "
+                f"(cluster {plan.cluster}, K split {plan.ksplit}): kernel "
+                f"{row['kernel_ms']:.5f} ms warm / {row['kernel_cold_ms']:.5f} "
+                f"cold, plain {row['plain_ms']:.5f} / "
+                f"{row['plain_cold_ms']:.5f}, library {row['library_ms']:.5f} "
+                f"/ {row['library_cold_ms']:.5f}, bound {row['bound_ms']:.5f} "
+                f"ms ({row['bound_by']}; {nbytes} B, {flops} FLOP, {spec} "
+                "peaks)")
+    del flush
+    return rows
+
+
+def phase_bf16_serving(dev, fp32_model, fp32_served, cohort, artifacts):
+    """The main path in bf16: phase 3's bundle served to the cohort with
+    `dtype=torch.bfloat16` (the bf16 form's launches counted from 0 just
+    before, read just after), held against the CPU's bf16 plain path and
+    the card's fp32; the cohort walls of fp32 and bf16 in turns; then
+    every phase-10 bundle likewise, with its launches per forward."""
+    b16 = torch.bfloat16
+    bundle = os.path.join(OUT_DIR, "bundle.npz")
+    forwards = math.ceil(COHORT / BATCH)
+    got, launches = counted_bf16(lambda: batched_forward(
+        fp32_model, *cohort, batch_size=BATCH, dtype=b16))
+    if launches != forwards:
+        raise AssertionError(f"bf16 serving launched the bf16 form "
+                             f"{launches} times over {forwards} forwards")
+    cpu = batched_forward(load_bundle(bundle, device="cpu"), *cohort,
+                          batch_size=BATCH, dtype=b16)
+    err = compare_bf16(got, cpu, "bf16 serving card vs CPU", BF16_SERVE_ATOL)
+    agree = bf16_vs_fp32(got, fp32_served, "bf16 serving vs fp32")
+    bf16_model = cast_floating(load_bundle(bundle, device=dev), b16)
+    walls = {"fp32": [], "bf16": []}
+    for order in (("fp32", "bf16"), ("bf16", "fp32")) * 3:
+        for what in order:
+            model, dtype = ((fp32_model, None) if what == "fp32"
+                            else (bf16_model, b16))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched_forward(model, *cohort, batch_size=BATCH, dtype=dtype)
+            walls[what].append(time.perf_counter() - t0)
+    wall = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"bf16 serving of {COHORT} subjects: {launches} bf16-form launches "
+        f"over {forwards} forwards; card vs CPU bf16 max abs diff {err:.3e} "
+        f"(atol {BF16_SERVE_ATOL}); agreement with fp32 {agree:.4f}; cohort "
+        f"wall bf16 {wall['bf16']:.6f} s vs fp32 {wall['fp32']:.6f} s "
+        "(median of 6, in turns)")
+    out = {"launches": launches, "forwards": forwards,
+           "card_vs_cpu_max_abs_diff": err, "fp32_agreement": agree,
+           "cohort_wall_s": wall["bf16"], "fp32_cohort_wall_s": wall["fp32"],
+           "bundles": {}}
+    multi = make_cohort(np.random.default_rng(4), COHORT, rois=270, feat=1)
+    for what, row in artifacts["serving"].items():
+        data = multi if "N=270" in what else cohort
+        gpu_model = load_bundle(row["bundle"], device=dev)
+        cls = type(gpu_model).__name__
+        fp32 = batched_forward(gpu_model, *data, batch_size=BATCH)
+        got, n_bf16 = counted_bf16(lambda: batched_forward(
+            gpu_model, *data, batch_size=BATCH, dtype=b16))
+        if n_bf16 != SERVE_CALLS[cls] * forwards:
+            raise AssertionError(f"{what}: bf16 serving launched the bf16 "
+                                 f"form {n_bf16} times over {forwards} "
+                                 f"forwards; {cls} launches it "
+                                 f"{SERVE_CALLS[cls]} per forward")
+        cpu = batched_forward(load_bundle(row["bundle"], device="cpu"), *data,
+                              batch_size=BATCH, dtype=b16)
+        err = compare_bf16(got, cpu, f"{what}: bf16 card vs CPU",
+                           BF16_SERVE_ATOL)
+        agree = bf16_vs_fp32(got, fp32, f"{what}: bf16 vs fp32")
+        out["bundles"][what] = {
+            "model_class": cls, "launches": n_bf16,
+            "launches_per_forward": n_bf16 / forwards,
+            "card_vs_cpu_max_abs_diff": err, "fp32_agreement": agree}
+        log(f"{what} ({cls}) in bf16: {n_bf16} bf16-form launches over "
+            f"{forwards} forwards; card vs CPU bf16 max abs diff {err:.3e}; "
+            f"agreement with fp32 {agree:.4f}")
+    return out
+
+
+def phase_bf16_http(dev, cohort, want):
+    """A `--bf16` daemon over phase 3's bundle: /health reports bfloat16,
+    /predict of 1 and 37 subjects equals the bf16 cohort serve."""
+    server = build_http_server(load_bundle(os.path.join(OUT_DIR, "bundle.npz"),
+                                           device=dev),
+                               device=dev, port=0, batch=BATCH,
+                               dtype=torch.bfloat16)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        addr = server.server_address[:2]
+        health = _get(addr, "/health")
+        if health["dtype"] != "bfloat16":
+            raise AssertionError(f"--bf16 daemon /health: {health}")
+        lo = 0
+        for n in (1, 37):
+            got = _post(addr, {k: v[lo:lo + n] for k, v in
+                               zip(("x", "adj", "snps"), cohort)})
+            compare_bf16(got, {k: v[lo:lo + n] for k, v in want.items()},
+                         f"bf16 /predict of {n} subjects", BF16_SERVE_ATOL)
+            lo += n
+        stats = _get(addr, "/stats")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log(f"--bf16 daemon: /health {json.dumps(health)}; /stats "
+        f"{json.dumps(stats)}")
+    return {"health": health, "requests": stats["requests"]}
+
+
+def phase_tools(dev, layout):
+    """tools.profile_step on the card; a short --profile_dir CLI run; the
+    doctor on phase 12's layout and on a copy with one file removed; the
+    diffusion backends on an 874 x 90 cohort."""
+    import importlib.util
+
+    from iggcn_tpu_torch.data import diffusion
+    from iggcn_tpu_torch.tools import doctor, profile_step
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "sklearn")}
+    log(f"not run on the card: --plot (matplotlib "
+        f"{'present' if have['matplotlib'] else 'absent'}) and "
+        f"data/cluster.py (scikit-learn "
+        f"{'present' if have['sklearn'] else 'absent'}); the CPU tests hold "
+        "both against the JAX package")
+    out = {"have": have}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        hist = profile_step.main(["--batch", str(BATCH), "--steps", "5",
+                                  "--top", "10", "--device", str(dev),
+                                  "--out",
+                                  os.path.join(OUT_DIR, "profile_step")])
+    text = buf.getvalue()
+    log(text.rstrip())
+    if "device time" not in text or not any(
+            "gcn_stack_kernel" in name for name in hist):
+        raise AssertionError("profile_step saw no device time or no "
+                             "gcn_stack kernel")
+    out["profile_step_s"] = time.perf_counter() - t0
+    out["profile_step_device_ops"] = int(sum(c for _, c in hist.values()))
+
+    trace_dir = os.path.join(OUT_DIR, "profile_dir")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    argv = cli_argv(1, "_chip_smoke_profile", "--profile_dir", trace_dir)
+    argv[argv.index("--synthetic_subjects") + 1] = str(PROFILE_SUBJECTS)
+    argv[argv.index("--fold") + 1] = "3"
+    text, _, wall_s, _ = cli_run(argv)
+    files = {name: os.path.getsize(os.path.join(trace_dir, name))
+             for name in sorted(os.listdir(trace_dir))}
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not kernels or re.search(r"^Result - ", text, re.M) is None:
+        raise AssertionError(f"--profile_dir run: {kernels} kernel events")
+    out["profile_dir"] = {"files": files, "kernel_events": kernels,
+                          "wall_s": wall_s}
+    log(f"--profile_dir run ({PROFILE_SUBJECTS} subjects, 3 folds, 1 epoch) "
+        f"in {wall_s:.3f} s: {files}, {kernels} device kernel events")
+
+    json_path, conn_path, genes_path = layout["go"]
+    doc_argv = ["--data_path", layout["data_path"], "--isMultiFusion",
+                "--json_path", json_path, "--go_connection_path", conn_path,
+                "--snps_to_gene_path", genes_path]
+    good = _run_main(doctor.main, doc_argv)
+    broken = layout["data_path"] + "_broken"
+    shutil.copytree(layout["data_path"], broken)
+    os.remove(os.path.join(broken, "knn", "5", "corr_data.mat"))
+    bad = _run_main(doctor.main, ["--data_path", broken] + doc_argv[2:])
+    shutil.rmtree(broken)
+    log(f"doctor on phase 12's layout: exit {good[0]}, "
+        f"{good[1].strip().splitlines()[-1]}; with corr_data.mat removed: "
+        f"exit {bad[0]}, {bad[1].strip().splitlines()[-1]}")
+    if (good[0], bad[0]) != (0, 1):
+        raise AssertionError(f"doctor exits {good[0]} / {bad[0]}, not 0 / 1:"
+                             f"\n{good[1]}\n{bad[1]}")
+    out["doctor_exit"] = {"layout": good[0], "one_file_removed": bad[0]}
+
+    raw = make_cohort(np.random.default_rng(18), DIFFUSION_SUBJECTS)[1]
+    walls, results = {}, {}
+    # auto's first call builds the library and device's first call starts
+    # the solver: the walls kept are the second calls'
+    for backend in ("numpy", "auto", "auto", "device", "device"):
+        t0 = time.perf_counter()
+        results[backend] = diffusion.preprocess_diffusion(
+            raw, backend=backend, device=dev)
+        walls[backend] = time.perf_counter() - t0
+    ref = results["numpy"]
+    if (np.abs(results["auto"] - ref).max() > 1e-12
+            or not ((results["auto"] > 0) == (ref > 0)).all()):
+        raise AssertionError("diffusion auto differs from numpy")
+    # device is fp32: a column whose k-th and (k+1)-th PPR values are
+    # closer than fp32 resolves may keep another entry (the JAX package's
+    # device backend does the same); every other column must agree
+    k, n = 3, raw.shape[-1]
+    ppr = np.sort(np.stack([diffusion.get_ppr_matrix(a.astype(np.float64))
+                            for a in raw]), axis=1)
+    near = (ppr[:, n - k] - ppr[:, n - k - 1]) / ppr[:, n - k] < DIFFUSION_TIE
+    dev_out = results["device"]
+    differ = ((dev_out > 0) != (ref > 0)).any(axis=1)
+    err = float(np.abs(np.where(near[:, None, :], 0.0, dev_out - ref)).max())
+    if (differ & ~near).any() or err > 2e-5:
+        raise AssertionError(f"diffusion device: {int((differ & ~near).sum())} "
+                             f"columns apart from near-ties select other "
+                             f"entries, max abs diff {err} (atol 2e-5)")
+    errs = {"auto": float(np.abs(results["auto"] - ref).max()),
+            "device_untied_columns": err}
+    out["diffusion_columns"] = {"near_tied": int(near.sum()),
+                                "selected_otherwise": int(differ.sum()),
+                                "total": int(near.size)}
+    out["diffusion"] = {"subjects": DIFFUSION_SUBJECTS, "walls_s": walls,
+                        "max_abs_diff_vs_numpy": errs}
+    log(f"-- host build of gdc_native.cpp:\n"
+        f"{cuda_build.BUILD_LOGS.get('gdc_native.cpp', '').strip()}")
+    log(f"diffusion of {DIFFUSION_SUBJECTS} x 90 x 90: walls {walls} s; "
+        f"vs numpy max abs diff {errs}; device selected other entries in "
+        f"{int(differ.sum())} of {near.size} columns, all near-tied "
+        f"({int(near.sum())} columns within {DIFFUSION_TIE} relative)")
+    return out
+
+
+def _run_main(main, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    return code, buf.getvalue()
+
+
+def phase_bf16(dev, card_name, fp32_model, fp32_served, cohort, artifacts,
+               layout):
+    log("== phase 16: bf16 serving, the tools and the diffusion backends")
+    max_err, calls = phase_bf16_kernel(dev)
+    times = phase_bf16_times(dev, card_name)
+    serving = phase_bf16_serving(dev, fp32_model, fp32_served, cohort,
+                                 artifacts)
+    http = phase_bf16_http(dev, cohort, batched_forward(
+        fp32_model, *cohort, batch_size=BATCH, dtype=torch.bfloat16))
+    tools = phase_tools(dev, layout)
+    return {"max_abs_err": max_err, "checked_calls": calls, "times": times,
+            "serving": serving, "http": http, "tools": tools}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2756,8 +3201,10 @@ def main() -> int:
         layout = real_layout(root)
         real, real_ctx = phase_real_cohort(dev, layout)
         other = phase_other_routes(dev, layout, real_ctx)
-    zoo = phase_zoo(dev)
-    batched = phase_fold_parallel(dev, train)
+        zoo = phase_zoo(dev)
+        batched = phase_fold_parallel(dev, train)
+        bf16 = phase_bf16(dev, torch.cuda.get_device_name(0), model, served,
+                          cohort, artifacts, layout)
 
     serving, *others = times["shapes"]
     fp_row = times["grouped"][0]
@@ -2854,7 +3301,26 @@ def main() -> int:
             "shape", "F", "B", "N", "F0", "widths", "kernel_ms",
             "kernel_cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
             "library_cold_ms", "bound_ms", "bound_by")}
-            for row in times["grouped"]]}]}
+            for row in times["grouped"]]}, {
+        # the bf16-operand form: bf16 serving's one launch per forward
+        "name": "gcn_stack_bf16", "route": "cuda",
+        "source": "iggcn_tpu_torch/csrc/gcn_stack.cu",
+        "replaces": "iggcn_tpu/ops/pallas_gcn.py:83",
+        "launches": bf16["serving"]["launches"],
+        "max_abs_err": bf16["max_abs_err"],
+        "ms": bf16["times"][0]["kernel_ms"],
+        "cold_ms": bf16["times"][0]["kernel_cold_ms"],
+        "plain_ms": bf16["times"][0]["plain_ms"],
+        "bound_ms": bf16["times"][0]["bound_ms"],
+        "bound_by": bf16["times"][0]["bound_by"],
+        "library_ms": bf16["times"][0]["library_ms"],
+        "served_bundles": {what: {k: row[k] for k in (
+            "model_class", "launches", "launches_per_forward")}
+            for what, row in bf16["serving"]["bundles"].items()},
+        "shapes": [{k: row[k] for k in (
+            "shape", "B", "N", "F0", "widths", "kernel_ms", "kernel_cold_ms",
+            "plain_ms", "plain_cold_ms", "library_ms", "library_cold_ms",
+            "bound_ms", "bound_by", "plan")} for row in bf16["times"]]}]}
     serve = {"serve": {"subjects": COHORT, "batch": BATCH,
                        "cohort_wall_s": times["serve_cohort_s"],
                        "request_subjects": BATCH, **http_times},
@@ -2907,6 +3373,17 @@ def main() -> int:
                  "permut_seeds_wall_s":
                      batched["permut_seeds"]["experiment_wall_s"],
                  "p_value": batched["permut_seeds"]["p_value"]},
+             "bf16": {
+                 "cohort_wall_s": bf16["serving"]["cohort_wall_s"],
+                 "fp32_cohort_wall_s": bf16["serving"]["fp32_cohort_wall_s"],
+                 "card_vs_cpu_max_abs_diff":
+                     bf16["serving"]["card_vs_cpu_max_abs_diff"],
+                 "fp32_agreement": bf16["serving"]["fp32_agreement"]},
+             "tools": {"doctor_exit": bf16["tools"]["doctor_exit"],
+                       "diffusion_walls_s":
+                           bf16["tools"]["diffusion"]["walls_s"],
+                       "profile_dir_files":
+                           bf16["tools"]["profile_dir"]["files"]},
              "snps_only": {model: {
                  "experiment_wall_s": run["experiment_wall_s"],
                  "result_line": run["result_line"],
@@ -2923,7 +3400,7 @@ def main() -> int:
                    "multi_fusion": multi, "families": families,
                    "artifacts": artifacts, "snps_only": snps,
                    "real_cohort": real, "other_routes": other, "zoo": zoo,
-                   "batched": batched,
+                   "batched": batched, "bf16": bf16,
                    "device": device}, fh, indent=1, default=float)
     log(card)
     log(json.dumps(serve))

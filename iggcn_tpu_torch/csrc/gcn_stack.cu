@@ -11,6 +11,11 @@
 //   training     B=32  N=90  F0=3 (16,16):     1.44 MB = 0.43 us
 //   multi-fusion B=256 N=270 F0=1 (10,10,10): 83.2 MB = 24.8 us; 1.12 GFLOP = 16.7 us
 // P is nearly all of the bytes, and the fp32 FMAs are within 2x of them.
+// The bf16-operand form (serving with --bf16: P, x, W and b in bf16, fp32
+// arithmetic, fp32 activations and output) halves P's bytes, so the FMAs
+// bound it:
+//   serving      B=256 N=90  F0=3 (16,16):     7.24 MB = 2.16 us; 148 MFLOP = 2.21 us
+//   multi-fusion B=256 N=270 F0=1 (10,10,10): 45.8 MB = 13.7 us; 1.15 GFLOP = 17.2 us
 //
 // Design, part by part, against that bound:
 // - P is read from device memory once. Each sample runs on a cluster of C
@@ -44,6 +49,18 @@
 //   call has strides 0, so both run one code path. Every CTA of a cluster
 //   belongs to one sample and so reads one set. The bytes per sample do
 //   not change (each CTA copied the weights into shared memory anyway).
+// - The bf16 form (T = __nv_bfloat16) keeps P's band in shared memory as
+//   bf16, half the bytes, so N=270 fits one CTA; x, the weights and the
+//   biases are widened to fp32 as they land (the weights gathered into
+//   registers while x and P are in flight, one wait for all), and the
+//   tile loop reads P in bf16 pairs and widens them. A sample's P starts only 4-byte aligned
+//   in bf16 (16,200 bytes per sample at N=90), so the band is copied as a
+//   bulk copy of its 16-byte-aligned interior plus plain loads of the
+//   head and tail (under 16 bytes each), into shared memory offset so that
+//   the interior lands 16-byte aligned; nothing outside the band is read
+//   and P is not copied per call. No tensor cores: the second layer's h
+//   is fp32, as in the JAX package's bf16 serving, and an MMA would round
+//   it to bf16.
 // Accumulation is plain fp32 FMA (no TF32, no tensor cores) in the order
 // h @ W first, then P @ (h W), as the TPU kernel did.
 //
@@ -53,6 +70,7 @@
 // launches on the caller's stream, never synchronises, allocates nothing,
 // and returns the cudaError_t of the launch (0 on success).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <mutex>
@@ -68,7 +86,8 @@ constexpr int kMaxCluster = 8;
 // and a type with internal linkage would give it internal linkage too.
 // Field for field the ctypes structure _CPlan in ops/gcn_stack.py. Offsets
 // are in floats from the start of dynamic shared memory, where P's band
-// of columns starts.
+// of columns starts (in the bf16 form up to 7 bf16 values in: the band's
+// head, so that its 16-byte-aligned interior lands 16-byte aligned).
 struct StackPlan {
   int n, num_layers, cluster;
   int rows;          // P columns (= h rows) per CTA: [rank * rows, ...)
@@ -84,6 +103,7 @@ struct StackPlan {
   int p_transposed;  // P's memory holds P^T row by row
   int copy_bulk;     // the band is one 16-byte-aligned block: bulk copy
   int group;         // samples per weight set: sample s reads set s / group
+  int bf16;          // P, x, weights and biases are bf16 (output fp32)
   int off_part;      // n8 x hs: this CTA's partial P hW (cluster > 1)
   int off_hw;        // kpad x hws: hW of this CTA's rows
   int off_h;         // hs x hts: this CTA's rows of h, transposed
@@ -97,14 +117,15 @@ struct StackPlan {
   int b_stride[kMaxLayers];  // floats between bias sets (0: shared)
 };
 
+// Input pointers are float or __nv_bfloat16 as plan.bf16 says.
 struct StackArgs {
   StackPlan plan;
-  const float* prop;
+  const void* prop;
   long long p_batch_stride;
-  const float* x;
+  const void* x;
   float* out;
-  const float* w[kMaxLayers];
-  const float* b[kMaxLayers];
+  const void* w[kMaxLayers];
+  const void* b[kMaxLayers];
 };
 
 namespace {
@@ -138,6 +159,30 @@ __device__ __forceinline__ void cp_async_4(float* dst, const float* src) {
                :: "r"(smem_addr(dst)), "l"(src) : "memory");
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Two adjacent values (4-byte aligned in bf16, 8-byte in fp32) as floats.
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// One value of P into shared memory, in its own type: a 4-byte cp.async
+// in fp32, a plain load and store in bf16 (cp.async copies 4 bytes or
+// more).
+__device__ __forceinline__ void copy_elem(float* dst, const float* src) {
+  cp_async_4(dst, src);
+}
+__device__ __forceinline__ void copy_elem(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src) {
+  *dst = *src;
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -151,7 +196,7 @@ __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
 // One thread: copy `bytes` (a multiple of 16, both ends 16-byte aligned)
 // from global to shared memory with the bulk-copy engine; `bar` completes
 // its phase 0 when they have landed.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           unsigned bytes,
                                           unsigned long long* bar) {
   asm volatile(
@@ -171,6 +216,30 @@ __device__ __forceinline__ void mbar_wait_phase0(unsigned long long* bar) {
         " selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(smem_addr(bar)) : "memory");
   }
+}
+
+// Value i of the parameter area of shared memory (every layer's W_l, then
+// b_l, zero-padded as the plan lays them out from off_w[0] to off_o), read
+// from the bf16 weight set `wset` and widened to fp32.
+__device__ __forceinline__ float param_value(const StackArgs& a, long long wset,
+                                             int i) {
+  const StackPlan& p = a.plan;
+  int l = 0;
+  while (l + 1 < p.num_layers && i >= p.off_w[l + 1]) ++l;
+  const int fout = p.dims[l + 1];
+  if (i >= p.off_b[l]) {
+    const int c = i - p.off_b[l];
+    return c < fout ? __bfloat162float(__ldg(
+        static_cast<const __nv_bfloat16*>(a.b[l]) + wset * p.b_stride[l] + c))
+                    : 0.f;
+  }
+  const int idx = i - p.off_w[l];
+  const int f = idx / p.fout_p[l];
+  const int c = idx - f * p.fout_p[l];
+  return f < p.dims[l] && c < fout
+             ? __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(a.w[l]) +
+                                      wset * p.w_stride[l] + f * fout + c))
+             : 0.f;
 }
 
 __device__ __forceinline__ int cluster_rank() {
@@ -196,13 +265,14 @@ __device__ __forceinline__ const float* peer_ptr(const float* p, int rank) {
 }
 
 // acc[r][c] += sum_{j < k} a[j * a_stride + r] * b[j * b_stride + c], in
-// ascending j, for a TR x 4 register tile: per step, TR/2 8-byte loads of
-// a and one 16-byte load of b feed 4 TR FMAs. a is 8-byte, b 16-byte
-// aligned; k is a multiple of 4 (the operands are zero-padded). The plain
-// unrolled loop lets the compiler keep the next steps' loads in flight
-// (hand-written double buffering measured slower; PERF.md).
-template <int TR>
-__device__ __forceinline__ void mac_tile(const float* a, int a_stride,
+// ascending j, for a TR x 4 register tile: per step, TR/2 pair loads of
+// a (8 bytes in fp32, 4 in bf16, widened) and one 16-byte load of b feed
+// 4 TR FMAs. a is pair-aligned, b 16-byte aligned; k is a multiple of 4
+// (the operands are zero-padded). The plain unrolled loop lets the
+// compiler keep the next steps' loads in flight (hand-written double
+// buffering measured slower; PERF.md).
+template <int TR, typename TA>
+__device__ __forceinline__ void mac_tile(const TA* a, int a_stride,
                                          const float* b, int b_stride, int k,
                                          float (&acc)[TR][4]) {
 #pragma unroll 4
@@ -211,7 +281,7 @@ __device__ __forceinline__ void mac_tile(const float* a, int a_stride,
     float av[TR];
 #pragma unroll
     for (int h = 0; h < TR; h += 2) {
-      const float2 v = *reinterpret_cast<const float2*>(a + j * a_stride + h);
+      const float2 v = load_pair(a + j * a_stride + h);
       av[h] = v.x;
       av[h + 1] = v.y;
     }
@@ -250,7 +320,9 @@ __device__ __forceinline__ void reduce_scatter(float (&acc)[kTileRows][4],
   }
 }
 
-template <int KS>
+// T: the inputs' type, float or __nv_bfloat16; arithmetic, activations
+// and the output are fp32 either way.
+template <int KS, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 gcn_stack_kernel(const __grid_constant__ StackArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -274,51 +346,95 @@ gcn_stack_kernel(const __grid_constant__ StackArgs a) {
   const long long sample = blockIdx.x / cl;
   const int r0 = rank * rows;                 // first column of P it owns
   const int own = min(n, r0 + rows) - r0;     // >= 1, by the plan
-  float* pt = smem;                           // pt[j * ps + i] = P[i][r0 + j]
+  const T* prop_s = static_cast<const T*>(sa.prop) + sample * sa.p_batch_stride;
+  // The band of P's columns this CTA owns. With the bulk copy (P
+  // transposed: the band is one block of memory) it splits into a head
+  // up to the first 16-byte boundary, a 16-byte-aligned body for the bulk
+  // copy and a tail after the last boundary; the band starts `lead`
+  // values into shared memory, so that the body lands 16-byte aligned.
+  // fp32 bands are 16-byte aligned whole (the wrapper sees to it).
+  const T* band = prop_s + static_cast<long long>(r0) * n;
+  const int band_bytes = own * n * static_cast<int>(sizeof(T));
+  const int mis = static_cast<int>(reinterpret_cast<unsigned long long>(band) & 15);
+  const int head = p.copy_bulk ? min((16 - mis) & 15, band_bytes) : 0;
+  const int body = p.copy_bulk ? (band_bytes - head) & ~15 : 0;
+  const int lead = p.copy_bulk ? mis / static_cast<int>(sizeof(T)) : 0;
+  T* pt = reinterpret_cast<T*>(smem) + lead;  // pt[j * ps + i] = P[i][r0 + j]
   float* part = smem + p.off_part;            // part[i * hs + c]
   float* hw = smem + p.off_hw;                // hw[j * hws + c] = (hW)[r0 + j][c]
   float* ht = smem + p.off_h;                 // ht[f * hts + j] = h[r0 + j][f]
   float* os = smem + p.off_o;                 // os[j * total + c] = out[r0 + j][c]
-  const float* prop_s = sa.prop + sample * sa.p_batch_stride;
   const long long wset = sample / p.group;    // this sample's weight set
 
-  // 1. Queued first, so that they do not wait behind P: the weights and
-  //    biases, zero-padded to multiples of 4, as 4-byte cp.asyncs, and
-  //    h_0 = x for this CTA's rows into registers (all of a thread's loads
-  //    in flight together), then into h^T.
+  // 1. Queued first, so that they do not wait behind P: in fp32 the
+  //    weights and biases, zero-padded to multiples of 4, as 4-byte
+  //    cp.asyncs; then h_0 = x for this CTA's rows into registers (all of
+  //    a thread's loads in flight together), then into h^T. In bf16 the
+  //    weights and biases are widened on the way, so they are gathered
+  //    into registers after x, P and the band's edges are in flight, and
+  //    the CTA waits on all of them at once.
+  constexpr bool kFp32 = sizeof(T) == 4;
   {
-    for (int l = 0; l < p.num_layers; ++l) {
-      const int fin = p.dims[l], fout = p.dims[l + 1], fp = p.fout_p[l];
-      float* ws = smem + p.off_w[l];
-      const float* wg = sa.w[l] + wset * p.w_stride[l];
-      for (int idx = tid; idx < ((fin + 3) & ~3) * fp; idx += nthr) {
-        const int f = idx / fp;
-        const int c = idx - f * fp;
-        if (f < fin && c < fout) cp_async_4(ws + idx, wg + f * fout + c);
-        else ws[idx] = 0.f;
-      }
-      float* bs = smem + p.off_b[l];
-      const float* bg = sa.b[l] + wset * p.b_stride[l];
-      for (int c = tid; c < fp; c += nthr) {
-        if (c < fout) cp_async_4(bs + c, bg + c);
-        else bs[c] = 0.f;
+    if constexpr (kFp32) {
+      for (int l = 0; l < p.num_layers; ++l) {
+        const int fin = p.dims[l], fout = p.dims[l + 1], fp = p.fout_p[l];
+        float* ws = smem + p.off_w[l];
+        const T* wg = static_cast<const T*>(sa.w[l]) + wset * p.w_stride[l];
+        for (int idx = tid; idx < ((fin + 3) & ~3) * fp; idx += nthr) {
+          const int f = idx / fp;
+          const int c = idx - f * fp;
+          if (f < fin && c < fout) cp_async_4(ws + idx, wg + f * fout + c);
+          else ws[idx] = 0.f;
+        }
+        float* bs = smem + p.off_b[l];
+        const T* bg = static_cast<const T*>(sa.b[l]) + wset * p.b_stride[l];
+        for (int c = tid; c < fp; c += nthr) {
+          if (c < fout) cp_async_4(bs + c, bg + c);
+          else bs[c] = 0.f;
+        }
       }
     }
     const int f0 = p.dims[0];
     const int nx = own * f0;                  // x's rows are contiguous
-    const float* x_s = sa.x + (sample * n + r0) * f0;
+    const T* x_s = static_cast<const T*>(sa.x) + (sample * n + r0) * f0;
     float v[kGather];
 #pragma unroll
     for (int k = 0; k < kGather; ++k) {
       const int e = k * nthr + tid;
-      v[k] = e < nx ? x_s[e] : 0.f;
+      v[k] = e < nx ? to_float(x_s[e]) : 0.f;
     }
     // 2. P's columns [r0, r0 + own). In the transposed layout they are
-    //    one block of memory: one bulk copy.
-    if (p.copy_bulk && tid == 0) {
-      bulk_load(pt, prop_s + static_cast<long long>(r0) * n,
-                static_cast<unsigned>(own * n * 4), &p_ready);
+    //    one block of memory: one bulk copy of its aligned body, and the
+    //    head and tail (bf16 only: under 16 bytes each, so one value per
+    //    thread of the first 14) as plain loads.
+    if (body > 0 && tid == 0) {
+      bulk_load(reinterpret_cast<unsigned char*>(pt) + head,
+                reinterpret_cast<const unsigned char*>(band) + head,
+                static_cast<unsigned>(body), &p_ready);
     }
+    const int sz = static_cast<int>(sizeof(T));
+    const int head_n = head / sz, tail_0 = (head + body) / sz;
+    const int edge_n = p.copy_bulk ? head_n + own * n - tail_0 : 0;
+    const int edge_at = tid < head_n ? tid : tail_0 + tid - head_n;
+    T edge = static_cast<T>(0.f);
+    if (tid < edge_n) edge = band[edge_at];
+    if constexpr (!kFp32) {
+      const int p1 = p.off_o;
+      for (int base = p.off_w[0]; base < p1; base += kGather * nthr) {
+        float w[kGather];
+#pragma unroll
+        for (int k = 0; k < kGather; ++k) {
+          const int i = base + k * nthr + tid;
+          w[k] = i < p1 ? param_value(sa, wset, i) : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kGather; ++k) {
+          const int i = base + k * nthr + tid;
+          if (i < p1) smem[i] = w[k];
+        }
+      }
+    }
+    if (tid < edge_n) pt[edge_at] = edge;
     for (int idx = tid; idx < hs * hts; idx += nthr) {
       const int f = idx / hts;
       if (f >= f0 || idx - f * hts >= own) ht[idx] = 0.f;
@@ -329,30 +445,33 @@ gcn_stack_kernel(const __grid_constant__ StackArgs a) {
       if (e < nx) ht[(e % f0) * hts + e / f0] = v[k];
     }
     for (int e = kGather * nthr + tid; e < nx; e += nthr) {
-      ht[(e % f0) * hts + e / f0] = x_s[e];
+      ht[(e % f0) * hts + e / f0] = to_float(x_s[e]);
     }
   }
   cp_async_wait_all();
 
-  //    Otherwise P comes as 4-byte cp.asyncs, queued now that the weights
-  //    have landed; they complete while h_0 W_0 runs.
+  //    Otherwise P comes value by value (fp32: 4-byte cp.asyncs, queued
+  //    now that the weights have landed; they complete while h_0 W_0
+  //    runs).
   if (!p.copy_bulk && p.p_transposed) {
     for (int idx = tid; idx < own * n; idx += nthr) {
       const int j = idx / n;
       const int i = idx - j * n;
-      cp_async_4(pt + j * ps + i, prop_s + static_cast<long long>(r0 + j) * n + i);
+      copy_elem(pt + j * ps + i, band + static_cast<long long>(j) * n + i);
     }
   } else if (!p.copy_bulk) {
     // row-major: coalesced reads along P's rows, transposed into place
     for (int idx = tid; idx < n * own; idx += nthr) {
       const int i = idx / own;
       const int j = idx - i * own;
-      cp_async_4(pt + j * ps + i, prop_s + static_cast<long long>(i) * n + r0 + j);
+      copy_elem(pt + j * ps + i, prop_s + static_cast<long long>(i) * n + r0 + j);
     }
   }
   // zero columns [own, kpad) of the band, and the slack the tile loop's
   // pad rows read past the last column
-  for (int idx = own * ps + tid; idx < kpad * ps + 8; idx += nthr) pt[idx] = 0.f;
+  for (int idx = own * ps + tid; idx < kpad * ps + 8; idx += nthr) {
+    pt[idx] = static_cast<T>(0.f);
+  }
 
   __syncthreads();
   phase(1);                                   // x and the weights are in
@@ -383,7 +502,7 @@ gcn_stack_kernel(const __grid_constant__ StackArgs a) {
     phase(2 + 3 * l);                         // hW done
     if (l == 0) {
       cp_async_wait_all();
-      if (p.copy_bulk) mbar_wait_phase0(&p_ready);
+      if (body > 0) mbar_wait_phase0(&p_ready);
     }
     __syncthreads();
     phase(3 + 3 * l);                         // P in (layer 0)
@@ -484,7 +603,7 @@ gcn_stack_kernel(const __grid_constant__ StackArgs a) {
 
 // Sets the kernel's dynamic shared-memory limit on `device` the first
 // time a launch needs more than was set before.
-template <int KS>
+template <int KS, typename T>
 cudaError_t reserve_shared(int device, int bytes) {
   static std::mutex mu;
   static int reserved[kMaxDevices] = {};
@@ -492,16 +611,16 @@ cudaError_t reserve_shared(int device, int bytes) {
   const bool known = device >= 0 && device < kMaxDevices;
   if (known && bytes <= reserved[device]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      gcn_stack_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      gcn_stack_kernel<KS, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && known) reserved[device] = bytes;
   return err;
 }
 
-template <int KS>
+template <int KS, typename T>
 cudaError_t launch(const StackArgs& args, int batch, int device,
                    cudaStream_t stream) {
   const StackPlan& p = args.plan;
-  const cudaError_t err = reserve_shared<KS>(device, p.smem_bytes);
+  const cudaError_t err = reserve_shared<KS, T>(device, p.smem_bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(batch) * p.cluster);
@@ -515,23 +634,32 @@ cudaError_t launch(const StackArgs& args, int batch, int device,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = p.cluster > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, gcn_stack_kernel<KS>, args);
+  return cudaLaunchKernelEx(&cfg, gcn_stack_kernel<KS, T>, args);
+}
+
+template <typename T>
+cudaError_t launch_split(const StackArgs& args, int batch, int device,
+                         cudaStream_t stream) {
+  const int ks = args.plan.ksplit;
+  return ks == 4   ? launch<4, T>(args, batch, device, stream)
+         : ks == 2 ? launch<2, T>(args, batch, device, stream)
+                   : launch<1, T>(args, batch, device, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// plan: from plan_launch; prop (B, N, N) fp32 with batch stride
-// p_batch_stride floats, row-major or transposed as plan->p_transposed
+// plan: from plan_launch; prop (B, N, N) with batch stride
+// p_batch_stride values, row-major or transposed as plan->p_transposed
 // says; x (B, N, dims[0]) contiguous; weights[l] B / group sets of
-// (dims[l], dims[l+1]), each contiguous, plan->w_stride[l] floats apart,
+// (dims[l], dims[l+1]), each contiguous, plan->w_stride[l] values apart,
 // and biases[l] sets of (dims[l+1]) plan->b_stride[l] apart (strides 0:
-// one set for every sample); out (B, N, total) contiguous; all on
-// `device`.
-int gcn_stack_forward(const StackPlan* plan, const float* prop,
-                      long long p_batch_stride, const float* x,
-                      const float* const* weights, const float* const* biases,
+// one set for every sample); all of them fp32, or all bf16 with
+// plan->bf16; out (B, N, total) fp32 contiguous; all on `device`.
+int gcn_stack_forward(const StackPlan* plan, const void* prop,
+                      long long p_batch_stride, const void* x,
+                      const void* const* weights, const void* const* biases,
                       float* out, int batch, int device, void* stream) {
   const StackPlan& p = *plan;
   if (batch < 0 || p.num_layers < 1 || p.num_layers > kMaxLayers ||
@@ -555,9 +683,8 @@ int gcn_stack_forward(const StackPlan* plan, const float* prop,
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    err = p.ksplit == 4   ? launch<4>(args, batch, device, s)
-          : p.ksplit == 2 ? launch<2>(args, batch, device, s)
-                          : launch<1>(args, batch, device, s);
+    err = p.bf16 ? launch_split<__nv_bfloat16>(args, batch, device, s)
+                 : launch_split<float>(args, batch, device, s);
   }
   if (err != cudaSuccess) cudaGetLastError();   // clear it for the caller
   return static_cast<int>(err);

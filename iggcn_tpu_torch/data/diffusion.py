@@ -1,13 +1,32 @@
 """Graph-diffusion preprocessing: personalised PageRank and top-k
-sparsification, host-side NumPy, once per subject.
+sparsification, once per subject (port of `iggcn_tpu/data/diffusion.py`).
 
-The port's copy of the NumPy path of `iggcn_tpu/data/diffusion.py` (that
-module imports JAX for its batched device solve). The batched device solve
-and the C++ kernel of the JAX package are not ported yet.
+`preprocess_diffusion` has the JAX module's three backends:
+
+  * `numpy` (the port's default): the per-subject host loop, bit-equal to
+    the JAX package's NumPy path, which is why the port's cohort tests
+    can hold cohorts bit-equal;
+  * `auto`: PPR + top-k through the native C++ library
+    (`csrc/gdc_native.cpp`, the port's copy of the JAX package's), built
+    by the host compiler into `_build/` at first use; bit-comparable to
+    `numpy` (the same inverse up to LU round-off, the same stable-argsort
+    tie handling). It raises when the library cannot be built: no quiet
+    fallback;
+  * `device`: the whole cohort as one batched `torch.linalg.solve` in fp32
+    on a torch device (the card by default), with the JAX package's
+    threshold rule (`ppr_topk_batch_torch`). A library solve, as the JAX
+    package leaves it to XLA, not a kernel of the port.
+
+Other modes than PPR + top-k run on `numpy` only.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+import torch
+
+BACKENDS = ("auto", "device", "numpy")
 
 
 def get_ppr_matrix(adj: np.ndarray, alpha: float = 0.05) -> np.ndarray:
@@ -39,20 +58,86 @@ def get_top_k_matrix(a: np.ndarray, k: int = 5) -> np.ndarray:
     return a / norm
 
 
+def _native():
+    """The native library, built at first use, with its C signature."""
+    from iggcn_tpu_torch.utils.cuda_build import load_host_library
+    lib = load_host_library("gdc_native.cpp")
+    dptr = ctypes.POINTER(ctypes.c_double)
+    lib.ppr_topk_batch.restype = ctypes.c_int
+    lib.ppr_topk_batch.argtypes = [dptr, ctypes.c_longlong, ctypes.c_longlong,
+                                   ctypes.c_double, ctypes.c_longlong, dptr]
+    return lib
+
+
+def ppr_topk_batch_native(adjs: np.ndarray, alpha: float, top_k: int
+                          ) -> np.ndarray:
+    """PPR + column top-k + column normalisation of a (B, N, N) stack in
+    float64 by the native library (k > N keeps every entry)."""
+    adjs = np.ascontiguousarray(adjs, dtype=np.float64)
+    if adjs.ndim != 3 or adjs.shape[-1] != adjs.shape[-2]:
+        raise ValueError(f"expected (B, N, N), got {adjs.shape}")
+    out = np.empty_like(adjs)
+    dptr = ctypes.POINTER(ctypes.c_double)
+    rc = _native().ppr_topk_batch(adjs.ctypes.data_as(dptr), adjs.shape[0],
+                                  adjs.shape[1], float(alpha), int(top_k),
+                                  out.ctypes.data_as(dptr))
+    if rc != 0:
+        raise RuntimeError(f"gdc_native ppr_topk_batch failed (rc={rc})")
+    return out
+
+
+def ppr_topk_batch_torch(adjs: torch.Tensor, alpha: float = 0.05,
+                         top_k: int = 3) -> torch.Tensor:
+    """PPR + column top-k + column normalisation of a (B, N, N) stack as
+    one batched solve, on the tensor's device and in its type.
+
+    The JAX package's `ppr_topk_batch_jax`: it keeps every entry at or
+    above the k-th largest of its column (more than k on ties), where the
+    host paths zero exactly N - k entries by a stable argsort; on inputs
+    without ties at the k-th value the two agree up to the solve's
+    round-off."""
+    n = adjs.shape[-1]
+    d = 1.0 / torch.sqrt(adjs.sum(dim=-1))
+    h = adjs * d[..., :, None] * d[..., None, :]
+    eye = torch.eye(n, dtype=adjs.dtype, device=adjs.device)
+    ppr = alpha * torch.linalg.solve(eye - (1 - alpha) * h,
+                                     eye.expand(adjs.shape))
+    kth = torch.sort(ppr, dim=-2).values[..., n - top_k, :]   # per column
+    kept = torch.where(ppr >= kth[..., None, :], ppr,
+                       torch.zeros((), dtype=ppr.dtype, device=ppr.device))
+    norm = kept.sum(dim=-2, keepdim=True)
+    norm = torch.where(norm <= 0, torch.ones_like(norm), norm)
+    return kept / norm
+
+
 def preprocess_diffusion(adjs: np.ndarray, *, is_ppr: bool = True,
                          is_topk: bool = True, top_k: int = 3,
                          alpha: float = 0.05, heat_t: float = 5.0,
-                         backend: str = "numpy") -> np.ndarray:
+                         backend: str = "numpy",
+                         device: str | torch.device | None = None
+                         ) -> np.ndarray:
     """Diffuse and sparsify a stack of adjacencies (B, N, N), float64.
 
     With `is_topk=False` the heat kernel is applied to the already diffused
-    matrix, as the reference does (its eps-clip sparsifier is defined but never
-    called there, and the port has none). Only the NumPy backend exists in
-    the port.
-    """
-    if backend != "numpy":
-        raise ValueError(f"the port's diffusion has the 'numpy' backend "
-                         f"only; got {backend!r}")
+    matrix, as the reference does (its eps-clip sparsifier is defined but
+    never called there, and the port has none). `backend` is `numpy`,
+    `auto` (the native library) or `device` (one batched solve on
+    `device`, default the card); `auto` and `device` take PPR + top-k
+    only."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown diffusion backend {backend!r}; one of "
+                         f"{BACKENDS}")
+    if backend != "numpy" and not (is_ppr and is_topk):
+        raise ValueError(f"backend={backend!r} implements the PPR+top-k "
+                         "path only; use backend='numpy'")
+    if backend == "auto":
+        return ppr_topk_batch_native(adjs, alpha, top_k)
+    if backend == "device":
+        from iggcn_tpu_torch.utils.platform import resolve_device
+        t = torch.as_tensor(np.asarray(adjs, np.float32),
+                            device=resolve_device(device))
+        return ppr_topk_batch_torch(t, alpha, top_k).cpu().numpy().astype(
+            np.float64)
     out = np.empty_like(adjs, dtype=np.float64)
     for i in range(adjs.shape[0]):
         a = adjs[i].astype(np.float64)

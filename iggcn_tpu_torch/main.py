@@ -321,6 +321,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "one batched program on the card (each fold with "
                         "its own weights, dropout stream and learning-rate "
                         "schedule, as it would train alone)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the experiment "
+                        "here (trace.json, with the card's kernels; open it "
+                        "in Perfetto or chrome://tracing)")
     p.add_argument("--permut_seeds", type=str, default=None,
                    help="run a BATCH of permutation-test null experiments "
                         "in one process: a comma list '1,2,3' or an "
@@ -440,7 +444,8 @@ def build_dcfg(args) -> DataConfig:
         seed4permut_test=args.Seed4PermutTest)
 
 
-# what the real route reads, named when a load fails
+# what the real route reads, named when a load fails (with the doctor
+# command that checks it)
 REAL_LAYOUT = ("<data_path>/knn/<k>/{sbjID_int, score_excel_val_adni874, "
                "score_excel_val_adni874_fill, SNPS_data, BL_DXGrp_label, "
                "corr_data, imgData_mat_normalized_fix}.mat, "
@@ -518,7 +523,12 @@ def load_cohort(args, dcfg: DataConfig, rng: np.random.Generator):
                   f"{dcfg.json_path}, --go_connection_path "
                   f"{dcfg.go_connection_path}, --snps_to_gene_path "
                   f"{dcfg.snps_to_gene_path}. The route reads "
-                  f"{REAL_LAYOUT}.", file=sys.stderr)
+                  f"{REAL_LAYOUT}; python -m iggcn_tpu_torch.tools.doctor "
+                  f"--data_path {dcfg.data_path} --knn {dcfg.knn} "
+                  f"--json_path {dcfg.json_path} --go_connection_path "
+                  f"{dcfg.go_connection_path} --snps_to_gene_path "
+                  f"{dcfg.snps_to_gene_path} checks every file of it.",
+                  file=sys.stderr)
             raise
     if hit:
         print(f"[data] cohort loaded from cache ({key})")
@@ -986,7 +996,15 @@ def main(argv: Optional[List[str]] = None):
     device = resolve_device(args.device)
     if args.save_appendix == "":
         args.save_appendix = "_" + time.strftime("%Y%m%d%H%M%S")
+    from iggcn_tpu_torch.utils.profiling import trace_to
+    with trace_to(args.profile_dir, device):
+        return run_routes(args, parser, argv, device)
 
+
+def run_routes(args, parser, argv: Optional[List[str]],
+               device: torch.device):
+    """The experiment of a checked command line: a CV-seed or permutation
+    batch, or one experiment."""
     if args.cv_seeds is not None:
         seeds = parse_permut_seeds(args.cv_seeds, parser, flag="--cv_seeds")
         return run_cv_seed_batch(args, parser, argv, seeds, device)

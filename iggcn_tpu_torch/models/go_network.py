@@ -34,7 +34,8 @@ from torch import nn
 from iggcn_tpu_torch.data.go_graph import GoTopology
 from iggcn_tpu_torch.models.nn_compat import (BatchNorm1d, NodeLayerNorm,
                                               TorchLinear, dropout, normal,
-                                              node_dropout, torch_linear_init)
+                                              node_dropout, promoted,
+                                              torch_linear_init)
 from iggcn_tpu_torch.ops.attention import masked_row_normalize
 
 ATTENTION_IMPLS = ("auto", "dense", "edge")
@@ -200,12 +201,13 @@ class GeneOntologyNetwork(nn.Module):
         to x_in: the incoming message of every node."""
         w_att = getattr(self, f"w_att_in_{jj}")
         f = x_in.shape[-1]
+        x_in, w_att = promoted(x_in, w_att)
         u = x_in @ w_att[:f, 0]
         v = x_in @ w_att[f:, 0]
         if not use_edge:
             scores = torch.exp(torch.tanh(u[:, :, None] + v[:, None, :]))
             a_hat = masked_row_normalize(scores, getattr(self, f"enc_mask_{jj}"))
-            return a_hat @ x_in
+            return torch.matmul(*promoted(a_hat, x_in))
         rows = getattr(self, f"enc_rows_{jj}")
         cols = getattr(self, f"enc_cols_{jj}")
         scores_e = torch.exp(torch.tanh(u[:, rows] + v[:, cols]))  # (B, E)
@@ -238,8 +240,9 @@ class GeneOntologyNetwork(nn.Module):
             return node_dropout(t, self.dropout_gcn, generator) if train else t
 
         # gene encoding: (B, S) -> (B, n, C)
-        x = torch.stack([snps @ (self.gene_mask * getattr(self, f"gene_enc_{c}")).T
-                         for c in range(self.in_f_dim)], dim=2)
+        x = torch.stack([torch.matmul(*promoted(
+            snps, (self.gene_mask * getattr(self, f"gene_enc_{c}")).T))
+            for c in range(self.in_f_dim)], dim=2)
 
         use_edge = (self.attention_impl == "edge"
                     or (self.attention_impl == "auto" and snps.shape[0] >= 64))
@@ -268,13 +271,14 @@ class GeneOntologyNetwork(nn.Module):
             x_s_out = getattr(self, f"w_s_loop_out_{jj}")(x)
             grow = self.pool[self.n_l - jj - 1]
             x_self = nn.functional.pad(x_s_out, (0, 0, grow, 0))
-            out_dec = getattr(self, f"dec_attn_{jj}") @ x_out + x_self
+            out_dec = torch.matmul(*promoted(getattr(self, f"dec_attn_{jj}"),
+                                             x_out)) + x_self
             x = drop_nodes(self._act(getattr(self, f"g_b_d_{jj}")(out_dec),
                                      f"dec_{jj}"))
 
         out_d = drop(self._act(self.bn_b_d(self.conc_d(x)[..., 0], w), "b_d"))
         # gene decoding: (B, n) -> (B, S)
-        x_hat = out_d @ (self.gene_mask * self.gene_dec)
+        x_hat = torch.matmul(*promoted(out_d, self.gene_mask * self.gene_dec))
         return latent, x_hat, atten_out
 
     def classify(self, latent: torch.Tensor, snps: torch.Tensor, *,

@@ -24,19 +24,32 @@ to carry weights across in both directions:
   * `add_gat_params` / `gat_layer`: the per-layer leaves of the dense GAT
     stack (`ops/gat.py`) under the flax names `gat_*_{i}`.
 
+`promoted` casts a product's operands to their common type as
+`jnp.promote_types` gives it: `jnp` runs a bf16 x fp32 product in fp32,
+where torch's products refuse mixed types. bf16 serving (`predict.
+cast_floating`) mixes them; everywhere else the operands share a type
+and it changes nothing.
+
 Init helpers draw from an explicit `torch.Generator` onto an explicit
 device. Their values differ from JAX's for the same seed (the streams
 cannot cross frameworks); weights are carried across with `tools/convert`.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
 import torch
 from torch import nn
 
-from iggcn_tpu_torch.ops.gat import GATParams
+
+def promoted(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """`tensors` cast to their common type (`torch.promote_types`, which
+    agrees with `jnp.promote_types` on the float types), for a product
+    that may see bf16 and fp32 operands."""
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    return tuple(t if t.dtype == dtype else t.to(dtype) for t in tensors)
 
 
 def uniform(shape: Sequence[int], bound: float, generator, device
@@ -106,7 +119,8 @@ class TorchLinear(nn.Module):
             if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.weight.T
+        x, w = promoted(x, self.weight)
+        y = x @ w.T
         return y + self.bias if self.bias is not None else y
 
 
@@ -307,6 +321,7 @@ def add_gat_params(module: nn.Module, num_layers: int, feat_dim: int,
 
 def gat_layer(module: nn.Module, i: int) -> GATParams:
     """Layer i's `GATParams` from the leaves `add_gat_params` registered."""
+    from iggcn_tpu_torch.ops.gat import GATParams   # ops/gat imports this module
     return GATParams(*(getattr(module, f"gat_{name}_{i}") for name in
                        ("w", "att_src", "att_dst", "lin_edge", "att_edge",
                         "b")))

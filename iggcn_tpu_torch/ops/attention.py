@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from iggcn_tpu_torch.models.nn_compat import promoted
+
 
 class MHAParams(NamedTuple):
     in_proj_weight: torch.Tensor   # (3E, E)
@@ -43,14 +45,17 @@ def multihead_cross_attention(params: MHAParams, query: torch.Tensor,
         b_, l_, _ = t.shape
         return t.reshape(b_, l_, num_heads, hd).transpose(1, 2)
 
-    q = heads(query @ w_q.T + b_q)
-    k = heads(key @ w_k.T + b_k)
-    v = heads(value @ w_v.T + b_v)
-    weights = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(hd), dim=-1)
-    out = weights @ v                                   # (B, H, Lq, hd)
+    def mm(a, b):   # a bf16 x fp32 product in fp32, as jnp promotes it
+        return torch.matmul(*promoted(a, b))
+
+    q = heads(mm(query, w_q.T) + b_q)
+    k = heads(mm(key, w_k.T) + b_k)
+    v = heads(mm(value, w_v.T) + b_v)
+    weights = torch.softmax(mm(q, k.transpose(-1, -2)) / math.sqrt(hd), dim=-1)
+    out = mm(weights, v)                                # (B, H, Lq, hd)
     b_, _, lq, _ = out.shape
     out = out.transpose(1, 2).reshape(b_, lq, e)
-    out = out @ params.out_proj_weight.T + params.out_proj_bias
+    out = mm(out, params.out_proj_weight.T) + params.out_proj_bias
     return out, weights.mean(dim=1)
 
 

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from iggcn_tpu_torch.models.nn_compat import promoted
+
 
 class GATParams(NamedTuple):
     weight: torch.Tensor     # (F_in, F_out) node transform
@@ -42,9 +44,9 @@ def gat_conv(x: torch.Tensor, adj: torch.Tensor, p: GATParams,
     Returns: (B, N, F_out), aggregated at the targets.
     """
     n = x.shape[1]
-    h = x @ p.weight                                       # (B, N, F)
-    a_src = h @ p.att_src                                  # (B, N)
-    a_dst = h @ p.att_dst                                  # (B, N)
+    h = torch.matmul(*promoted(x, p.weight))               # (B, N, F)
+    a_src = torch.matmul(*promoted(h, p.att_src))          # (B, N)
+    a_dst = torch.matmul(*promoted(h, p.att_dst))          # (B, N)
 
     eye = torch.eye(n, dtype=torch.bool, device=x.device)
     mask_off = (adj != 0) & ~eye
@@ -65,4 +67,4 @@ def gat_conv(x: torch.Tensor, adj: torch.Tensor, p: GATParams,
     # its self-loop, so no column is all -inf
     alpha = torch.softmax(logits, dim=1)
     alpha = torch.where(mask_sl, alpha, zero)
-    return alpha.transpose(1, 2) @ h + p.bias
+    return torch.matmul(*promoted(alpha.transpose(1, 2), h)) + p.bias

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from iggcn_tpu_torch.models.nn_compat import promoted
+
 
 def gcn_propagation_matrix(adj: torch.Tensor, *, add_self_loops: bool = True,
                            improved: bool = False) -> torch.Tensor:
@@ -50,6 +52,7 @@ def gcn_conv(x: torch.Tensor, prop: torch.Tensor, weight: torch.Tensor,
       weight: (F_in, F_out), the JAX package's layout.
       bias: optional (F_out,).
     """
+    prop, x, weight = promoted(prop, x, weight)   # jnp's promotion
     out = prop @ (x @ weight)
     if bias is not None:
         out = out + bias

@@ -24,6 +24,17 @@ of B samples in one launch, sample s reading weight set s // B (an
 operand without the fold axis is broadcast with a stride of 0). Its plain
 version, `gcn_stack_reference_grouped`, is the CPU path and the kernel's
 yardstick on the card.
+
+bf16 serving hands the stack bf16 P, x, weights and biases. On CUDA that
+runs the kernel's bf16-operand form: the same stack in fp32 FMAs on the
+bf16 values, fp32 activations between layers and an fp32 output, as the
+JAX package's `gcn_conv` gives with `preferred_element_type=float32`;
+P's band in shared memory is bf16, half the bytes, so `plan_launch`
+(`elem_bytes=2`) needs a cluster only where the fp32 form needs a larger
+one. On the CPU it is `gcn_stack_reference` on the fp32 upcasts. The
+bf16 form serves only: it has no backward and raises when grad is on
+and an input requires it, and it has no grouped form (training is fp32).
+`fused_gcn_stack.launches_bf16` counts its launches.
 """
 from __future__ import annotations
 
@@ -116,9 +127,15 @@ class LaunchPlan:
     off_w: Tuple[int, ...]    # W_l as ceil4(F_l) x fout_p[l], zero-padded
     off_b: Tuple[int, ...]    # b_l as fout_p[l], zero-padded
     off_o: int                # last: the JK output of its rows, rows x sum H
+    elem_bytes: int = 4       # bytes of one value of P: 4 fp32, 2 bf16
 
 
-def _plan_for(n: int, dims: Sequence[int], cluster: int) -> LaunchPlan | None:
+# bf16 values the band's head may shift it by in shared memory (`band_copy`)
+BF16_LEAD = 8
+
+
+def _plan_for(n: int, dims: Sequence[int], cluster: int,
+              elem_bytes: int = 4) -> LaunchPlan | None:
     """The plan with this cluster size, or None when it cannot run."""
     rows = _ceil(-(-n // cluster), TILE_ROWS)
     if (cluster - 1) * rows >= n:          # a CTA would own no column
@@ -138,7 +155,10 @@ def _plan_for(n: int, dims: Sequence[int], cluster: int) -> LaunchPlan | None:
     # rows at one column: padded strides spread them over the banks
     hws = hs + 8 if ksplit > 1 else hs
     hts = kpad + 2
-    off_part = kpad * ps + 8
+    if elem_bytes == 4:
+        off_part = kpad * ps + 8
+    else:   # bf16 band: lead, kpad x ps values and the slack, in floats
+        off_part = _ceil((BF16_LEAD + kpad * ps + 8) // 2, 4)
     off_hw = off_part + (n8 * hs if cluster > 1 else 0)
     off_h = off_hw + kpad * hws
     cur = off_h + hs * hts
@@ -153,18 +173,24 @@ def _plan_for(n: int, dims: Sequence[int], cluster: int) -> LaunchPlan | None:
         return None
     return LaunchPlan(cluster, rows, ksplit, kpad, threads, smem, ps, n8, hs,
                       hws, hts, fout_p, off_part, off_hw, off_h,
-                      tuple(off_w), tuple(off_b), off_o)
+                      tuple(off_w), tuple(off_b), off_o, elem_bytes)
 
 
-def plan_launch(b: int, n: int, dims: Sequence[int]) -> LaunchPlan:
+def plan_launch(b: int, n: int, dims: Sequence[int],
+                elem_bytes: int = 4) -> LaunchPlan:
     """Launch plan for a batch of `b` samples of N nodes with layer widths
-    `dims` = (F0, H_1, ..., H_L).
+    `dims` = (F0, H_1, ..., H_L), P's values `elem_bytes` wide (4 fp32, 2
+    for the bf16 form).
 
     The cluster is the smallest that holds P resident: one CTA per sample
-    where it fits (N=90), two at N=270, which measured 2-3 % faster than
-    four on an H100 (PERF.md). The K split is the smallest that gives 4
-    warps. Raises ValueError for a shape the kernel cannot hold."""
-    plan = _choose_plan(n, tuple(int(d) for d in dims))
+    where it fits (N=90, and N=270 in bf16), two at N=270 in fp32, which
+    measured 2-3 % faster than four on an H100 (PERF.md). The K split is
+    the smallest that gives 4 warps. Raises ValueError for a shape the
+    kernel cannot hold."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"elem_bytes is 4 (fp32) or 2 (bf16); got "
+                         f"{elem_bytes}")
+    plan = _choose_plan(n, tuple(int(d) for d in dims), elem_bytes)
     if not 0 <= b * plan.cluster < 2 ** 31:
         raise ValueError(f"a batch of {b} takes {b * plan.cluster} CTAs; one "
                          "launch takes 0 to 2**31 - 1")
@@ -172,12 +198,14 @@ def plan_launch(b: int, n: int, dims: Sequence[int]) -> LaunchPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def _choose_plan(n: int, dims: Tuple[int, ...]) -> LaunchPlan:
+def _choose_plan(n: int, dims: Tuple[int, ...], elem_bytes: int
+                 ) -> LaunchPlan:
     if n < 1 or not 1 <= len(dims) - 1 <= MAX_LAYERS or min(dims) < 1:
         raise ValueError(f"gcn_stack kernel takes N >= 1 and 1..{MAX_LAYERS} "
                          f"layers of width >= 1; got N={n}, dims={dims}")
     plan = next((plan for c in CLUSTER_SIZES
-                 if (plan := _plan_for(n, dims, c)) is not None), None)
+                 if (plan := _plan_for(n, dims, c, elem_bytes)) is not None),
+                None)
     if plan is None:
         raise ValueError(f"gcn_stack kernel cannot hold N={n} with widths "
                          f"{list(dims)} resident in shared memory (cluster "
@@ -190,7 +218,7 @@ class _CPlan(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "n", "num_layers", "cluster", "rows", "ksplit", "kpad", "threads",
         "smem_bytes", "ps", "n8", "hs", "hws", "hts", "total",
-        "p_transposed", "copy_bulk", "group",
+        "p_transposed", "copy_bulk", "group", "bf16",
         "off_part", "off_hw", "off_h", "off_o")] + [
             (name, ctypes.c_int * size) for name, size in (
                 ("dims", MAX_LAYERS + 1), ("fout_p", MAX_LAYERS),
@@ -211,6 +239,7 @@ def _c_plan(plan: LaunchPlan, n: int, dims: Tuple[int, ...], transposed: bool,
         smem_bytes=plan.smem_bytes, ps=plan.ps, n8=plan.n8, hs=plan.hs,
         hws=plan.hws, hts=plan.hts, total=sum(dims[1:]),
         p_transposed=int(transposed), copy_bulk=int(bulk), group=group,
+        bf16=int(plan.elem_bytes == 2),
         off_part=plan.off_part, off_hw=plan.off_hw, off_h=plan.off_h,
         off_o=plan.off_o, dims=ints(dims, MAX_LAYERS + 1),
         fout_p=ints(plan.fout_p), off_w=ints(plan.off_w),
@@ -219,11 +248,32 @@ def _c_plan(plan: LaunchPlan, n: int, dims: Tuple[int, ...], transposed: bool,
         w_stride=ints(w_strides), b_stride=ints(b_strides))
 
 
+def band_copy(addr: int, own: int, n: int, elem_bytes: int
+              ) -> Tuple[int, int, int, int]:
+    """How the kernel copies one CTA's band of P (its `own` columns of N
+    values, one block of memory at byte address `addr`) with the bulk
+    copy, as `csrc/gcn_stack.cu` computes it: (lead, head, body, tail).
+    The band starts `lead` values into shared memory; its first `head`
+    bytes, up to a 16-byte boundary, and its last `tail` bytes are plain
+    loads; the `body` bytes between them, 16-byte aligned at both ends in
+    device and in shared memory, are one bulk copy."""
+    nbytes = own * n * elem_bytes
+    mis = addr % 16
+    head = min((16 - mis) % 16, nbytes)
+    body = (nbytes - head) // 16 * 16
+    return mis // elem_bytes, head, body, nbytes - head - body
+
+
 def _bulk_copyable(prop: torch.Tensor, plan: LaunchPlan) -> bool:
     """True when every CTA's band of P is one block of memory that the
-    bulk-copy engine takes: P transposed in memory, with the block's start
-    and length multiples of 16 bytes."""
+    bulk-copy engine takes: P transposed in memory; in fp32, with the
+    block's start and length multiples of 16 bytes; in bf16, with the
+    block's start 4-byte aligned (`band_copy` splits off the head and
+    tail), so that P's value pairs stay 4-byte aligned in shared memory."""
     b, n, _ = prop.shape
+    if plan.elem_bytes == 2:
+        return (plan.ps == n and prop.data_ptr() % 4 == 0
+                and (b == 1 or prop.stride(0) % 2 == 0))
     if plan.ps != n or prop.data_ptr() % 16 or (b > 1 and prop.stride(0) % 4):
         return False
     owns = [min(n, (k + 1) * plan.rows) - k * plan.rows
@@ -284,7 +334,8 @@ def _check_inputs(prop, x, weights, biases) -> Tuple[List[int], bool]:
     (F0, H_1, ..., H_L) and whether P is transposed in memory. Weights are
     shared, (F_l, H_l) and (H_l,), or grouped: every weight (G, F_l, H_l)
     and every bias (G, H_l), each set contiguous, any stride between sets
-    (0 included), and G dividing B."""
+    (0 included), and G dividing B. Every input is float32, or every one
+    bfloat16 with shared weights."""
     if prop.dim() != 3 or prop.shape[1] != prop.shape[2]:
         raise ValueError(f"prop must be (B, N, N); got {tuple(prop.shape)}")
     b, n, _ = prop.shape
@@ -309,12 +360,18 @@ def _check_inputs(prop, x, weights, biases) -> Tuple[List[int], bool]:
                              f"{dims[-1]}" + (f" in {groups} sets" if groups
                                               else ""))
         dims.append(int(w.shape[-1]))
+    if prop.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"prop must be float32 or bfloat16; got {prop.dtype}")
+    if prop.dtype == torch.bfloat16 and groups:
+        raise ValueError("the grouped form takes float32 only (training is "
+                         "fp32; bf16 is for serving)")
     for name, t in [("prop", prop), ("x", x), *(("weight", w) for w in weights),
                     *(("bias", bb) for bb in biases)]:
         if t.device != prop.device:
             raise ValueError(f"{name} is on {t.device}, prop on {prop.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32; got {t.dtype}")
+        if t.dtype != prop.dtype:
+            raise ValueError(f"{name} must be {prop.dtype} like prop; got "
+                             f"{t.dtype}")
         one_set = t[0] if groups and name in ("weight", "bias") else t
         if name != "prop" and not one_set.is_contiguous():
             raise ValueError(f"{name} must be contiguous" + (
@@ -329,7 +386,8 @@ def _launch(prop, x, weights, biases) -> torch.Tensor:
     b, n, _ = prop.shape
     index = (prop.device.index if prop.device.index is not None
              else torch.cuda.current_device())
-    plan = plan_launch(b, n, tuple(dims))
+    bf16 = prop.dtype == torch.bfloat16
+    plan = plan_launch(b, n, tuple(dims), 2 if bf16 else 4)
     out = torch.empty((b, n, sum(dims[1:])), device=prop.device,
                       dtype=torch.float32)
     if b == 0:
@@ -353,12 +411,20 @@ def _launch(prop, x, weights, biases) -> torch.Tensor:
     if code != 0:
         raise RuntimeError("gcn_stack kernel launch failed: "
                            + lib.gcn_stack_error_string(code).decode())
-    fused_gcn_stack.launches += 1
+    if bf16:
+        fused_gcn_stack.launches_bf16 += 1
+    else:
+        fused_gcn_stack.launches += 1
     return out
 
 
 def _plain(prop, x, weights, biases) -> torch.Tensor:
-    """The plain version of either form: grouped when the weights are 3-D."""
+    """The plain version of either form: grouped when the weights are 3-D;
+    bf16 inputs upcast to fp32 first, as the bf16 form computes."""
+    if prop.dtype == torch.bfloat16:
+        prop, x = prop.float(), x.float()
+        weights = [w.float() for w in weights]
+        biases = [bb.float() for bb in biases]
     if _weight_sets(weights):
         return gcn_stack_reference_grouped(prop, x, weights, biases)
     return gcn_stack_reference(prop, x, weights, biases)
@@ -439,9 +505,25 @@ def fused_gcn_stack(prop: torch.Tensor, x: torch.Tensor,
     (B, N, sum H_l). The grouped form takes weights[l] (G, F_l, H_l) and
     biases[l] (G, H_l), sample s reading set s // (B / G); `torch.func.vmap`
     of this function over a fold axis calls it once for all folds.
-    `fused_gcn_stack.launches` counts kernel launches.
+    bf16 P, x, weights and biases run the bf16-operand form (shared weights
+    only, no backward) and give a float32 output.
+    `fused_gcn_stack.launches` counts kernel launches of the fp32 forms,
+    `fused_gcn_stack.launches_bf16` those of the bf16 form.
     """
+    if prop.dtype == torch.bfloat16:
+        # the CPU path checks what the kernel's wrapper checks on CUDA
+        if any(t.dtype != torch.bfloat16 for t in (x, *weights, *biases)):
+            raise ValueError("bf16 prop needs bf16 x, weights and biases")
+        if _weight_sets(weights):
+            raise ValueError("the grouped form takes float32 only (training "
+                             "is fp32; bf16 is for serving)")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (prop, x, *weights, *biases)):
+            raise ValueError("the bf16 form of fused_gcn_stack serves only "
+                             "and has no backward; call it under "
+                             "torch.no_grad() or torch.inference_mode()")
     return _GcnStack.apply(prop, x, len(weights), *weights, *biases)
 
 
 fused_gcn_stack.launches = 0
+fused_gcn_stack.launches_bf16 = 0

@@ -7,6 +7,8 @@ from typing import NamedTuple
 
 import torch
 
+from iggcn_tpu_torch.models.nn_compat import promoted
+
 
 class ImportanceMasks(NamedTuple):
     x_masked: torch.Tensor        # (B, N, D) node features * prob
@@ -27,7 +29,7 @@ def edge_probability_dense(x_masked: torch.Tensor,
       (..., N, N) scores; entry [r, c] scores edge r->c.
     """
     d = x_masked.shape[-1]
-    b = prob_bias.reshape(2 * d)
+    x_masked, b = promoted(x_masked, prob_bias.reshape(2 * d))
     u = x_masked @ b[:d]   # (..., N)
     v = x_masked @ b[d:]   # (..., N)
     return torch.sigmoid(u[..., :, None] + v[..., None, :])

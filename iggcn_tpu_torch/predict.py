@@ -7,18 +7,60 @@ log-probs, argmax predictions and, where the model has a regression head
 (`FusedSGCN`, `GuideImgSnp`; not `ClusterLabelSGCN`), the clinical-score
 regressions. `batched_forward_snps` serves the SNP-only families from a
 SNP matrix alone: the GO network's encode-then-classify eval, or the
-MLP's head, as a probability and `pred = prob > 0.5`. The bf16 and
-multi-device options of the JAX functions come later.
+MLP's head, as a probability and `pred = prob > 0.5`.
+
+bf16 serving: `dtype=torch.bfloat16` serves with the model's weights and
+the padded inputs in bf16, as `dtype=jnp.bfloat16` does in the JAX
+package (`cast_floating` casts the weights, the GO topology constants stay
+fp32); products of a bf16 and an fp32 operand run in fp32 as `jnp`'s
+promotion has them, and the GCN stack runs the kernel's bf16-operand form.
+Outputs come back as fp32 host arrays. The JAX functions' `mesh=`
+(data-parallel serving over several devices) is not ported: the port
+serves on one card.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from iggcn_tpu_torch.models.clusterlabel import ClusterLabelSGCN
 from iggcn_tpu_torch.models.go_network import GeneOntologyNetwork
+from iggcn_tpu_torch.tools.convert import weight_slots
+
+
+def cast_floating(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast, in place, every floating weight of `model` to `dtype`: the
+    tensors `tools/convert.py` maps to the flax `params` and
+    `batch_stats` (the JAX `cast_floating` of those trees). Buffers that
+    are no weight (the GO topology masks, the decoder's uniform
+    attention, index lists) keep their type, as the JAX package keeps
+    them as fp32 constants; `module.to(dtype)` would cast them too.
+    Returns `model`."""
+    with torch.no_grad():
+        for _, mod, attr, _, _ in weight_slots(model):
+            t = getattr(mod, attr)
+            if not t.is_floating_point() or t.dtype == dtype:
+                continue
+            if isinstance(t, nn.Parameter):
+                t.data = t.data.to(dtype)
+            else:
+                setattr(mod, attr, t.to(dtype))
+    return model
+
+
+def _in_dtype(model: nn.Module, dtype: torch.dtype | None) -> nn.Module:
+    """`model` itself when its weights are all `dtype` (or `dtype` is None);
+    else a copy cast by `cast_floating`, leaving the caller's as it is."""
+    if dtype is None or all(
+            getattr(mod, attr).dtype == dtype
+            for _, mod, attr, _, _ in weight_slots(model)
+            if getattr(mod, attr).is_floating_point()):
+        return model
+    return cast_floating(copy.deepcopy(model), dtype)
 
 
 def pad_split_batches(arrays: Sequence[np.ndarray], batch_size: int,
@@ -63,8 +105,9 @@ def validate_cohort_shapes(model, x, adj, snps) -> None:
 
 
 def batched_forward(model, x: np.ndarray, adj: np.ndarray, snps: np.ndarray,
-                    *, batch_size: int = 256,
-                    fixed_batch: bool = False) -> Dict[str, np.ndarray]:
+                    *, batch_size: int = 256, fixed_batch: bool = False,
+                    dtype: torch.dtype | None = None
+                    ) -> Dict[str, np.ndarray]:
     """Serve a cohort on the model's device.
 
     Args:
@@ -74,6 +117,9 @@ def batched_forward(model, x: np.ndarray, adj: np.ndarray, snps: np.ndarray,
       fixed_batch: keep the batch at exactly `batch_size` even when the
         cohort is smaller (what a long-lived server wants: every request
         has the same shapes); by default the batch shrinks to the cohort.
+      dtype: `torch.bfloat16` for bf16 serving: the weights (of a cast
+        copy, unless the model is cast already) and the inputs, after
+        padding, in bf16; None serves in the model's fp32.
     Returns host arrays: log_probs (S, C) float32, pred (S,) int32 and,
     where the model has a regression head, our_reg (S, R) float32, padding
     rows removed.
@@ -84,6 +130,9 @@ def batched_forward(model, x: np.ndarray, adj: np.ndarray, snps: np.ndarray,
                                         else batch_size)
     device = next(model.parameters()).device
     xb, ab, sb = pad_split_batches((x, adj, snps), b, device)
+    model = _in_dtype(model, dtype)
+    if dtype is not None:
+        xb, ab, sb = (v.to(dtype) for v in (xb, ab, sb))
     cfg = model.cfg
     has_regr = not isinstance(model, ClusterLabelSGCN)
     log_probs, our_reg = [], []
@@ -98,7 +147,8 @@ def batched_forward(model, x: np.ndarray, adj: np.ndarray, snps: np.ndarray,
             res = {"log_probs": lp, "pred": lp.argmax(dim=-1).to(torch.int32)}
             if has_regr:
                 res["our_reg"] = torch.cat(our_reg)
-            return {k: v[:n].cpu().numpy() for k, v in res.items()}
+            return {k: (v[:n].float() if v.is_floating_point() else v[:n]
+                        ).cpu().numpy() for k, v in res.items()}
     res = {"log_probs": np.zeros((0, cfg.num_classes), np.float32),
            "pred": np.zeros((0,), np.int32)}
     if has_regr:
@@ -115,7 +165,8 @@ def snps_width(model) -> int:
 
 def batched_forward_snps(model, snps: np.ndarray, *, batch_size: int = 256,
                          fixed_batch: bool = False,
-                         expected_width: int | None = None
+                         expected_width: int | None = None,
+                         dtype: torch.dtype | None = None
                          ) -> Dict[str, np.ndarray]:
     """Serve a SNP-only cohort on the model's device: (S, P) host matrix ->
     prob (S,) float32 and pred (S,) int32 (prob > 0.5).
@@ -123,7 +174,7 @@ def batched_forward_snps(model, snps: np.ndarray, *, batch_size: int = 256,
     `model` is an eval-mode `GeneOntologyNetwork` built with
     `classifier=True` (encode, then classify the latent) or an `MLPModel`.
     `expected_width` fails fast with the model's SNP count on a matrix of
-    another width; the batch recipe is `batched_forward`'s."""
+    another width; the batch and `dtype` recipe is `batched_forward`'s."""
     snps = np.asarray(snps)
     if snps.ndim != 2:
         raise ValueError(f"snps matrix must be 2-D (subjects, snps); got "
@@ -136,6 +187,9 @@ def batched_forward_snps(model, snps: np.ndarray, *, batch_size: int = 256,
                                         else batch_size)
     device = next(model.parameters()).device
     (sb,) = pad_split_batches((snps,), b, device)
+    model = _in_dtype(model, dtype)
+    if dtype is not None:
+        sb = sb.to(dtype)
     is_go = isinstance(model, GeneOntologyNetwork)
     probs = []
     with torch.inference_mode():
@@ -146,6 +200,6 @@ def batched_forward_snps(model, snps: np.ndarray, *, batch_size: int = 256,
             else:
                 y_hat = model(sb[i])
             probs.append(y_hat[:, 0])
-        prob = (torch.cat(probs)[:n].cpu().numpy() if probs
+        prob = (torch.cat(probs)[:n].float().cpu().numpy() if probs
                 else np.zeros((0,), np.float32))
     return {"prob": prob, "pred": (prob > 0.5).astype(np.int32)}

@@ -29,28 +29,32 @@ from torch import nn
 Path = Tuple[str, ...]
 
 
+def weight_slots(model: nn.Module
+                 ) -> Iterator[Tuple[str, nn.Module, str, Path, Any]]:
+    """(module name, module, attribute, collection + flax path, layout) for
+    every weight of `model`: the tensors a flax variable tree holds."""
+    for mod_name, mod in model.named_modules():
+        prefix = tuple(mod_name.split(".")) if mod_name else ()
+        table = getattr(mod, "FLAX_LEAVES", None)
+        if table is None:
+            for name, _ in mod.named_parameters(recurse=False):
+                yield mod_name, mod, name, ("params",) + prefix + (name,), False
+            continue
+        for attr, (collection, leaf, transposed) in table.items():
+            if getattr(mod, attr) is not None:
+                yield (mod_name, mod, attr, (collection,) + prefix + (leaf,),
+                       transposed)
+
+
 def _leaves(model: nn.Module, state: Optional[Mapping[str, torch.Tensor]]
             = None) -> Iterator[Tuple[Path, torch.Tensor, bool]]:
     """(collection + flax path, tensor, transposed) for every weight; the
     tensor is the module's own, or its entry in `state` (a `state_dict()`
     or a copy of one) when that is given."""
-    for mod_name, mod in model.named_modules():
-        prefix = tuple(mod_name.split(".")) if mod_name else ()
-
-        def pick(attr, t):
-            return t if state is None else state[
-                ".".join(prefix + (attr,))]
-
-        table = getattr(mod, "FLAX_LEAVES", None)
-        if table is None:
-            for name, p in mod.named_parameters(recurse=False):
-                yield ("params",) + prefix + (name,), pick(name, p), False
-            continue
-        for attr, (collection, leaf, transposed) in table.items():
-            t = getattr(mod, attr)
-            if t is not None:
-                yield ((collection,) + prefix + (leaf,), pick(attr, t),
-                       transposed)
+    for mod_name, mod, attr, path, transposed in weight_slots(model):
+        key = f"{mod_name}.{attr}" if mod_name else attr
+        yield path, getattr(mod, attr) if state is None else state[key], \
+            transposed
 
 
 def _to_port(arr: np.ndarray, layout) -> np.ndarray:
@@ -110,7 +114,7 @@ def to_flax_variables(model: nn.Module,
     as the best epoch's) when given."""
     out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for path, t, transposed in _leaves(model, state):
-        arr = t.detach().cpu().numpy().astype(np.float32)
+        arr = t.detach().cpu().float().numpy()   # bf16 weights widen exactly
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})

@@ -14,12 +14,14 @@ package, and exports in the reference's analysis units:
     (SGCN_GCN, SGCN_GAT, SGCN_Ori), grad-CAM saliency per subject and ROI
     from the model's `trunk` / `head` seam and `torch.autograd.grad`.
 
+With `--plot` each export also gets its figure (`utils/plots.py`, the
+JAX tool's figures pixel for pixel): sorted importance bars, the
+subject-mean edge-probability heatmap and the grad-CAM saliency bar. It
+needs matplotlib, which the card host does not have.
+
 Usage (runs on the card unless --device cpu is given):
   python -m iggcn_tpu_torch.tools.explain CKPT --out DIR
-      [--x_npy X.npy [--adj_npy A.npy]] [--device cuda|cpu]
-
-`--plot` (the JAX tool's figures) needs the plotting utilities, which are
-not ported yet (ROADMAP Queue 1 item 14), and is refused.
+      [--x_npy X.npy [--adj_npy A.npy]] [--plot] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -65,6 +67,41 @@ def export_importances(params: Dict[str, Any], out_dir: str,
             out[key] = arr
             np.save(os.path.join(out_dir, f"{fname}_{prefix}.npy"), arr)
     return out
+
+
+def plot_importances(exported: Dict[str, np.ndarray], out_dir: str,
+                     prefix: str = "ckpt") -> list:
+    """Render a sorted importance bar chart per exported tensor, in the
+    tensor's analysis units (matching tests/test_interpretability.py):
+    sigmoid for prob/snps_prob, softmax keep-probability for the guide
+    family's bias_n mask logits. prob_bias (the edge-scorer WEIGHTS, not
+    per-entity scores) is skipped — per-subject edge probabilities get
+    their own heatmap when --x_npy is given."""
+    from iggcn_tpu_torch.utils.plots import plot_importance_bar
+
+    def sigmoid(a):
+        return 1.0 / (1.0 + np.exp(-np.asarray(a, np.float64)))
+
+    pngs = []
+    if "prob" in exported:
+        v = sigmoid(exported["prob"])
+        v = v.mean(axis=-1) if v.ndim > 1 else v      # (rois, D) -> (rois,)
+        pngs.append(plot_importance_bar(
+            v, os.path.join(out_dir, f"node_importance_{prefix}.png"),
+            title="ROI importance sigmoid(prob)"))
+    if "snps_prob" in exported:
+        pngs.append(plot_importance_bar(
+            sigmoid(exported["snps_prob"]).reshape(-1),
+            os.path.join(out_dir, f"snps_importance_{prefix}.png"),
+            title="SNP importance sigmoid(snps_prob)", item_name="SNP"))
+    if "bias_n" in exported:
+        logits = np.asarray(exported["bias_n"], np.float64)
+        e = np.exp(logits - logits.max(axis=-1, keepdims=True))
+        keep = (e / e.sum(axis=-1, keepdims=True))[:, 1]
+        pngs.append(plot_importance_bar(
+            keep, os.path.join(out_dir, f"mask_importance_{prefix}.png"),
+            title="Gumbel mask keep-probability", item_name="feature"))
+    return pngs
 
 
 def export_edge_probabilities(params: Dict[str, Any], x: np.ndarray,
@@ -197,7 +234,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override the hidden width (default: from the ckpt)")
     p.add_argument("--gradcam_class", type=int, default=None)
     p.add_argument("--plot", action="store_true", default=False,
-                   help="not ported yet (ROADMAP Queue 1 item 14)")
+                   help="also render figures (png) next to each exported "
+                        "npy: sorted importance bars, subject-mean edge-"
+                        "probability heatmap, grad-CAM saliency bar")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs on the host)")
     return p
@@ -206,11 +245,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.plot:
-        parser.error("--plot needs the plotting utilities (utils/plots.py "
-                     "and matplotlib), which the port does not have yet "
-                     "(ROADMAP Queue 1 item 14); the npys are exported "
-                     "without it")
     dev = resolve_device(args.device)
     payload = load_payload(args.checkpoint)
     params = payload["params"]
@@ -218,6 +252,9 @@ def main(argv=None):
     n_exported = len(out)
     if out:
         print(f"exported {sorted(out)} to {args.out}")
+    if args.plot and out:
+        for png in plot_importances(out, args.out, args.prefix):
+            print(f"figure {png}")
     if args.x_npy is not None:
         if "prob" in params and "prob_bias" in params:
             ep = export_edge_probabilities(params, np.load(args.x_npy),
@@ -225,6 +262,14 @@ def main(argv=None):
                                            device=dev)
             n_exported += 1
             print(f"edge probabilities {ep.shape} exported")
+            if args.plot:
+                from iggcn_tpu_torch.utils.plots import plot_matrix
+                png = plot_matrix(
+                    ep.mean(axis=0),
+                    os.path.join(args.out,
+                                 f"edge_probability_{args.prefix}.png"),
+                    title="Edge probability (subject mean)")
+                print(f"figure {png}")
         else:
             print("edge probabilities skipped: checkpoint has no "
                   "prob/prob_bias importance parameters")
@@ -241,6 +286,18 @@ def main(argv=None):
                 class_index=args.gradcam_class, device=dev)
             n_exported += 1
             print(f"grad-CAM saliency {cam.shape} exported")
+            if args.plot:
+                from iggcn_tpu_torch.utils.plots import plot_importance_bar
+                sal = np.abs(np.asarray(cam, np.float64))
+                if sal.ndim > 1:
+                    sal = sal.mean(axis=0)      # subject mean -> (rois,)
+                while sal.ndim > 1:
+                    sal = sal.mean(axis=-1)
+                png = plot_importance_bar(
+                    sal / max(float(sal.max()), 1e-12),
+                    os.path.join(args.out, f"grad_cam_{args.prefix}.png"),
+                    title="Grad-CAM saliency (subject mean, normalized)")
+                print(f"figure {png}")
     if not n_exported:
         print("error: no interpretability artifacts in this checkpoint — it "
               "has none of the prob/snps_prob/prob_bias importance leaves "

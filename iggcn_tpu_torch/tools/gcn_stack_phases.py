@@ -4,9 +4,10 @@ The kernel layer's per-phase metric (PERF.md, section 3 and the phase
 table of section 5). Builds `csrc/gcn_stack.cu` a second time with
 -DGCN_STACK_PHASES, in which thread 0 of every CTA stamps %globaltimer and
 clock64 at each phase boundary, runs it (after warm-up, inputs warm in L2)
-at the shapes `chip_smoke.py` times, and prints per shape the mean over
-the CTAs of each phase's duration, the span of the whole launch and how
-far apart the CTAs started (later waves). Needs a CUDA card:
+at the shapes `chip_smoke.py` times, fp32 and (for the serving shapes)
+the bf16-operand form, and prints per shape the mean over the CTAs of
+each phase's duration, the span of the whole launch and how far apart
+the CTAs started (later waves). Needs a CUDA card:
 
     python -m iggcn_tpu_torch.tools.gcn_stack_phases
 """
@@ -25,7 +26,9 @@ from iggcn_tpu_torch.utils import cuda_build
 
 SLOTS = 32            # kPhaseSlots in csrc/gcn_stack.cu
 SHAPES = [("serving", 256, 90, 3, (16, 16)), ("training", 32, 90, 3, (16, 16)),
-          ("multi-fusion", 256, 270, 1, (10, 10, 10))]
+          ("multi-fusion", 256, 270, 1, (10, 10, 10)),
+          ("serving bf16", 256, 90, 3, (16, 16)),
+          ("multi-fusion bf16", 256, 270, 1, (10, 10, 10))]
 
 
 def _inputs(rng, b, n, f0, widths, dev):
@@ -65,7 +68,13 @@ def run_phases(dev):
     with torch.inference_mode():
         for name, b, n, f0, widths in SHAPES:
             args = _inputs(rng, b, n, f0, widths, dev)
-            plan = gcn_stack.plan_launch(b, n, (f0, *widths))
+            bf16 = name.endswith("bf16")
+            if bf16:
+                prop, x, ws, bs = args
+                args = (prop.bfloat16(), x.bfloat16(),
+                        [w.bfloat16() for w in ws], [v.bfloat16() for v in bs])
+            plan = gcn_stack.plan_launch(b, n, (f0, *widths),
+                                         2 if bf16 else 4)
             for _ in range(4):
                 gcn_stack.fused_gcn_stack(*args)
             torch.cuda.synchronize()

@@ -1,0 +1,204 @@
+"""Generate ``docs/cli_torch.md``, the port's command-line reference, from
+its argparse parsers (port of `iggcn_tpu/tools/gen_docs.py`, which renders
+the JAX package's `docs/cli.md`).
+
+Every entry point of the port exposes a ``build_parser()``; this tool
+renders them all to one markdown reference, and ``--check`` exits 1 when
+the committed file differs from what the parsers give, so a flag cannot
+change without its documentation.
+
+Usage:
+  python -m iggcn_tpu_torch.tools.gen_docs          # rewrite docs/cli_torch.md
+  python -m iggcn_tpu_torch.tools.gen_docs --check  # exit 1 if it is stale
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import List
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DOC_PATH = os.path.join(REPO_ROOT, "docs", "cli_torch.md")
+
+HEADER = """\
+# Command-line reference of the PyTorch port (`iggcn_tpu_torch`)
+
+<!-- GENERATED FILE — do not edit by hand.
+     Regenerate with: python -m iggcn_tpu_torch.tools.gen_docs
+     tests/test_torch_port_tools.py fails the suite when this file is stale. -->
+
+Every entry point runs on the CUDA card unless `--device cpu` asks for the
+host (the plain PyTorch path); the hand-written kernels build from
+`iggcn_tpu_torch/csrc/` at first use. Flag names, defaults and help strings
+below are rendered from the argparse parsers themselves. The JAX package's
+reference is `docs/cli.md`.
+"""
+
+
+def _flag_cell(action: argparse.Action) -> str:
+    if not action.option_strings:          # positional
+        return f"`{action.dest}`"
+    return " / ".join(f"`{s}`" for s in action.option_strings)
+
+
+def _type_cell(action: argparse.Action) -> str:
+    if isinstance(action, argparse.BooleanOptionalAction):
+        return "bool"
+    if isinstance(action, (argparse._StoreTrueAction,
+                           argparse._StoreFalseAction)):
+        return "flag"
+    if action.choices:
+        return " \\| ".join(str(c) for c in action.choices)
+    if action.type is int:
+        return "int"
+    if action.type is float:
+        return "float"
+    return "str"
+
+
+def _default_cell(action: argparse.Action) -> str:
+    if isinstance(action, argparse._StoreTrueAction):
+        return "off"
+    if isinstance(action, argparse._StoreFalseAction):
+        return "on"
+    if isinstance(action, argparse.BooleanOptionalAction):
+        return "on" if action.default else "off"
+    if not action.option_strings:
+        return "(required)"
+    if action.default is None:
+        return "—"
+    if action.default == "":
+        return '`""`'
+    return f"`{action.default}`"
+
+
+def _escape(text: str) -> str:
+    return text.replace("|", "\\|").replace("\n", " ")
+
+
+def render_parser(parser: argparse.ArgumentParser) -> str:
+    rows = ["| flag | type | default | description |",
+            "|---|---|---|---|"]
+    for action in parser._actions:
+        if isinstance(action, argparse._HelpAction):
+            continue
+        rows.append(
+            f"| {_flag_cell(action)} | {_type_cell(action)} "
+            f"| {_default_cell(action)} | {_escape(action.help or '')} |")
+    return "\n".join(rows)
+
+
+def render_cli_md() -> str:
+    from iggcn_tpu_torch import main as main_mod
+    from iggcn_tpu_torch.tools import (doctor, explain, export_cohort,
+                                       import_torch, profile_step, report,
+                                       serve)
+
+    parts: List[str] = [HEADER]
+    parts.append("## `python -m iggcn_tpu_torch.main` — the experiment CLI\n")
+    parts.append(
+        "Cross-validated training for every model family. `--model` "
+        "routes to the matching trainer (unknown names abort with the "
+        "full list):\n")
+    parts.append("| family | `--model` names | trainer |")
+    parts.append("|---|---|---|")
+    fusion = ", ".join(f"`{m}`" for m in main_mod.FUSION_MODELS)
+    zoo = ", ".join(f"`{m}`" for m in main_mod.ZOO_MODELS)
+    snp = ", ".join(f"`{m}`" for m in main_mod.SNP_MODELS)
+    parts.append(f"| fused imaging-genetics + image-only SGCN | {fusion} "
+                 "| `train/cv.py` (sequential or `--fold_parallel`) |")
+    parts.append(f"| baseline / pooling / nested zoo | {zoo} "
+                 "| `train/generic_cv.py` |")
+    parts.append(f"| SNP-only | {snp} | `train/snps_trainer.py` |")
+    parts.append("")
+    parts.append(render_parser(main_mod.build_parser()))
+
+    for title, blurb, mod in (
+        ("## `python -m iggcn_tpu_torch.tools.doctor`",
+         "Pre-flight validation of real data layouts (files, mat keys, "
+         "shapes, cross-file agreement, GO parseability, a raw TU "
+         "dataset). Host-side only. Exit 0 = all checks pass.",
+         doctor),
+        ("## `python -m iggcn_tpu_torch.tools.serve`",
+         "Score a cohort npz against a serving bundle (one-shot), or run a "
+         "long-lived HTTP daemon (`GET /health`, `GET /stats`, "
+         "`POST /predict`); `--bf16` serves in bfloat16.",
+         serve),
+        ("## `python -m iggcn_tpu_torch.tools.explain`",
+         "Export learned ROI/edge/SNP importances (and grad-CAM saliency "
+         "for the SGCN image family) from a checkpoint or serving bundle; "
+         "`--plot` renders their figures (needs matplotlib).",
+         explain),
+        ("## `python -m iggcn_tpu_torch.tools.profile_step`",
+         "Trace N flagship train steps at the real GO scale with "
+         "`torch.profiler` and print the per-op time histogram (device "
+         "time on the card, host op time with `--device cpu`).",
+         profile_step),
+        ("## `python -m iggcn_tpu_torch.tools.report`",
+         "Aggregate results dirs into a summary table (best epoch by "
+         "fold-mean accuracy, acc ± std, auc/f1/sen/spe) from the per-fold "
+         "result records of either package, and compute permutation "
+         "p-values against `--isPermutTest` null runs. Host-side only.",
+         report),
+        ("## `python -m iggcn_tpu_torch.tools.export_cohort`",
+         "Convert a reference-layout data dir into a serving cohort npz "
+         "through the training loaders themselves. Host-side only.",
+         export_cohort),
+        ("## `python -m iggcn_tpu_torch.tools.import_torch`",
+         "Convert a reference-trained torch checkpoint "
+         "(`gcn_state_dict_*.pt`, the fused SGCN_GCN_IMGSNP family) into a "
+         "serving bundle, or a bundle back into the reference layout.",
+         import_torch),
+    ):
+        parts.append("")
+        parts.append(title + "\n")
+        parts.append(blurb + "\n")
+        parts.append(render_parser(mod.build_parser()))
+
+    parts.append("")
+    parts.append("## Environment variables\n")
+    parts.append("| variable | effect |")
+    parts.append("|---|---|")
+    for var, effect in (
+        ("`CUDA_HOME` / `CUDA_PATH`", "the CUDA toolkit whose `nvcc` builds "
+         "the kernels (else `nvcc` on `PATH`, else `/usr/local/cuda`)"),
+        ("`CXX`", "the host C++ compiler of the native diffusion library "
+         "(`--diffusion_backend auto`; default `g++`)"),
+        ("`OMP_NUM_THREADS`", "torch's CPU threads; 1 is much faster for "
+         "the small ops of a `--device cpu` run"),
+    ):
+        parts.append(f"| {var} | {effect} |")
+    parts.append("")
+    return "\n".join(parts)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--check", action="store_true",
+                   help="exit 1 if docs/cli_torch.md differs from the parsers")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    text = render_cli_md()
+    if args.check:
+        on_disk = (open(DOC_PATH).read()
+                   if os.path.isfile(DOC_PATH) else "")
+        if on_disk != text:
+            print("docs/cli_torch.md is stale; regenerate with "
+                  "python -m iggcn_tpu_torch.tools.gen_docs", file=sys.stderr)
+            return 1
+        print("docs/cli_torch.md is up to date")
+        return 0
+    os.makedirs(os.path.dirname(DOC_PATH), exist_ok=True)
+    with open(DOC_PATH, "w") as fh:
+        fh.write(text)
+    print(f"wrote {DOC_PATH}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

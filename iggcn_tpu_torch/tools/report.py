@@ -2,9 +2,9 @@
 (the port's copy of `iggcn_tpu/tools/report.py`, host-side NumPy only).
 
 It reads the fold records that either package writes, so a results dir of
-the JAX package or of the port reports the same. `--plot` needs the
-plotting utilities (ROADMAP Queue 1 item 14) and is refused until the
-port has them.
+the JAX package or of the port reports the same. `--plot` renders the
+JAX tool's figures (`utils/plots.py`; matplotlib, which the card host
+does not have).
 
 The reference leaves analysis to the user: it prints one `Result - ...`
 line per run, writes per-epoch score matrices as bare npys
@@ -389,6 +389,59 @@ def importance_stability(results_dirs: List[str], top_k: int = 10
     return rows
 
 
+def make_plots(results_dirs: List[str], pv: List[Dict],
+               pvr: List[Dict], imp_rows: List[Dict] = ()) -> List[str]:
+    """Figures for `--plot` (same conventions as `tools/explain.py --plot`):
+    per-tag training curves (per-fold accuracy/loss over epochs, fold-mean
+    strong with best epoch marked) next to each dir's records, — when
+    p-values were computed — permutation-null histograms with the observed
+    statistic marked, and — with --importance — sorted mean-importance bars
+    next to the first dir holding each tag. Returns the written paths."""
+    from iggcn_tpu_torch.utils.plots import (plot_importance_bar,
+                                             plot_null_distribution,
+                                             plot_training_curves)
+
+    written: List[str] = []
+    for d in results_dirs:
+        for tag, by_fold in sorted(_load_records(d).items()):
+            folds = sorted(by_fold)
+            mats = [by_fold[f][0] for f in folds]
+            if len({m.shape[0] for m in mats}) != 1:
+                continue          # epoch-count mismatch; summary warns
+            acc = np.stack([m[:, 0] for m in mats])
+            losses = [by_fold[f][1] for f in folds]
+            loss = (np.stack(losses)
+                    if all(ls is not None for ls in losses) else None)
+            written.append(plot_training_curves(
+                acc, os.path.join(d, f"report_curves_{tag}.png"),
+                title=f"{tag}: test accuracy by epoch", loss_by_fold=loss))
+    for r in pv:
+        written.append(plot_null_distribution(
+            r["nulls"], r["observed_acc"], r["p_value"],
+            os.path.join(r["dir"], f"report_null_{r['tag']}.png"),
+            title=f"{r['tag']}: permutation null (best accuracy)"))
+    for r in pvr:
+        written.append(plot_null_distribution(
+            r["nulls"], r["observed_corr"], r["p_value"],
+            os.path.join(r["dir"], f"report_null_{r['tag']}_{r['score']}.png"),
+            title=f"{r['tag']} / {r['score']}: permutation null "
+                  "(pooled correlation)", statistic="pooled correlation"))
+    done = set()
+    for r in imp_rows:
+        key = (r["kind"], r["tag"])
+        if key in done:
+            continue          # rows of one (kind, tag) share mean_vector
+        done.add(key)
+        written.append(plot_importance_bar(
+            r["mean_vector"],
+            os.path.join(r["dir"],
+                         f"report_importance_{r['kind']}_{r['tag']}.png"),
+            title=(f"{r['tag']}: mean {r['item_name']} importance over "
+                   f"{r['n_units']} {r['unit']}s"),
+            item_name=r["item_name"]))
+    return written
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("results_dirs", nargs="+",
@@ -404,7 +457,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "--importance, the stability table goes to a "
                         "sibling <path>_importance.csv)")
     p.add_argument("--plot", action="store_true", default=False,
-                   help="not ported yet (ROADMAP Queue 1 item 14)")
+                   help="also render figures (png) next to the records: "
+                        "per-fold training curves per config tag, the "
+                        "permutation-null histogram with the observed "
+                        "statistic (with --permut_null), and mean-"
+                        "importance bars (with --importance)")
     p.add_argument("--importance", action="store_true", default=False,
                    help="also aggregate the learned importances "
                         "(node_importance_*/snps_importance_* npys in "
@@ -428,11 +485,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.plot:
-        parser.error("--plot needs the plotting utilities (utils/plots.py "
-                     "and matplotlib), which the port does not have yet "
-                     "(ROADMAP Queue 1 item 14); the tables are printed "
-                     "without it")
     if args.importance and args.importance_top_k < 1:
         print("[report] --importance_top_k must be >= 1", file=sys.stderr)
         return 1
@@ -497,6 +549,9 @@ def main(argv=None) -> int:
                                      "p_value")))
         if not (pv or pvr):
             return 1
+    if args.plot:
+        for path in make_plots(results_dirs, pv, pvr, imp_rows):
+            print(f"[report] wrote {path}", file=sys.stderr)
     return 0
 
 

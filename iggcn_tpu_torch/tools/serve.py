@@ -17,8 +17,13 @@ API:
 
 CLI (runs on the card unless --device cpu is given):
   python -m iggcn_tpu_torch.tools.serve BUNDLE.npz --npz cohort.npz --out preds.npz
-      [--batch 256] [--device cuda|cpu]
+      [--batch 256] [--device cuda|cpu] [--bf16]
   python -m iggcn_tpu_torch.tools.serve BUNDLE.npz --http 8000 [--batch 256]
+      [--bf16]
+
+`--bf16` serves in bfloat16 (`predict.cast_floating`): the weights are
+cast once, each cohort or request's inputs after padding; outputs stay
+fp32, and `/health` reports `"dtype": "bfloat16"`.
 
 `cohort.npz` needs arrays `x` (S, N, F), `adj` (S, N, N), `snps` (S, P);
 `preds.npz` gets `log_probs`, `pred`, and `our_reg` where the model has a
@@ -57,7 +62,7 @@ from iggcn_tpu_torch.models.fused_sgcn import FusedSGCN
 from iggcn_tpu_torch.models.go_network import GeneOntologyNetwork
 from iggcn_tpu_torch.models.guide import GuideImgSnp
 from iggcn_tpu_torch.predict import (batched_forward, batched_forward_snps,
-                                     snps_width)
+                                     cast_floating, snps_width)
 from iggcn_tpu_torch.tools.convert import load_flax_variables, to_flax_variables
 from iggcn_tpu_torch.utils.platform import resolve_device
 
@@ -218,11 +223,14 @@ def load_bundle(path: str, device: str | torch.device | None = None
 
 def build_http_server(model: torch.nn.Module, *, host: str = "127.0.0.1",
                       port: int = 0, batch: int = 256,
-                      device: str | torch.device | None = None):
+                      device: str | torch.device | None = None,
+                      dtype: torch.dtype | None = None):
     """A ready-to-serve `ThreadingHTTPServer` around the model, moved to
     `device` (default: CUDA). The caller owns the lifecycle
     (`serve_forever` / `shutdown`); bind port 0 and read
-    `server.server_address` for a free port.
+    `server.server_address` for a free port. `dtype=torch.bfloat16`
+    serves in bf16: the model's weights are cast once here
+    (`cast_floating`, in place), each request's inputs per request.
 
     Inference is serialised behind a lock (one device, one queue); threads
     still overlap request I/O. Every request pads to the fixed serving
@@ -238,12 +246,14 @@ def build_http_server(model: torch.nn.Module, *, host: str = "127.0.0.1",
 
     dev = resolve_device(device)
     model = model.to(dev).eval()
+    if dtype is not None:
+        cast_floating(model, dtype)
     lock = threading.Lock()
     # the SNP-only families serve from a SNP matrix alone, the fused ones
     # from the (x, adj, snps) triple
     snps_only = not hasattr(model, "cfg")
     health = {"model_class": type(model).__name__, "batch": batch,
-              "dtype": "float32",
+              "dtype": "bfloat16" if dtype == torch.bfloat16 else "float32",
               "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                          else "cpu")}
     if snps_only:
@@ -255,7 +265,8 @@ def build_http_server(model: torch.nn.Module, *, host: str = "127.0.0.1",
             with lock:
                 return batched_forward_snps(model, snps, batch_size=batch,
                                             fixed_batch=True,
-                                            expected_width=num_snps)
+                                            expected_width=num_snps,
+                                            dtype=dtype)
 
         forward(np.zeros((1, num_snps), np.float32))
     else:
@@ -268,7 +279,7 @@ def build_http_server(model: torch.nn.Module, *, host: str = "127.0.0.1",
         def forward(x, adj, snps):
             with lock:
                 return batched_forward(model, x, adj, snps, batch_size=batch,
-                                       fixed_batch=True)
+                                       fixed_batch=True, dtype=dtype)
 
         forward(np.zeros((1, cfg.rois, cfg.feat_dim), np.float32),
                 np.zeros((1, cfg.rois, cfg.rois), np.float32),
@@ -396,6 +407,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path on the host)")
+    p.add_argument("--bf16", action="store_true",
+                   help="serve in bfloat16 (the agreement with fp32 and with "
+                        "the JAX package's bf16 serving is held by "
+                        "tests/test_torch_port_bf16.py)")
     return p
 
 
@@ -409,12 +424,15 @@ def main(argv=None):
         p.error("--http is a daemon mode and does not score a cohort; "
                 "drop --npz/--out (or drop --http for one-shot scoring)")
     model = load_bundle(args.bundle, device=args.device)
+    dtype = torch.bfloat16 if args.bf16 else None
     if args.http is not None:
         server = build_http_server(model, host=args.host, port=args.http,
-                                   batch=args.batch, device=args.device)
+                                   batch=args.batch, device=args.device,
+                                   dtype=dtype)
         host, port = server.server_address[:2]
         print(f"serving {type(model).__name__} on http://{host}:{port} "
-              f"(batch {args.batch}, fp32; Ctrl-C to stop)", file=sys.stderr)
+              f"(batch {args.batch}, {'bf16' if args.bf16 else 'fp32'}; "
+              f"Ctrl-C to stop)", file=sys.stderr)
         try:
             server.serve_forever()
         except KeyboardInterrupt:
@@ -434,9 +452,11 @@ def main(argv=None):
             y_true = np.asarray(zf["y"]).reshape(-1)
     if snps_only:
         out = batched_forward_snps(model, snps, batch_size=args.batch,
-                                   expected_width=snps_width(model))
+                                   expected_width=snps_width(model),
+                                   dtype=dtype)
     else:
-        out = batched_forward(model, x, adj, snps, batch_size=args.batch)
+        out = batched_forward(model, x, adj, snps, batch_size=args.batch,
+                              dtype=dtype)
     np.savez(args.out, **out)
     counts = np.bincount(out["pred"].astype(int))
     print(f"served {snps.shape[0]} subjects -> {args.out} "

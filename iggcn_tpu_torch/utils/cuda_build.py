@@ -7,6 +7,10 @@ by a hash of the source, every header under `csrc/` (`*.cuh`) and the
 flags, so an edited source or header rebuilds and an unchanged one is
 reused. `build_all` starts one `nvcc` per source, all at
 once, and waits for them together.
+
+`load_host_library` does the same for a host C++ source (`csrc/*.cpp`,
+the native diffusion library) with the host compiler, `$CXX` or `g++`,
+with OpenMP where that compiler has its runtime.
 """
 from __future__ import annotations
 
@@ -86,6 +90,58 @@ def build_all(sources: Sequence[str],
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared")
+# OpenMP parallelises a host library over its batch where the compiler has
+# it; a compiler without its runtime (no libgomp) builds it serial
+HOST_OPENMP = "-fopenmp"
+
+
+def _host_build(cxx: str, flags: Sequence[str], src: str, out: str
+                ) -> subprocess.CompletedProcess:
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run([cxx, *flags, src, "-o", tmp],
+                              capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run the host compiler {cxx!r} for "
+                           f"{os.path.relpath(src, PKG_DIR)}: {e}") from e
+    if proc.returncode == 0:
+        os.replace(tmp, out)
+    return proc
+
+
+def load_host_library(source: str) -> ctypes.CDLL:
+    """The library of the host C++ source `csrc/<source>`, compiled by the
+    host compiler (`$CXX`, else `g++`) at first use, with OpenMP where the
+    compiler has it; raises with the compiler's output when it cannot be
+    built (there is no fallback)."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is not None:
+            return lib
+        cxx = os.environ.get("CXX") or "g++"
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        logs = []
+        for flags in ((*HOST_FLAGS, HOST_OPENMP), HOST_FLAGS):
+            src, out = _target(source, (cxx, *flags))
+            if os.path.exists(out):
+                break
+            proc = _host_build(cxx, flags, src, out)
+            logs.append(f"{' '.join([cxx, *flags])}: exit {proc.returncode}"
+                        f"\n{proc.stdout}{proc.stderr}")
+            if proc.returncode == 0:
+                break
+            if "omp" not in proc.stdout + proc.stderr:
+                break          # not OpenMP's fault: do not try without it
+        BUILD_LOGS[source] = "\n".join(logs)
+        if not os.path.exists(out):
+            raise RuntimeError(f"{cxx} failed on csrc/{source}:\n"
+                               + BUILD_LOGS[source])
+        lib = ctypes.CDLL(out)
+        _libs[source] = lib
+        return lib
 
 
 def load_library(source: str) -> ctypes.CDLL:

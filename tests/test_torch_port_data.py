@@ -77,12 +77,25 @@ def test_knn_imputation_is_bit_equal(cohorts):
                                             (True, False)])
 def test_numpy_diffusion_is_bit_equal(cohorts, is_ppr, is_topk):
     raw = cohorts[1].raw_adj[:3]
+    want = diffusion.preprocess_diffusion(raw, is_ppr=is_ppr, is_topk=is_topk)
     np.testing.assert_array_equal(
-        diffusion.preprocess_diffusion(raw, is_ppr=is_ppr, is_topk=is_topk),
+        want,
         jax_diffusion.preprocess_diffusion(raw, is_ppr=is_ppr,
                                            is_topk=is_topk, backend="numpy"))
-    with pytest.raises(ValueError, match="numpy"):
-        diffusion.preprocess_diffusion(raw, backend="device")
+    # the other backends take PPR + top-k only, and there agree with numpy
+    # (the native library within 1e-12, the fp32 batched solve within
+    # 2e-5) with the same sparsity
+    for backend, atol in (("auto", 1e-12), ("device", 2e-5)):
+        if not (is_ppr and is_topk):
+            with pytest.raises(ValueError, match="numpy"):
+                diffusion.preprocess_diffusion(raw, is_ppr=is_ppr,
+                                               is_topk=is_topk,
+                                               backend=backend, device="cpu")
+            continue
+        got = diffusion.preprocess_diffusion(raw, backend=backend,
+                                             device="cpu")
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+        assert ((got > 0) == (want > 0)).all()
 
 
 def test_synthetic_cohort_matches(cohorts):

@@ -4,7 +4,7 @@ checkpoint written by either package and on a serving bundle; the
 exported importances bit-equal; the edge probabilities within atol 1e-6;
 grad-CAM of `SGCNImage` (GCN and GAT stacks) and `SGCNOri` within atol
 1e-5 (pooled, on each subject's predicted class and on a given class);
-and the CLI, which refuses `--plot`."""
+and the CLI, whose `--plot` figures are pixel-equal to the JAX tool's."""
 import jax
 import numpy as np
 import pytest
@@ -162,9 +162,23 @@ def test_cli_exports_and_refuses_plot(fused, data, tmp_path, capsys,
                   "--device", "cpu"])
     assert "grad-CAM saliency (12, 90) exported" in capsys.readouterr().out
     assert np.load(tmp_path / "out" / "grad_cam_img.npy").shape == (12, 90)
-    with pytest.raises(SystemExit):
-        explain.main([ckpt, "--plot", "--device", "cpu"])
-    assert "Queue 1 item 14" in capsys.readouterr().err
+    # --plot: every figure of the JAX tool, pixel for pixel
+    from matplotlib.image import imread
+    for name, path in (("fused", fused[1]["port"]), ("img", ckpt)):
+        for tool, sub in ((explain, "port_plot"), (jax_explain, "jax_plot")):
+            tool.main([path, "--out", str(tmp_path / sub), "--prefix", name,
+                       "--x_npy", str(root / "x.npy"), "--adj_npy",
+                       str(root / "adj.npy"), "--plot"]
+                      + (["--device", "cpu"] if tool is explain else []))
+    pngs = sorted(p.name for p in (tmp_path / "jax_plot").glob("*.png"))
+    assert pngs == sorted(p.name for p in
+                          (tmp_path / "port_plot").glob("*.png"))
+    assert {"node_importance_fused.png", "snps_importance_fused.png",
+            "edge_probability_fused.png", "grad_cam_img.png"} <= set(pngs)
+    for png in pngs:
+        got = imread(tmp_path / "port_plot" / png)
+        assert np.array_equal(got, imread(tmp_path / "jax_plot" / png)), png
+    assert "figure " in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         explain.main([ckpt, "--out", out])

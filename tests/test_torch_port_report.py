@@ -4,10 +4,11 @@ dirs, with fold records written by both packages: the port's fused CV,
 its permutation-null batch and its seed batch, and the SNP-only MLP
 trained by each package into dirs of the same tag. The summary,
 replication, regression, importance and p-value tables, the CSV files and
-the exit codes are equal; `--plot` is refused until the port has the
-plotting utilities (ROADMAP Queue 1 item 14)."""
+the exit codes are equal, and so are `--plot`'s figures, pixel for
+pixel."""
 import contextlib
 import dataclasses
+import glob
 import io
 import os
 
@@ -127,8 +128,26 @@ def test_empty_dirs_and_missing_nulls_fail_alike(dirs, tmp_path):
 
 
 def test_plot_is_refused_until_the_port_has_plots(dirs, capsys):
-    with pytest.raises(SystemExit) as info:
-        port_report.main([dirs["observed"], "--plot"])
-    assert info.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP Queue 1 item 14" in err and "--plot" in err
+    """The port has the plots now: `--plot` writes the JAX tool's figures
+    (training curves, permutation nulls, importance bars), pixel-equal."""
+    from matplotlib.image import imread
+    argv = [dirs["observed"], *dirs["seeds"], "--permut_null",
+            *dirs["nulls"], "--importance", "--plot"]
+
+    def figures():
+        return {p: imread(p) for d in argv if os.path.isdir(d)
+                for p in sorted(glob.glob(os.path.join(d, "report_*.png")))}
+
+    code, _ = _run(port_report.main, argv)
+    got = figures()
+    assert code == 0 and len(got) >= 5
+    kinds = {os.path.basename(p).split("_")[1] for p in got}
+    assert kinds == {"curves", "null", "importance"}
+    for p in got:
+        os.remove(p)
+    assert _run(jax_report.main, argv)[0] == 0
+    want = figures()
+    assert sorted(want) == sorted(got)
+    for p in got:
+        assert np.array_equal(got[p], want[p]), p
+    assert "[report] wrote" in capsys.readouterr().err
