@@ -170,12 +170,18 @@ failure propagates and the script exits non-zero:
      line (exit 1, the first two done).
  16. bf16 serving, the tools and the diffusion backends: the GCN stack's
      bf16-operand form against its plain version (the fp32 stack on the
-     upcasts) at every grid shape x B {1, 7, 32, 256} in both P layouts,
-     at `BF16_BRANCH_SHAPES` (every cluster and K split its plan can
-     choose) and on a P whose samples start 2 bytes off, at rtol 1e-4 /
-     atol 1e-5, one launch per call; its warm and cold times at the
-     serving shapes (N=90 and N=270, B=256) beside its bound, the plain
-     version and the library composition; phase 3's bundle served in bf16
+     upcasts) at every grid shape x B `BF16_BATCHES` in both P layouts
+     (N=90 and N=270 on the persistent kernel: 106 and 133 leave CTAs a
+     sample short, 874 refills each CTA's stage 2-3 times at N=90 and 5-6
+     at N=270), at `BF16_REFILL_CASES` (the other K split refilling its
+     stage), on an odd grid whose refills change the stage's lead after a
+     sample ending in inf (`bf16_slack_check`), at
+     `BF16_BRANCH_SHAPES` (every K split and cluster its plan can choose)
+     and on a P whose samples start 2 bytes off at both N (value by value),
+     at rtol 1e-4 / atol 1e-5, one launch per call; its warm and cold
+     times at the serving shapes (N=90 and N=270, B=256) beside its bound,
+     the plain version, the library composition and the fp32 form on the
+     upcast inputs (bf16 and fp32 forms in turns); phase 3's bundle served in bf16
      to the 874-subject cohort (the bf16 form's launches counted from 0:
      one per forward) against the CPU's bf16 plain path (atol
      `BF16_SERVE_ATOL`) and the card's fp32 (the JAX package's bf16 rule),
@@ -270,12 +276,22 @@ TIMED_SHAPES = [("serving", BATCH, 90, 3, (16, 16)),
 # other branches: (cluster, K split) = (1, 1), (2, 4), (4, 1), (8, 1), (8, 2)
 BRANCH_SHAPES = [(90, 3, (64, 64)), (270, 1, (3, 3)), (400, 1, (10, 10)),
                  (500, 1, (10, 10)), (600, 1, (4, 4))]
-# the same for the kernel's bf16 form, whose P takes half the room:
-# (cluster, K split) = (1, 1), (2, 1), (2, 4), (4, 1), (4, 2), (8, 1),
-# (8, 2); the grids give (1, 2) and (1, 4), and an odd N the per-value copy
-BF16_BRANCH_SHAPES = [(90, 3, (64, 64)), (400, 1, (10, 10)),
+# the same for the kernel's bf16 form: the persistent kernel with K split
+# 2 at wide layers (the grids give 4),
+# and the cluster design beyond one CTA with (cluster, K split) = (2, 2),
+# (2, 1), (2, 4), (4, 1), (4, 2), (8, 1), (8, 2); an odd N comes value by
+# value
+BF16_BRANCH_SHAPES = [(90, 3, (64, 64)), (300, 1, (8, 8, 8)),
+                      (400, 1, (10, 10)),
                       (380, 1, (4, 4)), (500, 1, (10, 10)), (600, 1, (4, 4)),
                       (700, 1, (10, 10)), (800, 1, (4, 4)), (91, 3, (16, 16))]
+# batches of the bf16 form's checks: 106 the cohort's last serving batch,
+# 133 one more than an H100's SMs, 874 the whole cohort in one launch
+BF16_BATCHES = (1, 7, 106, 133, 256, 874)
+# (B, N, F0, widths) at which the persistent kernel's K split 2 (the
+# grids' shapes take 4) refills each CTA's stage: one CTA an SM, 6-7
+# samples each, so the barrier's parity flips 5-6 times
+BF16_REFILL_CASES = [(874, 90, 3, (64, 64))]
 FLUSH_BYTES = 256 * 2**20        # written between cold calls; L2 is 50 MB
 # phase 7: the training route at full width (default ModelConfig L=2, H=16;
 # the real GO graph's scale; batch 32; 5 folds with val; 3 epochs)
@@ -2860,16 +2876,23 @@ def counted_bf16(fn):
 
 def phase_bf16_kernel(dev):
     """The bf16 form against its plain version at every grid shape and
-    batch, both P layouts, the bf16 branch shapes and a P whose samples
-    start 2 bytes off (the per-value copy); one launch per call, none of
-    the fp32 form."""
+    `BF16_BATCHES`, both P layouts, `BF16_REFILL_CASES` (CTAs of at least
+    three samples), the bf16 branch shapes and P whose samples start 2
+    bytes off (value by value); one launch per call, none of the fp32
+    form."""
     rng = np.random.default_rng(16)
-    max_err, calls = 0.0, 0
+    max_err, calls, seen = 0.0, 0, set()
     gcn_stack.fused_gcn_stack.launches = 0
     gcn_stack.fused_gcn_stack.launches_bf16 = 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def check(what, args):
         nonlocal max_err, calls
+        prop, x, ws = args[0], args[1], args[2]
+        b, n = prop.shape[:2]
+        plan = gcn_stack.plan_launch(b, n, (x.shape[-1], *(w.shape[1] for w in ws)),
+                                     2, sms)
+        seen.add(bf16_branch(plan))
         with torch.inference_mode():
             out = gcn_stack.fused_gcn_stack(*args)
             ref = plain_stack_bf16(*args)
@@ -2883,63 +2906,129 @@ def phase_bf16_kernel(dev):
         max_err = max(max_err, err)
 
     for n, f0, widths in STACK_SHAPES:
-        for b in STACK_BATCHES:
+        for b in BF16_BATCHES:
             args = to_bf16(stack_inputs(rng, b, n, f0, widths, dev))
             check((b, n, f0, widths), args)
             check((b, n, f0, widths, "row-major"),
                   (args[0].contiguous(),) + args[1:])
+    for b, n, f0, widths in BF16_REFILL_CASES:
+        plan = gcn_stack.plan_launch(b, n, (f0, *widths), 2, sms)
+        per_cta = b // plan.grid(b)
+        if not isinstance(plan, gcn_stack.PersistentPlan) or per_cta < 3:
+            raise AssertionError(f"bf16 refill case B={b} N={n} H={widths}: "
+                                 f"{per_cta} samples a CTA")
+        args = to_bf16(stack_inputs(rng, b, n, f0, widths, dev))
+        check((b, n, f0, widths, f"K split {plan.ksplit}, at least "
+               f"{per_cta} samples a CTA"), args)
+    slack_err = bf16_slack_check(rng, dev)
     for n, f0, widths in BF16_BRANCH_SHAPES:
         for b in (1, 7):
             args = to_bf16(stack_inputs(rng, b, n, f0, widths, dev))
             check((b, n, f0, widths), args)
-    prop, x, ws, bs = to_bf16(stack_inputs(rng, 7, 90, 3, (16, 16), dev))
-    flat = torch.zeros(7 * 90 * 90 + 1, dtype=torch.bfloat16, device=dev)
-    flat[1:] = prop.transpose(1, 2).reshape(-1)
-    shifted = flat[1:].reshape(7, 90, 90).transpose(1, 2)
-    check("P 2 bytes off", (shifted, x, ws, bs))
+    for n, f0, widths in ((90, 3, (16, 16)), (270, 1, (10, 10, 10))):
+        prop, x, ws, bs = to_bf16(stack_inputs(rng, 7, n, f0, widths, dev))
+        flat = torch.zeros(7 * n * n + 1, dtype=torch.bfloat16, device=dev)
+        flat[1:] = prop.transpose(1, 2).reshape(-1)
+        shifted = flat[1:].reshape(7, n, n).transpose(1, 2)
+        check(f"N={n} P 2 bytes off", (shifted, x, ws, bs))
     launches = gcn_stack.fused_gcn_stack.launches_bf16
     if launches != calls or gcn_stack.fused_gcn_stack.launches:
         raise AssertionError(f"{calls} bf16 calls launched the bf16 form "
                              f"{launches} times and the fp32 form "
                              f"{gcn_stack.fused_gcn_stack.launches}")
     log(f"bf16 form vs plain: {calls} calls ({len(STACK_SHAPES)} grid shapes "
-        f"x B {STACK_BATCHES} x both P layouts, {len(BF16_BRANCH_SHAPES)} "
-        f"branch shapes x B (1, 7), a 2-byte-offset P), max abs err "
-        f"{max_err:.3e} (rtol {RTOL}, atol {ATOL}), one launch each")
-    return max_err, calls
+        f"x B {BF16_BATCHES} x both P layouts, {len(BF16_REFILL_CASES)} "
+        f"refill case, {len(BF16_BRANCH_SHAPES)} branch shapes x B (1, 7), a "
+        f"2-byte-offset P at N=90 and 270) over "
+        f"the plan branches {sorted(seen, key=str)}, max abs err "
+        f"{max_err:.3e} (rtol {RTOL}, atol {ATOL}), one launch each; the "
+        f"odd-grid slack check {slack_err:.3e}")
+    return max(max_err, slack_err), calls
+
+
+def bf16_slack_check(rng, dev):
+    """The persistent kernel launched directly on a plan for a card of 131
+    SMs (an odd grid) at N=270, B=300: a CTA's next sample then sits at
+    another lead in the stage than the one before, so the slack after it
+    held that sample's last values until the refill zeroed them. Sample 1's last
+    four values are inf; every other sample must match the plain version
+    (K's pad columns read the slack times zero rows of hW). Not counted
+    as a launch of the wrapper."""
+    b, n, f0, widths = 300, 270, 1, (10, 10, 10)
+    plan = gcn_stack.plan_launch(b, n, (f0, *widths), 2, sms=131)
+    prop, x, ws, bs = to_bf16(stack_inputs(rng, b, n, f0, widths, dev))
+    leads = {(prop[s].data_ptr() % 16) // 2 for s in (1, 1 + plan.grid(b))}
+    if plan.grid(b) != 131 or len(leads) != 2:
+        raise AssertionError(f"slack check: grid {plan.grid(b)}, leads "
+                             f"{leads}; the case does not arise")
+    prop.transpose(1, 2).reshape(b, -1)[1, -4:] = float("inf")
+    out = torch.empty((b, n, sum(widths)), device=dev)
+    with torch.inference_mode():
+        gcn_stack._launch_persistent(plan, prop, x, ws, bs, out,
+                                     [f0, *widths], True, dev.index or 0)
+        ref = plain_stack_bf16(prop, x, ws, bs)
+    torch.cuda.synchronize()
+    keep = torch.arange(b, device=dev) != 1
+    torch.testing.assert_close(out[keep], ref[keep], rtol=RTOL, atol=ATOL,
+                               msg=lambda m: f"bf16 slack check: {m}")
+    return float((out[keep] - ref[keep]).abs().max())
+
+
+def bf16_branch(plan):
+    """The kernel branch a bf16 plan takes: ("persistent", 1, K split) or
+    ("cluster", cluster, K split)."""
+    kind = ("persistent" if isinstance(plan, gcn_stack.PersistentPlan)
+            else "cluster")
+    return (kind, plan.cluster, plan.ksplit)
 
 
 def phase_bf16_times(dev, card_name):
     """Warm and cold device ms of the bf16 form, its plain version and the
-    library composition at BF16_TIMED, beside the bound."""
+    library composition at BF16_TIMED, beside the bound; and the fp32 form
+    on the upcast inputs, warm, timed in turns with the bf16 form (bf16,
+    fp32, fp32, bf16; each the mean of its two readings)."""
     spec, bw, peak = card_spec(card_name)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     rng = np.random.default_rng(17)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     with torch.inference_mode():
         for name, b, n, f0, widths in BF16_TIMED:
             args = to_bf16(stack_inputs(rng, b, n, f0, widths, dev))
+            up = (args[0].float(), args[1].float(),
+                  [w.float() for w in args[2]], [v.float() for v in args[3]])
             fns = {"kernel": lambda: gcn_stack.fused_gcn_stack(*args),
                    "plain": lambda: plain_stack_bf16(*args),
                    "library": lambda: library_stack_bf16(*args)}
             nbytes, flops = stack_work_bf16(b, n, f0, widths)
             bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
-            plan = gcn_stack.plan_launch(b, n, (f0, *widths), elem_bytes=2)
+            plan = gcn_stack.plan_launch(b, n, (f0, *widths), 2, sms)
             row = {"shape": name, "B": b, "N": n, "F0": f0,
                    "widths": list(widths), "bytes": nbytes, "flops": flops,
                    "bound_ms": max(bytes_ms, flops_ms),
                    "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-                   "plan": {"cluster": plan.cluster, "ksplit": plan.ksplit,
+                   "plan": {"branch": list(bf16_branch(plan)),
                             "threads": plan.threads,
+                            "ctas_per_sm": getattr(plan, "ctas_per_sm", None),
                             "smem_bytes": plan.smem_bytes}}
+            turns = {"kernel": [], "fp32": []}
+            for what in ("kernel", "fp32", "fp32", "kernel"):
+                turns[what].append(device_ms(
+                    fns["kernel"] if what == "kernel" else
+                    lambda: gcn_stack.fused_gcn_stack(*up)))
+            row["kernel_turns_ms"] = turns["kernel"]
+            row["fp32_turns_ms"] = turns["fp32"]
+            row["fp32_ms"] = statistics.mean(turns["fp32"])
             for what, fn in fns.items():
-                row[f"{what}_ms"] = device_ms(fn)
+                row[f"{what}_ms"] = (statistics.mean(turns["kernel"])
+                                     if what == "kernel" else device_ms(fn))
                 row[f"{what}_cold_ms"] = cold_device_ms(fn, flush)
             rows.append(row)
             log(f"gcn_stack bf16 {name} B={b} N={n} F0={f0} H={widths} "
-                f"(cluster {plan.cluster}, K split {plan.ksplit}): kernel "
-                f"{row['kernel_ms']:.5f} ms warm / {row['kernel_cold_ms']:.5f} "
-                f"cold, plain {row['plain_ms']:.5f} / "
+                f"({row['plan']}): kernel {row['kernel_ms']:.5f} ms warm "
+                f"(turns {turns['kernel']}) / {row['kernel_cold_ms']:.5f} "
+                f"cold, fp32 form on the upcasts {row['fp32_ms']:.5f} (turns "
+                f"{turns['fp32']}), plain {row['plain_ms']:.5f} / "
                 f"{row['plain_cold_ms']:.5f}, library {row['library_ms']:.5f} "
                 f"/ {row['library_cold_ms']:.5f}, bound {row['bound_ms']:.5f} "
                 f"ms ({row['bound_by']}; {nbytes} B, {flops} FLOP, {spec} "
@@ -3115,8 +3204,9 @@ def phase_tools(dev, layout):
 
     raw = make_cohort(np.random.default_rng(18), DIFFUSION_SUBJECTS)[1]
     walls, results = {}, {}
-    # auto's first call builds the library and device's first call starts
-    # the solver: the walls kept are the second calls'
+    # auto's first call builds the library (where no cohort loader has
+    # yet) and device's first call starts the solver: the walls kept are
+    # the second calls'
     for backend in ("numpy", "auto", "auto", "device", "device"):
         t0 = time.perf_counter()
         results[backend] = diffusion.preprocess_diffusion(
@@ -3304,7 +3394,7 @@ def main() -> int:
             for row in times["grouped"]]}, {
         # the bf16-operand form: bf16 serving's one launch per forward
         "name": "gcn_stack_bf16", "route": "cuda",
-        "source": "iggcn_tpu_torch/csrc/gcn_stack.cu",
+        "source": "iggcn_tpu_torch/csrc/gcn_stack_bf16.cu",
         "replaces": "iggcn_tpu/ops/pallas_gcn.py:83",
         "launches": bf16["serving"]["launches"],
         "max_abs_err": bf16["max_abs_err"],
@@ -3314,13 +3404,15 @@ def main() -> int:
         "bound_ms": bf16["times"][0]["bound_ms"],
         "bound_by": bf16["times"][0]["bound_by"],
         "library_ms": bf16["times"][0]["library_ms"],
+        "fp32_ms": bf16["times"][0]["fp32_ms"],
         "served_bundles": {what: {k: row[k] for k in (
             "model_class", "launches", "launches_per_forward")}
             for what, row in bf16["serving"]["bundles"].items()},
         "shapes": [{k: row[k] for k in (
             "shape", "B", "N", "F0", "widths", "kernel_ms", "kernel_cold_ms",
-            "plain_ms", "plain_cold_ms", "library_ms", "library_cold_ms",
-            "bound_ms", "bound_by", "plan")} for row in bf16["times"]]}]}
+            "fp32_ms", "plain_ms", "plain_cold_ms", "library_ms",
+            "library_cold_ms", "bound_ms", "bound_by", "plan")}
+            for row in bf16["times"]]}]}
     serve = {"serve": {"subjects": COHORT, "batch": BATCH,
                        "cohort_wall_s": times["serve_cohort_s"],
                        "request_subjects": BATCH, **http_times},

@@ -3,21 +3,20 @@ sparsification, once per subject (port of `iggcn_tpu/data/diffusion.py`).
 
 `preprocess_diffusion` has the JAX module's three backends:
 
-  * `numpy` (the port's default): the per-subject host loop, bit-equal to
-    the JAX package's NumPy path, which is why the port's cohort tests
-    can hold cohorts bit-equal;
-  * `auto`: PPR + top-k through the native C++ library
-    (`csrc/gdc_native.cpp`, the port's copy of the JAX package's), built
-    by the host compiler into `_build/` at first use; bit-comparable to
-    `numpy` (the same inverse up to LU round-off, the same stable-argsort
-    tie handling). It raises when the library cannot be built: no quiet
-    fallback;
+  * `auto` (the default, as in the JAX package, so the loaders use it):
+    PPR + top-k through the native C++ library (`csrc/gdc_native.cpp`,
+    the port's copy of the JAX package's), built by the host compiler
+    into `_build/` at first use, bit-equal to the JAX package's native
+    path and within LU round-off of `numpy` (the same stable-argsort tie
+    handling); every other mode through `numpy`, as the JAX `auto` does.
+    One difference from the JAX package: where the library cannot be
+    built the port raises, where the JAX package falls back to NumPy;
+  * `numpy`: the per-subject host loop, bit-equal to the JAX package's
+    NumPy path;
   * `device`: the whole cohort as one batched `torch.linalg.solve` in fp32
     on a torch device (the card by default), with the JAX package's
     threshold rule (`ppr_topk_batch_torch`). A library solve, as the JAX
-    package leaves it to XLA, not a kernel of the port.
-
-Other modes than PPR + top-k run on `numpy` only.
+    package leaves it to XLA, not a kernel of the port. PPR + top-k only.
 """
 from __future__ import annotations
 
@@ -113,24 +112,25 @@ def ppr_topk_batch_torch(adjs: torch.Tensor, alpha: float = 0.05,
 def preprocess_diffusion(adjs: np.ndarray, *, is_ppr: bool = True,
                          is_topk: bool = True, top_k: int = 3,
                          alpha: float = 0.05, heat_t: float = 5.0,
-                         backend: str = "numpy",
+                         backend: str = "auto",
                          device: str | torch.device | None = None
                          ) -> np.ndarray:
     """Diffuse and sparsify a stack of adjacencies (B, N, N), float64.
 
     With `is_topk=False` the heat kernel is applied to the already diffused
     matrix, as the reference does (its eps-clip sparsifier is defined but
-    never called there, and the port has none). `backend` is `numpy`,
-    `auto` (the native library) or `device` (one batched solve on
-    `device`, default the card); `auto` and `device` take PPR + top-k
-    only."""
+    never called there, and the port has none). `backend` is `auto` (the
+    native library for PPR + top-k, `numpy` for the other modes; raises
+    when the library cannot be built, where the JAX package falls back to
+    NumPy), `numpy`, or `device` (one batched solve on `device`, default
+    the card; PPR + top-k only)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown diffusion backend {backend!r}; one of "
                          f"{BACKENDS}")
-    if backend != "numpy" and not (is_ppr and is_topk):
-        raise ValueError(f"backend={backend!r} implements the PPR+top-k "
-                         "path only; use backend='numpy'")
-    if backend == "auto":
+    if backend == "device" and not (is_ppr and is_topk):
+        raise ValueError("backend='device' implements the PPR+top-k path "
+                         "only; use backend='auto' or 'numpy'")
+    if backend == "auto" and is_ppr and is_topk:
         return ppr_topk_batch_native(adjs, alpha, top_k)
     if backend == "device":
         from iggcn_tpu_torch.utils.platform import resolve_device

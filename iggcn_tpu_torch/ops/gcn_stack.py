@@ -28,12 +28,16 @@ yardstick on the card.
 bf16 serving hands the stack bf16 P, x, weights and biases. On CUDA that
 runs the kernel's bf16-operand form: the same stack in fp32 FMAs on the
 bf16 values, fp32 activations between layers and an fp32 output, as the
-JAX package's `gcn_conv` gives with `preferred_element_type=float32`;
-P's band in shared memory is bf16, half the bytes, so `plan_launch`
-(`elem_bytes=2`) needs a cluster only where the fp32 form needs a larger
-one. On the CPU it is `gcn_stack_reference` on the fp32 upcasts. The
-bf16 form serves only: it has no backward and raises when grad is on
-and an input requires it, and it has no grouped form (training is fp32).
+JAX package's `gcn_conv` gives with `preferred_element_type=float32`.
+Where one CTA holds a sample's bf16 P (N=90 and N=270, the model's sizes)
+that is `csrc/gcn_stack_bf16.cu`, a persistent kernel whose CTAs walk
+the batch, each sample's P brought into one stage of shared memory by a
+bulk copy (`PersistentPlan`, `stage_schedule`); larger N take the fp32
+kernel's cluster design on bf16 bands (`csrc/gcn_stack.cu` with
+`T = __nv_bfloat16`). On the CPU it is
+`gcn_stack_reference` on the fp32 upcasts. The bf16 form serves only: it
+has no backward and raises when grad is on and an input requires it, and
+it has no grouped form (training is fp32).
 `fused_gcn_stack.launches_bf16` counts its launches.
 """
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 from iggcn_tpu_torch.utils.cuda_build import load_library
 
 SOURCE = "gcn_stack.cu"
+BF16_SOURCE = "gcn_stack_bf16.cu"
 MAX_LAYERS = 8
 
 
@@ -94,6 +99,15 @@ MAX_THREADS = 512
 CLUSTER_SIZES = (1, 2, 4, 8)
 TILE_ROWS = 8            # a thread's register tile: 8 rows x 4 columns
 KSPLITS = (1, 2, 4)      # lanes that may share one tile, splitting K
+# The bf16 form's persistent kernel: K split 2 or 4. An SM has 228 KB of
+# shared memory, of which the runtime reserves 1 KB for each resident CTA.
+SMEM_PER_SM = 233472
+SMEM_PER_CTA = 1024
+BF16_KSPLITS = (2, 4)
+# threads a CTA may have, and an SM may hold at the 128 registers a thread
+# the kernel's __launch_bounds__(512) allow
+BF16_MAX_THREADS = 512
+H100_SMS = 132           # SMs of an H100 SXM: plan_launch's default
 
 
 def _ceil(v: int, m: int) -> int:
@@ -132,6 +146,114 @@ class LaunchPlan:
 
 # bf16 values the band's head may shift it by in shared memory (`band_copy`)
 BF16_LEAD = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class PersistentPlan:
+    """The bf16 form's launch plan where one CTA holds a sample
+    (`csrc/gcn_stack_bf16.cu`); offsets and sizes in floats from the start
+    of shared memory.
+
+    `grid(b)` CTAs stay resident, `ctas_per_sm` to an SM, and CTA c takes
+    samples c, c + grid, ...; a stage of `stage_vals` bf16 values holds
+    their P in turn (the first region of shared memory), which the tile
+    loop reads in place. A thread computes an 8 x 4 register tile of P hW
+    over 1/ksplit of K."""
+    ksplit: int
+    kpad: int                 # N rounded up: K of the tile loop
+    threads: int
+    ctas_per_sm: int
+    smem_bytes: int
+    ps: int                   # column stride of P in the stage (even)
+    n8: int                   # N rounded up to TILE_ROWS
+    hs: int                   # widest layer rounded up to 4
+    hws: int                  # row stride of hW (hws % 8 == 4: a warp's
+    hts: int                  # K-slices on other banks); of h^T
+    stage_vals: int           # bf16 values of the stage, a multiple of 8
+    fout_p: Tuple[int, ...]   # each layer's width rounded up to 4
+    off_hw: int               # after the stage: kpad x hws hW
+    off_h: int                # then h^T (hs x hts)
+    off_w: Tuple[int, ...]    # W_l as ceil4(F_l) x fout_p[l], zero-padded
+    off_b: Tuple[int, ...]    # b_l as fout_p[l], zero-padded
+    off_o: int                # last: the JK output, n x sum H
+    sms: int                  # SMs of the card the plan is for
+    elem_bytes: int = 2
+    cluster: int = 1          # one CTA per sample
+
+    @property
+    def warps_per_sm(self) -> int:
+        return self.ctas_per_sm * self.threads // 32
+
+    def grid(self, b: int) -> int:
+        """CTAs of a launch over `b` samples: every resident CTA, or one
+        per sample where there are fewer."""
+        return min(b, self.sms * self.ctas_per_sm)
+
+
+def persistent_plan(n: int, dims: Sequence[int], ksplit: int, sms: int
+                    ) -> PersistentPlan | None:
+    """The persistent plan with this K split, or None when it does not fit
+    one CTA."""
+    hs = _ceil(max(dims), 4)
+    fout_p = tuple(_ceil(d, 4) for d in dims[1:])
+    n8 = _ceil(n, TILE_ROWS)
+    tiles = (n8 // TILE_ROWS) * (max(fout_p) // 4)
+    threads = _ceil(tiles * ksplit, 32)
+    if threads > BF16_MAX_THREADS:
+        return None
+    kpad = _ceil(n, max(TILE_ROWS, 2 * ksplit))
+    ps = _ceil(n, 2)
+    # a warp's 8 K-slices read 8 rows of hW: a stride of 4 (mod 8) floats
+    # puts their 16-byte loads on 32 different banks
+    hws = hs + 4 if hs % 8 == 0 else hs
+    hts = kpad + 2
+    # the tile loop reads up to kpad columns and the pad rows' slack
+    stage_vals = _ceil(BF16_LEAD + kpad * ps + 8, 8)
+    off_hw = stage_vals // 2
+    off_h = off_hw + kpad * hws
+    cur = off_h + hs * hts
+    off_w, off_b = [], []
+    for fin, fp in zip(dims[:-1], fout_p):
+        off_w.append(cur)
+        off_b.append(cur + _ceil(fin, 4) * fp)
+        cur += _ceil(fin, 4) * fp + fp
+    smem = 4 * (cur + _ceil(n * sum(dims[1:]), 4))
+    if smem > SMEM_PER_BLOCK - STATIC_SMEM:
+        return None
+    ctas = min(SMEM_PER_SM // (smem + STATIC_SMEM + SMEM_PER_CTA),
+               BF16_MAX_THREADS // threads)
+    return PersistentPlan(ksplit, kpad, threads, ctas, smem, ps, n8,
+                          hs, hws, hts, stage_vals, fout_p, off_hw, off_h,
+                          tuple(off_w), tuple(off_b), cur, sms)
+
+
+def _choose_persistent(n: int, dims: Tuple[int, ...], sms: int
+                       ) -> PersistentPlan | None:
+    """The widest K split that fits: the most warps a sample gets. It
+    measured fastest at N=90 for B=256 and for the 874-subject cohort in
+    one launch, and at N=270 for B=256 (PERF.md)."""
+    return next((plan for ks in sorted(BF16_KSPLITS, reverse=True)
+                 if (plan := persistent_plan(n, dims, ks, sms))), None)
+
+
+def stage_schedule(b: int, grid: int) -> List[List[Tuple[str, int, int]]]:
+    """The persistent bf16 kernel's stage, event by event for each CTA, as
+    `csrc/gcn_stack_bf16.cu` runs it: ("fill", sample, use) where thread 0
+    issues the copy of `sample` into the stage (its use-th fill), ("wait",
+    sample, parity) where the CTA waits for it on the stage's barrier and,
+    once every thread is done with it, releases the stage. CTA c takes
+    samples c, c + grid, ...; the first is filled before the loop, and
+    each release refills the stage with the next."""
+    out = []
+    for cta in range(min(b, grid)):
+        samples = range(cta, b, grid)
+        events = [("fill", samples[0], 0)]
+        for it, s in enumerate(samples):
+            events.append(("wait", s, it & 1))
+            if it + 1 < len(samples):
+                events.append(("fill", samples[it + 1], it + 1))
+        out.append(events)
+    return out
 
 
 def _plan_for(n: int, dims: Sequence[int], cluster: int,
@@ -176,21 +298,24 @@ def _plan_for(n: int, dims: Sequence[int], cluster: int,
                       tuple(off_w), tuple(off_b), off_o, elem_bytes)
 
 
-def plan_launch(b: int, n: int, dims: Sequence[int],
-                elem_bytes: int = 4) -> LaunchPlan:
+def plan_launch(b: int, n: int, dims: Sequence[int], elem_bytes: int = 4,
+                sms: int = H100_SMS) -> LaunchPlan | PersistentPlan:
     """Launch plan for a batch of `b` samples of N nodes with layer widths
     `dims` = (F0, H_1, ..., H_L), P's values `elem_bytes` wide (4 fp32, 2
-    for the bf16 form).
+    for the bf16 form), on a card of `sms` SMs.
 
-    The cluster is the smallest that holds P resident: one CTA per sample
-    where it fits (N=90, and N=270 in bf16), two at N=270 in fp32, which
-    measured 2-3 % faster than four on an H100 (PERF.md). The K split is
-    the smallest that gives 4 warps. Raises ValueError for a shape the
-    kernel cannot hold."""
+    fp32: the cluster is the smallest that holds P resident, one CTA per
+    sample at N=90, two at N=270, which measured 2-3 % faster than four on
+    an H100 (PERF.md); the K split is the smallest that gives 4 warps.
+    bf16: the persistent kernel's `PersistentPlan` where one CTA holds a
+    sample (N=90 and N=270; it does not depend on `b`, whose `grid(b)` is
+    the launch's), else the fp32 design's `LaunchPlan` on bf16 bands with
+    a cluster of 2 to 8. Raises ValueError for a shape the kernels cannot
+    hold."""
     if elem_bytes not in (2, 4):
         raise ValueError(f"elem_bytes is 4 (fp32) or 2 (bf16); got "
                          f"{elem_bytes}")
-    plan = _choose_plan(n, tuple(int(d) for d in dims), elem_bytes)
+    plan = _choose_plan(n, tuple(int(d) for d in dims), elem_bytes, sms)
     if not 0 <= b * plan.cluster < 2 ** 31:
         raise ValueError(f"a batch of {b} takes {b * plan.cluster} CTAs; one "
                          "launch takes 0 to 2**31 - 1")
@@ -198,12 +323,15 @@ def plan_launch(b: int, n: int, dims: Sequence[int],
 
 
 @functools.lru_cache(maxsize=None)
-def _choose_plan(n: int, dims: Tuple[int, ...], elem_bytes: int
-                 ) -> LaunchPlan:
+def _choose_plan(n: int, dims: Tuple[int, ...], elem_bytes: int, sms: int
+                 ) -> LaunchPlan | PersistentPlan:
     if n < 1 or not 1 <= len(dims) - 1 <= MAX_LAYERS or min(dims) < 1:
         raise ValueError(f"gcn_stack kernel takes N >= 1 and 1..{MAX_LAYERS} "
                          f"layers of width >= 1; got N={n}, dims={dims}")
-    plan = next((plan for c in CLUSTER_SIZES
+    if elem_bytes == 2 and (persistent := _choose_persistent(n, dims, sms)):
+        return persistent
+    clusters = CLUSTER_SIZES if elem_bytes == 4 else CLUSTER_SIZES[1:]
+    plan = next((plan for c in clusters
                  if (plan := _plan_for(n, dims, c, elem_bytes)) is not None),
                 None)
     if plan is None:
@@ -248,11 +376,42 @@ def _c_plan(plan: LaunchPlan, n: int, dims: Tuple[int, ...], transposed: bool,
         w_stride=ints(w_strides), b_stride=ints(b_strides))
 
 
+class _CBf16Plan(ctypes.Structure):
+    """`Bf16Plan` of csrc/gcn_stack_bf16.cu, field for field."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n", "num_layers", "ksplit", "kpad", "threads", "smem_bytes", "grid",
+        "copy_bulk", "p_transposed", "ps", "n8", "hs", "hws", "hts",
+        "total", "stage_vals", "off_hw", "off_h", "off_o")] + [
+            (name, ctypes.c_int * size) for name, size in (
+                ("dims", MAX_LAYERS + 1), ("fout_p", MAX_LAYERS),
+                ("off_w", MAX_LAYERS), ("off_b", MAX_LAYERS),
+                ("out_off", MAX_LAYERS))]
+
+
+@functools.lru_cache(maxsize=64)
+def _c_bf16_plan(plan: PersistentPlan, n: int, dims: Tuple[int, ...],
+                 transposed: bool, bulk: bool, grid: int) -> _CBf16Plan:
+    def ints(values, size=MAX_LAYERS):
+        return (ctypes.c_int * size)(*values)
+    return _CBf16Plan(
+        n=n, num_layers=len(dims) - 1, ksplit=plan.ksplit, kpad=plan.kpad,
+        threads=plan.threads, smem_bytes=plan.smem_bytes, grid=grid,
+        copy_bulk=int(bulk),
+        p_transposed=int(transposed), ps=plan.ps, n8=plan.n8, hs=plan.hs,
+        hws=plan.hws, hts=plan.hts, total=sum(dims[1:]),
+        stage_vals=plan.stage_vals, off_hw=plan.off_hw, off_h=plan.off_h,
+        off_o=plan.off_o,
+        dims=ints(dims, MAX_LAYERS + 1), fout_p=ints(plan.fout_p),
+        off_w=ints(plan.off_w), off_b=ints(plan.off_b),
+        out_off=ints([sum(dims[1:1 + i]) for i in range(len(dims) - 1)]))
+
+
 def band_copy(addr: int, own: int, n: int, elem_bytes: int
               ) -> Tuple[int, int, int, int]:
-    """How the kernel copies one CTA's band of P (its `own` columns of N
-    values, one block of memory at byte address `addr`) with the bulk
-    copy, as `csrc/gcn_stack.cu` computes it: (lead, head, body, tail).
+    """How the kernels copy a band of P (`own` columns of N values, one
+    block of memory at byte address `addr`: one CTA's band in
+    `csrc/gcn_stack.cu`, a whole sample, own = N, in the persistent bf16
+    kernel's stage) with the bulk copy: (lead, head, body, tail).
     The band starts `lead` values into shared memory; its first `head`
     bytes, up to a 16-byte boundary, and its last `tail` bytes are plain
     loads; the `body` bytes between them, 16-byte aligned at both ends in
@@ -283,6 +442,7 @@ def _bulk_copyable(prop: torch.Tensor, plan: LaunchPlan) -> bool:
 
 
 _lib: ctypes.CDLL | None = None
+_bf16_lib: ctypes.CDLL | None = None
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -298,12 +458,37 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def declare_bf16(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`declare` for the persistent bf16 kernel's library."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gcn_stack_bf16_forward.argtypes = [
+        ctypes.POINTER(_CBf16Plan), ptr, i64, ptr, ctypes.POINTER(ptr),
+        ctypes.POINTER(ptr), ptr, i64, i32, ptr]
+    lib.gcn_stack_bf16_forward.restype = i32
+    lib.gcn_stack_bf16_error_string.argtypes = [i32]
+    lib.gcn_stack_bf16_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use."""
     global _lib
     if _lib is None:
         _lib = declare(load_library(SOURCE))
     return _lib
+
+
+def _bf16_library() -> ctypes.CDLL:
+    """The persistent bf16 kernel's library, built at first use."""
+    global _bf16_lib
+    if _bf16_lib is None:
+        _bf16_lib = declare_bf16(load_library(BF16_SOURCE))
+    return _bf16_lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _prop_transposed(prop: torch.Tensor) -> bool:
@@ -387,10 +572,15 @@ def _launch(prop, x, weights, biases) -> torch.Tensor:
     index = (prop.device.index if prop.device.index is not None
              else torch.cuda.current_device())
     bf16 = prop.dtype == torch.bfloat16
-    plan = plan_launch(b, n, tuple(dims), 2 if bf16 else 4)
+    plan = plan_launch(b, n, tuple(dims), 2 if bf16 else 4, _sm_count(index))
     out = torch.empty((b, n, sum(dims[1:])), device=prop.device,
                       dtype=torch.float32)
     if b == 0:
+        return out
+    if isinstance(plan, PersistentPlan):
+        _launch_persistent(plan, prop, x, weights, biases, out, dims,
+                           transposed, index)
+        fused_gcn_stack.launches_bf16 += 1
         return out
     layers = len(weights)
     # shared weights: one set, strides 0, so one code path takes both forms
@@ -416,6 +606,28 @@ def _launch(prop, x, weights, biases) -> torch.Tensor:
     else:
         fused_gcn_stack.launches += 1
     return out
+
+
+def _launch_persistent(plan: PersistentPlan, prop, x, weights, biases, out,
+                       dims, transposed: bool, index: int) -> None:
+    """The persistent bf16 kernel on PyTorch's current stream. Samples come
+    by bulk copies where P is transposed and its value pairs are
+    4-byte aligned (`_bulk_copyable`), else value by value."""
+    b, n, _ = prop.shape
+    bulk = transposed and _bulk_copyable(prop, plan)
+    c_plan = _c_bf16_plan(plan, n, tuple(dims), transposed, bulk,
+                          plan.grid(b))
+    lib = _bf16_library()
+    layers = len(weights)
+    code = lib.gcn_stack_bf16_forward(
+        ctypes.byref(c_plan), prop.data_ptr(), prop.stride(0), x.data_ptr(),
+        (ctypes.c_void_p * layers)(*(w.data_ptr() for w in weights)),
+        (ctypes.c_void_p * layers)(*(bb.data_ptr() for bb in biases)),
+        out.data_ptr(), b, index,
+        torch.cuda.current_stream(prop.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError("gcn_stack bf16 kernel launch failed: "
+                           + lib.gcn_stack_bf16_error_string(code).decode())
 
 
 def _plain(prop, x, weights, biases) -> torch.Tensor:

@@ -1,13 +1,18 @@
 """Where the GCN-stack kernel's time goes, phase by phase, on the card.
 
-The kernel layer's per-phase metric (PERF.md, section 3 and the phase
-table of section 5). Builds `csrc/gcn_stack.cu` a second time with
+The kernel layer's per-phase metric (PERF.md, sections 3 and 6). Builds
+`csrc/gcn_stack.cu` and `csrc/gcn_stack_bf16.cu` a second time with
 -DGCN_STACK_PHASES, in which thread 0 of every CTA stamps %globaltimer and
-clock64 at each phase boundary, runs it (after warm-up, inputs warm in L2)
-at the shapes `chip_smoke.py` times, fp32 and (for the serving shapes)
-the bf16-operand form, and prints per shape the mean over the CTAs of
-each phase's duration, the span of the whole launch and how far apart
-the CTAs started (later waves). Needs a CUDA card:
+clock64 at each phase boundary, runs them (after warm-up, inputs warm in
+L2) at the shapes `chip_smoke.py` times, fp32 and (for the serving
+shapes) the bf16-operand form, and prints per shape the mean over the
+CTAs of each phase's duration, the span of the whole launch and how far
+apart the CTAs started (later waves). The persistent bf16 kernel sums
+each phase over a CTA's samples: its rows are per sample (layer 0's h W
+before the stage's wait, the wait, each layer's P hW and later layers' h W,
+the output), beside the prologue's parts per CTA. Last it times the
+persistent kernel at each K split its plan may choose, beside the fp32
+form (`ksplit_sweep`). Needs a CUDA card:
 
     python -m iggcn_tpu_torch.tools.gcn_stack_phases
 """
@@ -56,14 +61,141 @@ def phase_names(layers):
     return out + [("output store", 3 * layers + 1, 3 * layers + 2)]
 
 
-def run_phases(dev):
+# the persistent bf16 kernel's prologue, once per CTA: (name, slot)
+PERSISTENT_PROLOGUE = [("prologue: parameters", 20),
+                       ("prologue: loads, copies queued, stores", 21),
+                       ("prologue: x + sync", 0)]
+
+
+def persistent_phase_names(layers):
+    """(name, slot) of each phase the persistent bf16 kernel sums per
+    sample."""
+    out = [("layer 0: h W (before the wait)", 2),
+           ("stage wait (or value-by-value copy) + sync", 1),
+           ("layer 0: P hW + sync", 4)]
+    for l in range(1, layers):
+        out += [(f"layer {l}: h W + sync", 3 + 2 * l),
+                (f"layer {l}: P hW + sync", 4 + 2 * l)]
+    return out + [("output stores", 23),
+                  ("next x, edges + sync", 3 + 2 * layers)]
+
+
+def _stamped(source, declare, stamps):
     lib = ctypes.CDLL(cuda_build.build_all(
-        [gcn_stack.SOURCE], extra_flags=("-DGCN_STACK_PHASES",))[gcn_stack.SOURCE])
-    gcn_stack.declare(lib)
-    lib.gcn_stack_phase_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                           ctypes.c_int]
-    lib.gcn_stack_phase_stamps.restype = ctypes.c_int
-    gcn_stack._lib = lib   # the wrapper now launches the stamped build
+        [source], extra_flags=("-DGCN_STACK_PHASES",))[source])
+    declare(lib)
+    getattr(lib, stamps).argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int]
+    getattr(lib, stamps).restype = ctypes.c_int
+    return lib
+
+
+def _read(lib, stamps, error_string, ctas):
+    ns = np.zeros(ctas * SLOTS, np.uint64)
+    clk = np.zeros(ctas * SLOTS, np.int64)
+    code = getattr(lib, stamps)(ns.ctypes.data, clk.ctypes.data, ctas)
+    if code:
+        raise RuntimeError(getattr(lib, error_string)(code).decode())
+    return ns.reshape(ctas, SLOTS).astype(np.int64), clk.reshape(ctas, SLOTS)
+
+
+def report_persistent(name, b, n, f0, widths, plan, ns, clk):
+    """Per-sample phase means of the persistent bf16 kernel's stamps."""
+    samples = ns[:, SLOTS - 3]
+    start, end = ns[:, SLOTS - 2], ns[:, SLOTS - 1]
+    print(f"{name}: B={b} N={n} F0={f0} H={widths}, persistent "
+          f"ksplit {plan.ksplit}, "
+          f"{plan.threads} threads x {plan.ctas_per_sm} CTAs per SM "
+          f"({plan.warps_per_sm} warps), "
+          f"{plan.smem_bytes} B, grid {len(ns)}; launch span "
+          f"{(end.max() - start.min()) / 1e3:.2f} us, CTA starts spread over "
+          f"{(start.max() - start.min()) / 1e3:.2f} us, per-CTA "
+          f"{(end - start).mean() / 1e3:.2f} us (mean), samples per CTA "
+          f"{samples.min()}-{samples.max()}")
+    for label, slot in PERSISTENT_PROLOGUE:
+        print(f"  {label:<40s} {ns[:, slot].mean() / 1e3:8.3f} us "
+              f"{clk[:, slot].mean():9.0f} cycles  (per CTA)")
+    for label, slot in persistent_phase_names(len(widths)):
+        print(f"  {label:<40s} {(ns[:, slot] / samples).mean() / 1e3:8.3f} us "
+              f"{(clk[:, slot] / samples).mean():9.0f} cycles  (per sample)")
+
+
+def _device_ms(fn, runs=25, inner=10):
+    """Median device ms of one call of `fn`, warm, from CUDA events around
+    `inner` calls queued behind a sleep kernel (chip_smoke.py's method)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+def ksplit_sweep(dev):
+    """Warm device ms of the persistent bf16 kernel at the bf16 serving
+    shapes (B=256, and the whole 874-subject cohort at N=90) with each K
+    split the plan may choose, the plan's own choice named, beside the fp32
+    form on the upcast inputs; in turns (every split, then again in
+    reverse order), each reading the mean of its two."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(1)
+    with torch.inference_mode():
+        for name, b, n, f0, widths in [("serving bf16", 256, 90, 3, (16, 16)),
+                                       ("cohort bf16", 874, 90, 3, (16, 16)),
+                                       ("multi-fusion bf16", 256, 270, 1,
+                                        (10, 10, 10))]:
+            prop, x, ws, bs = _inputs(rng, b, n, f0, widths, dev)
+            args = (prop.bfloat16(), x.bfloat16(), [w.bfloat16() for w in ws],
+                    [v.bfloat16() for v in bs])
+            up = (args[0].float(), args[1].float(),
+                  [w.float() for w in args[2]], [v.float() for v in args[3]])
+            dims = (f0, *widths)
+            chosen = gcn_stack.plan_launch(b, n, dims, 2, sms)
+            plans = {f"ks {ks}": plan for ks in gcn_stack.BF16_KSPLITS
+                     if (plan := gcn_stack.persistent_plan(n, dims, ks, sms))}
+            transposed = gcn_stack._prop_transposed(args[0])
+
+            def run(plan):
+                out = torch.empty((b, n, sum(widths)), device=dev)
+                gcn_stack._launch_persistent(plan, *args, out, list(dims),
+                                             transposed, dev.index or 0)
+                return out
+
+            times = {}
+            order = [*plans, "fp32"]
+            for what in order + order[::-1]:
+                fn = ((lambda: gcn_stack.fused_gcn_stack(*up)) if what == "fp32"
+                      else (lambda p=plans[what]: run(p)))
+                times.setdefault(what, []).append(_device_ms(fn))
+            print(f"{name}: B={b} N={n} F0={f0} H={widths}, K split sweep "
+                  f"(plan: ksplit {chosen.ksplit}): "
+                  + ", ".join(
+                      f"{'fp32 form' if k == 'fp32' else k} "
+                      f"{np.mean(v):.5f} ms" for k, v in times.items()))
+
+
+def run_phases(dev):
+    lib = _stamped(gcn_stack.SOURCE, gcn_stack.declare,
+                   "gcn_stack_phase_stamps")
+    bf16_lib = _stamped(gcn_stack.BF16_SOURCE, gcn_stack.declare_bf16,
+                        "gcn_stack_bf16_phase_stamps")
+    for source in (gcn_stack.SOURCE, gcn_stack.BF16_SOURCE):
+        print(f"ptxas, {source}:")
+        for line in cuda_build.BUILD_LOGS.get(source, "").splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                print("  " + line.strip())
+    # the wrapper now launches the stamped builds
+    gcn_stack._lib, gcn_stack._bf16_lib = lib, bf16_lib
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
     with torch.inference_mode():
         for name, b, n, f0, widths in SHAPES:
@@ -74,18 +206,17 @@ def run_phases(dev):
                 args = (prop.bfloat16(), x.bfloat16(),
                         [w.bfloat16() for w in ws], [v.bfloat16() for v in bs])
             plan = gcn_stack.plan_launch(b, n, (f0, *widths),
-                                         2 if bf16 else 4)
+                                         2 if bf16 else 4, sms)
             for _ in range(4):
                 gcn_stack.fused_gcn_stack(*args)
             torch.cuda.synchronize()
-            ctas = b * plan.cluster
-            ns = np.zeros(ctas * SLOTS, np.uint64)
-            clk = np.zeros(ctas * SLOTS, np.int64)
-            code = lib.gcn_stack_phase_stamps(ns.ctypes.data, clk.ctypes.data, ctas)
-            if code:
-                raise RuntimeError(lib.gcn_stack_error_string(code).decode())
-            ns = ns.reshape(ctas, SLOTS).astype(np.int64)
-            clk = clk.reshape(ctas, SLOTS)
+            if isinstance(plan, gcn_stack.PersistentPlan):
+                ns, clk = _read(bf16_lib, "gcn_stack_bf16_phase_stamps",
+                                "gcn_stack_bf16_error_string", plan.grid(b))
+                report_persistent(name, b, n, f0, widths, plan, ns, clk)
+                continue
+            ns, clk = _read(lib, "gcn_stack_phase_stamps",
+                            "gcn_stack_error_string", b * plan.cluster)
             last = 3 * len(widths) + 2
             print(f"{name}: B={b} N={n} F0={f0} H={widths}, cluster "
                   f"{plan.cluster}, ksplit {plan.ksplit}, {plan.threads} threads, "
@@ -107,6 +238,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
     run_phases(torch.device("cuda", 0))
+    ksplit_sweep(torch.device("cuda", 0))
     return 0
 
 

@@ -164,8 +164,9 @@ def render_cli_md() -> str:
     for var, effect in (
         ("`CUDA_HOME` / `CUDA_PATH`", "the CUDA toolkit whose `nvcc` builds "
          "the kernels (else `nvcc` on `PATH`, else `/usr/local/cuda`)"),
-        ("`CXX`", "the host C++ compiler of the native diffusion library "
-         "(`--diffusion_backend auto`; default `g++`)"),
+        ("`CXX`", "the host C++ compiler of the native diffusion library, "
+         "which the cohort loaders use for PPR + top-k (`auto` backend of "
+         "`preprocess_diffusion`); default `g++`"),
         ("`OMP_NUM_THREADS`", "torch's CPU threads; 1 is much faster for "
          "the small ops of a `--device cpu` run"),
     ):

@@ -17,14 +17,19 @@
   fp32, agreement >= 0.9); predictions equal wherever the decision is
   wider than 1e-2.
 * `cast_floating` casts the weights and leaves the GO topology buffers
-  and integer buffers alone; the kernel's bf16 launch plan (offsets and
-  16-byte alignment of the band's bulk copy for odd and even samples) and
-  the shapes `chip_smoke.py` launches to reach each branch; the HTTP
-  daemon and the one-shot CLI under `--bf16`.
+  and integer buffers alone; the kernel's bf16 launch plan (its forms,
+  warps per SM and grid; offsets and 16-byte alignment of each sample's
+  bulk copy in the stage, for odd and even samples), a mirror of the
+  persistent kernel's schedule (every sample once, the stage's barrier
+  parity on every reuse), the C struct's field order, and the shapes
+  `chip_smoke.py` launches to reach each branch and refill the stage; the
+  HTTP daemon and the one-shot CLI under `--bf16`.
 """
 import http.client
 import io
 import json
+import pathlib
+import re
 import threading
 
 import jax
@@ -43,9 +48,13 @@ from iggcn_tpu_torch.data.adni import synthetic_cohort
 from iggcn_tpu_torch.data.go_graph import synthetic_topology
 from iggcn_tpu_torch.models.fused_sgcn import FusedSGCN
 from iggcn_tpu_torch.models.go_network import GeneOntologyNetwork
-from iggcn_tpu_torch.ops.gcn_stack import (SMEM_PER_BLOCK, BF16_LEAD,
-                                           band_copy, fused_gcn_stack,
-                                           plan_launch)
+from iggcn_tpu_torch.ops.gcn_stack import (BF16_KSPLITS, BF16_LEAD,
+                                           BF16_MAX_THREADS, MAX_LAYERS,
+                                           MAX_THREADS, SMEM_PER_BLOCK,
+                                           PersistentPlan, _c_bf16_plan,
+                                           _CBf16Plan, band_copy,
+                                           fused_gcn_stack, plan_launch,
+                                           stage_schedule)
 from iggcn_tpu_torch.predict import (batched_forward, batched_forward_snps,
                                      cast_floating)
 from iggcn_tpu_torch.tools import serve
@@ -145,49 +154,184 @@ def test_bf16_form_refuses_grad_groups_and_mixed_types():
                                          (270, 1, (10, 10, 10))])
 def test_bf16_plan_band_copy_is_aligned_for_odd_and_even_samples(
         n, f0, widths):
+    """Each sample the persistent kernel takes lands in its stage: the
+    head and tail plain-loaded, the body's bulk copy 16-byte aligned in
+    device and shared memory, all inside the stage, for odd and even
+    samples, with P 16-byte aligned or 2 bytes off."""
     dims = (f0,) + widths
     plan = plan_launch(256, n, dims, elem_bytes=2)
     fp32 = plan_launch(256, n, dims)
     # bf16 P needs half the room: N=270 fits one CTA where fp32 needs two
-    assert plan.cluster == 1 and fp32.cluster == (1 if n == 90 else 2)
-    assert plan.smem_bytes <= SMEM_PER_BLOCK - 1024
-    assert plan.ps == n and plan.elem_bytes == 2
-    # the band (lead, kpad columns of stride ps, 8 of slack, in bf16)
-    # ends before the next region, which stays 16-byte aligned
-    assert 2 * plan.off_part >= BF16_LEAD + plan.kpad * plan.ps + 8
-    assert plan.off_part % 4 == 0
-    base = 1 << 20                         # a 512-byte-aligned allocation
-    for sample in range(8):
-        for rank in range(plan.cluster):
-            r0 = rank * plan.rows
-            own = min(n, r0 + plan.rows) - r0
-            addr = base + 2 * (sample * n * n + r0 * n)
-            lead, head, body, tail = band_copy(addr, own, n, 2)
-            assert head + body + tail == 2 * own * n
+    assert isinstance(plan, PersistentPlan) and plan.cluster == 1
+    assert fp32.cluster == (1 if n == 90 else 2)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK - 1024 and plan.ps == n
+    assert plan.stage_vals == 2 * plan.off_hw  # hW right after the stage
+    assert plan.stage_vals % 8 == 0            # and 16-byte aligned
+    lo, hi = 0, 2 * plan.stage_vals            # the stage's bytes
+    for base in (1 << 20, (1 << 20) + 2):    # an allocation, and 2 bytes off
+        for sample in range(8):
+            addr = base + 2 * sample * n * n
+            lead, head, body, tail = band_copy(addr, n, n, 2)
+            assert head + body + tail == 2 * n * n
             assert 0 <= head < 16 and 0 <= tail < 16 and body % 16 == 0
-            assert (addr + head) % 16 == 0               # bulk source
-            assert (2 * lead + head) % 16 == 0           # bulk destination
-            assert lead % 2 == 0 and lead < BF16_LEAD    # pairs stay aligned
-            # at N=90 and 270 a sample is 8 bytes off 16 for odd samples
-            assert (head == 0) == (sample % 2 == 0)
+            # the kernel's edge threads, with the 8 zeros after the sample
+            assert (head + tail) // 2 + 8 <= 32
+            assert (addr + head) % 16 == 0                 # bulk source
+            assert (lo + 2 * lead + head) % 16 == 0        # bulk destination
+            assert lo <= lo + 2 * lead and lo + 2 * lead + 2 * n * n <= hi
+            assert lead < BF16_LEAD
+            # read in place: as far as the tile loop reads
+            assert 2 * (lead + plan.kpad * plan.ps + 8) <= hi - lo
+            if base % 16 == 0:   # a sample is 8 bytes off 16 when odd
+                assert (head == 0) == (sample % 2 == 0)
+                assert lead % 2 == 0           # pairs stay 4-byte aligned
     # fp32 bands are 16-byte aligned whole: one bulk copy
-    assert band_copy(base + 4 * 90 * 90, 90, 90, 4) == (0, 0, 4 * 8100, 0)
+    assert band_copy((1 << 20) + 4 * 90 * 90, 90, 90, 4) == (0, 0, 4 * 8100, 0)
+
+
+def test_bf16_persistent_plan_at_the_serving_shapes():
+    """N=90: K split 4, CTAs of 6 warps, two to an SM at 128 registers a
+    thread, whatever the batch (the whole cohort in one launch gets the
+    serving plan); N=90 at widths 64: K split 2 (4 would take 768
+    threads), one CTA of 12 warps; N=270: K split 4, one CTA of 13 warps;
+    the grid is the resident CTAs or B; layouts in order and 16-byte
+    aligned."""
+    serving = plan_launch(256, 90, (3, 16, 16), elem_bytes=2)
+    wide = plan_launch(256, 90, (3, 64, 64), elem_bytes=2)
+    multi = plan_launch(256, 270, (1, 10, 10, 10), elem_bytes=2)
+    assert (serving.ksplit, serving.threads,
+            serving.ctas_per_sm) == (4, 192, 2)
+    assert plan_launch(874, 90, (3, 16, 16), elem_bytes=2) == serving
+    assert (wide.ksplit, wide.threads, wide.ctas_per_sm) == (2, 384, 1)
+    assert (multi.ksplit, multi.threads, multi.ctas_per_sm) == (4, 416, 1)
+    # warps an SM holds
+    assert [p.warps_per_sm for p in (serving, wide, multi)] == [12, 12, 13]
+    for plan, n, dims in ((serving, 90, (3, 16, 16)),
+                          (wide, 90, (3, 64, 64)),
+                          (multi, 270, (1, 10, 10, 10))):
+        assert plan.ctas_per_sm * plan.threads <= BF16_MAX_THREADS
+        assert plan.threads % 32 == 0
+        assert plan.ctas_per_sm * (plan.smem_bytes + 2048) <= 233472
+        assert plan.kpad >= n and plan.kpad % (2 * plan.ksplit) == 0
+        assert plan.hws % 8 == 4
+        assert plan.stage_vals >= BF16_LEAD + plan.kpad * plan.ps + 8
+        ends = [plan.off_hw + plan.kpad * plan.hws,
+                plan.off_h + plan.hs * plan.hts]
+        starts = [plan.off_h, plan.off_w[0]]
+        for i, (fin, fp) in enumerate(zip(dims[:-1], plan.fout_p)):
+            ends += [plan.off_w[i] + -(-fin // 4) * 4 * fp, plan.off_b[i] + fp]
+            starts += [plan.off_b[i], (plan.off_w + (plan.off_o,))[i + 1]]
+        assert ends == starts
+        assert plan.smem_bytes >= 4 * (plan.off_o + n * sum(dims[1:]))
+        assert all(o % 4 == 0 for o in (plan.off_hw, plan.off_h, plan.off_o,
+                                        *plan.off_w))
+    for b, sms, n, dims, grid in ((256, 132, 90, (3, 16, 16), 256),
+                                  (874, 132, 90, (3, 16, 16), 264),
+                                  (874, 132, 90, (3, 64, 64), 132),
+                                  (7, 132, 90, (3, 16, 16), 7),
+                                  (256, 114, 90, (3, 16, 16), 228),
+                                  (256, 132, 270, (1, 10, 10, 10), 132),
+                                  (133, 132, 270, (1, 10, 10, 10), 132)):
+        assert plan_launch(b, n, dims, 2, sms).grid(b) == grid
+
+
+def test_bf16_plan_refuses_what_no_kernel_holds():
+    with pytest.raises(ValueError, match="cannot hold"):
+        plan_launch(256, 1100, (1, 4, 4), elem_bytes=2)
+    with pytest.raises(ValueError, match="cannot hold"):
+        plan_launch(7, 90, (3, 2048), elem_bytes=2)
+    with pytest.raises(ValueError, match="elem_bytes"):
+        plan_launch(7, 90, (3, 16), elem_bytes=1)
+
+
+@pytest.mark.parametrize("b", [1, 7, 106, 133, 256])
+def test_bf16_stage_schedule_takes_every_sample_once(b):
+    """The persistent kernel's schedule for each grid it can get (an H100's
+    132 SMs at 1 and 2 CTAs per SM, a card of 114, one CTA): every sample
+    filled and waited for once, by CTA s % grid, in order; the stage's
+    fills in use order, each waited for on parity use & 1, and refilled
+    only after the CTA waited for (and so released) its previous sample."""
+    for grid in {min(b, g) for g in (132, 264, 114, 1)}:
+        waited = []
+        for cta, events in enumerate(stage_schedule(b, grid)):
+            filled, uses = None, 0
+            for kind, sample, value in events:
+                assert sample % grid == cta
+                if kind == "fill":
+                    assert filled is None and value == uses  # stage released
+                    filled, uses = (sample, value), uses + 1
+                else:
+                    got, use = filled                    # filled, not waited
+                    assert got == sample and value == use & 1
+                    filled = None
+                    waited.append(sample)
+            assert filled is None                        # nothing in flight
+        assert sorted(waited) == list(range(b))
+        assert waited == sorted(waited, key=lambda s: (s % grid, s))
+
+
+def test_c_bf16_plan_mirrors_the_kernel_struct():
+    """`_CBf16Plan` is passed by pointer as csrc/gcn_stack_bf16.cu's
+    Bf16Plan: the same int fields, in the same order, with the same array
+    lengths."""
+    src = (pathlib.Path(__file__).parents[1] / "iggcn_tpu_torch" / "csrc"
+           / "gcn_stack_bf16.cu").read_text()
+    body = re.search(r"struct Bf16Plan \{(.*?)\};", src, re.S).group(1)
+    fields = []
+    for decl in re.findall(r"^\s*int ([^;]+);", body, re.M):
+        for name in decl.split(","):
+            m = re.fullmatch(r"\s*(\w+)(?:\[(.+)\])?\s*", name)
+            fields.append((m.group(1), {None: None, "kMaxLayers": MAX_LAYERS,
+                                        "kMaxLayers + 1": MAX_LAYERS + 1}
+                           [m.group(2)]))
+    ours = [(name, getattr(ctype, "_length_", None))
+            for name, ctype in _CBf16Plan._fields_]
+    assert fields == ours
+    plan = plan_launch(256, 90, (3, 16, 16), elem_bytes=2)
+    c = _c_bf16_plan(plan, 90, (3, 16, 16), True, True, plan.grid(256))
+    assert (c.grid, c.copy_bulk, c.ksplit, c.total,
+            list(c.out_off)[:2]) == (256, 1, 4, 32, [0, 16])
 
 
 def test_chip_smoke_bf16_branch_shapes_reach_every_plan():
     """chip_smoke.py launches the bf16 form at these shapes beyond the
-    grids so that every (cluster, K split) the bf16 plan can choose runs
-    on the card."""
+    grids so that every branch its plan can choose runs on the card: the
+    persistent kernel with each K split, and the cluster design with each
+    (cluster, K split) it takes beyond one CTA."""
     seen = {}
     for n, f0, widths in chip_smoke.BF16_BRANCH_SHAPES:
         plan = plan_launch(7, n, (f0,) + widths, elem_bytes=2)
-        assert plan.smem_bytes <= SMEM_PER_BLOCK and plan.threads <= 512
-        seen[(plan.cluster, plan.ksplit)] = (n, f0, widths)
+        assert plan.smem_bytes <= SMEM_PER_BLOCK
+        assert plan.threads <= (BF16_MAX_THREADS
+                                if isinstance(plan, PersistentPlan)
+                                else MAX_THREADS)
+        seen[chip_smoke.bf16_branch(plan)] = (n, f0, widths)
     for n, f0, widths in chip_smoke.STACK_SHAPES:
         plan = plan_launch(7, n, (f0,) + widths, elem_bytes=2)
-        seen.setdefault((plan.cluster, plan.ksplit), (n, f0, widths))
-    assert set(seen) == {(1, 1), (1, 2), (1, 4), (2, 1), (2, 4), (4, 1),
-                         (4, 2), (8, 1), (8, 2)}
+        seen.setdefault(chip_smoke.bf16_branch(plan), (n, f0, widths))
+    assert set(seen) == {
+        *(("persistent", 1, ks) for ks in BF16_KSPLITS),
+        *(("cluster", c, ks) for c, ks in ((2, 1), (2, 2), (2, 4), (4, 1),
+                                           (4, 2), (8, 1), (8, 2)))}
+
+
+def test_chip_smoke_bf16_refills_the_stage_at_every_k_split():
+    """chip_smoke.py launches the persistent kernel with each K split at a
+    batch whose CTAs (on an H100's 132 SMs) take three samples or more, so
+    that the stage is refilled and its barrier waited on at parity 0 and
+    1: the grids' shapes at `BF16_BATCHES` and `BF16_REFILL_CASES`."""
+    cases = [(b, n, f0, widths) for n, f0, widths in chip_smoke.STACK_SHAPES
+             for b in chip_smoke.BF16_BATCHES] + chip_smoke.BF16_REFILL_CASES
+    refilled = set()
+    for b, n, f0, widths in cases:
+        plan = plan_launch(b, n, (f0,) + widths, elem_bytes=2)
+        if not isinstance(plan, PersistentPlan):
+            continue
+        parities = {value for events in stage_schedule(b, plan.grid(b))
+                    for kind, _, value in events if kind == "wait"}
+        if b // plan.grid(b) >= 3 and parities == {0, 1}:
+            refilled.add(plan.ksplit)
+    assert refilled == set(BF16_KSPLITS)
 
 
 def test_cast_floating_leaves_topology_buffers_and_ints_alone():

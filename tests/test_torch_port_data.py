@@ -1,8 +1,8 @@
 """Port host data (`iggcn_tpu_torch/data/`, `train/fold_loop.fold_perms`)
 and the training configs against the JAX package, on the same seeds:
 splits, padding, epoch permutations, KNN imputation and the NumPy
-diffusion bit-equal; the synthetic cohort equal (float32 arrays to 1e-6,
-the same top-k support); the config dataclasses with the same fields and
+diffusion bit-equal, the default `auto` diffusion bit-equal to the JAX
+package's; the synthetic cohort bit-equal; the config dataclasses with the same fields and
 defaults."""
 import dataclasses
 
@@ -77,21 +77,25 @@ def test_knn_imputation_is_bit_equal(cohorts):
                                             (True, False)])
 def test_numpy_diffusion_is_bit_equal(cohorts, is_ppr, is_topk):
     raw = cohorts[1].raw_adj[:3]
-    want = diffusion.preprocess_diffusion(raw, is_ppr=is_ppr, is_topk=is_topk)
+    modes = {"is_ppr": is_ppr, "is_topk": is_topk}
+    want = diffusion.preprocess_diffusion(raw, backend="numpy", **modes)
     np.testing.assert_array_equal(
-        want,
-        jax_diffusion.preprocess_diffusion(raw, is_ppr=is_ppr,
-                                           is_topk=is_topk, backend="numpy"))
-    # the other backends take PPR + top-k only, and there agree with numpy
-    # (the native library within 1e-12, the fp32 batched solve within
-    # 2e-5) with the same sparsity
+        want, jax_diffusion.preprocess_diffusion(raw, backend="numpy",
+                                                 **modes))
+    # the default is `auto` in both packages, and bit-equal between them:
+    # the native library for PPR + top-k, numpy for the other modes
+    got = diffusion.preprocess_diffusion(raw, **modes)
+    np.testing.assert_array_equal(
+        got, jax_diffusion.preprocess_diffusion(raw, **modes))
+    if not (is_ppr and is_topk):
+        np.testing.assert_array_equal(got, want)
+        with pytest.raises(ValueError, match="PPR\\+top-k"):
+            diffusion.preprocess_diffusion(raw, backend="device",
+                                           device="cpu", **modes)
+        return
+    # for PPR + top-k the native library and the fp32 batched solve agree
+    # with numpy (within 1e-12 and 2e-5) with the same sparsity
     for backend, atol in (("auto", 1e-12), ("device", 2e-5)):
-        if not (is_ppr and is_topk):
-            with pytest.raises(ValueError, match="numpy"):
-                diffusion.preprocess_diffusion(raw, is_ppr=is_ppr,
-                                               is_topk=is_topk,
-                                               backend=backend, device="cpu")
-            continue
         got = diffusion.preprocess_diffusion(raw, backend=backend,
                                              device="cpu")
         np.testing.assert_allclose(got, want, rtol=0, atol=atol)
@@ -108,11 +112,9 @@ def test_synthetic_cohort_matches(cohorts):
                                               getattr(want, attr))
         elif isinstance(want, np.ndarray):
             assert got.dtype == want.dtype, f.name
-            if want.dtype == np.float32:
-                np.testing.assert_allclose(got, want, rtol=0, atol=1e-6,
-                                           err_msg=f.name)
-            else:
-                np.testing.assert_array_equal(got, want, err_msg=f.name)
+            # bit-equal, adj included: both packages diffuse it through
+            # the `auto` backend's native library
+            np.testing.assert_array_equal(got, want, err_msg=f.name)
         else:
             assert got == want, f.name
     np.testing.assert_array_equal(pc.adj != 0, jc.adj != 0)

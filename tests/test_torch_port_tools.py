@@ -169,8 +169,9 @@ def _adjs(seed, shape):
 @pytest.mark.parametrize("b,n,k", [(16, 90, 3), (4, 30, 5), (2, 5, 99)])
 def test_auto_backend_matches_numpy(b, n, k):
     adjs = _adjs(b, (b, n, n))
-    got = diffusion.preprocess_diffusion(adjs, top_k=k, backend="auto")
-    want = diffusion.preprocess_diffusion(adjs, top_k=min(k, n))
+    got = diffusion.preprocess_diffusion(adjs, top_k=k)     # auto
+    want = diffusion.preprocess_diffusion(adjs, top_k=min(k, n),
+                                          backend="numpy")
     np.testing.assert_allclose(got, want, atol=1e-12)
     assert ((got > 0) == (want > 0)).all()
     np.testing.assert_array_equal(
@@ -181,7 +182,7 @@ def test_device_backend_matches_numpy_and_jax():
     adjs = _adjs(4, (4, 30, 30))
     got = diffusion.preprocess_diffusion(adjs, top_k=3, backend="device",
                                          device="cpu")
-    want = diffusion.preprocess_diffusion(adjs, top_k=3)
+    want = diffusion.preprocess_diffusion(adjs, top_k=3, backend="numpy")
     assert got.dtype == np.float64
     np.testing.assert_allclose(got, want, atol=2e-5)
     assert ((got > 0) == (want > 0)).all()
@@ -189,10 +190,14 @@ def test_device_backend_matches_numpy_and_jax():
     jax_dev = jax_diffusion.preprocess_diffusion(adjs, top_k=3,
                                                  backend="device")
     np.testing.assert_allclose(got, jax_dev, atol=2e-5)
-    for backend in ("device", "auto"):
-        with pytest.raises(ValueError, match="PPR\\+top-k"):
-            diffusion.preprocess_diffusion(adjs, is_topk=False,
-                                           backend=backend)
+    with pytest.raises(ValueError, match="PPR\\+top-k"):
+        diffusion.preprocess_diffusion(adjs, is_topk=False, backend="device")
+    # `auto` runs numpy for the modes other than PPR + top-k, as JAX's does
+    for modes in ({"is_topk": False}, {"is_ppr": False}):
+        np.testing.assert_array_equal(
+            diffusion.preprocess_diffusion(adjs, top_k=3, **modes),
+            diffusion.preprocess_diffusion(adjs, top_k=3, backend="numpy",
+                                           **modes))
     with pytest.raises(ValueError, match="unknown diffusion backend"):
         diffusion.preprocess_diffusion(adjs, backend="gpu")
 
@@ -219,6 +224,6 @@ def test_auto_backend_builds_serial_where_the_compiler_has_no_openmp(
     adjs = _adjs(5, (3, 20, 20))
     np.testing.assert_allclose(
         diffusion.preprocess_diffusion(adjs, backend="auto"),
-        diffusion.preprocess_diffusion(adjs), atol=1e-12)
+        diffusion.preprocess_diffusion(adjs, backend="numpy"), atol=1e-12)
     log = cuda_build.BUILD_LOGS["gdc_native.cpp"]
     assert "-fopenmp: exit 1" in log and "-shared: exit 0" in log
