@@ -30,7 +30,15 @@ failure propagates and the script exits non-zero:
      3-seed x 5-fold batch (F=15), P in both layouts, one launch per
      call, each set's samples bit-equal to a launch of that set alone,
      and through `torch.func.vmap` over the fold axis as the model calls
-     it, gradients included;
+     it, gradients included; then the stack's backward kernel (one
+     launch per backward call, through `fused_gcn_stack`'s autograd)
+     against `gcn_stack_backward_reference` and against autograd of the
+     forward's plain version, rtol/atol 1e-4, at every grid shape x B in
+     {1, 7, 32} and the branch shapes at B=7, both P layouts, P and x
+     with and without grad, isolated nodes with zero biases (z ties at
+     0), odd N and a 4-byte-offset P, every grouped shape in both layouts
+     and through vmap with one weight broadcast to every fold; every call
+     made twice, bit-equal;
   3. the serving slice at full width: the default ModelConfig over a GO
      topology at the real scale, random weights from a seeded
      torch.Generator, written with save_bundle, read back with load_bundle
@@ -52,11 +60,14 @@ failure propagates and the script exits non-zero:
      latency; for training at full width (fold 0 of phase 7's cohort, B=32):
      one train step's device time (the union of its device ops from the profiler over five
      steps), its span on the card (CUDA events) and its host wall, the
-     kernel's forward against the autograd backward (the recompute
-     through the plain version) at B=32, and graphs/s over one epoch;
+     kernel's forward at B=32, and graphs/s over one epoch;
      the grouped form likewise at the fold-parallel train batch (5 x 32,
      N=90), the seed batch's (15 x 32) and multi-fusion's (5 x 32,
-     N=270), beside the library's batched-weight matmul + baddbmm;
+     N=270), beside the library's batched-weight matmul + baddbmm; the
+     backward kernel (its wrapper: the kernel and the per-set sum of dW,
+     db) at B=32 at N=90 and N=270 and at the three grouped shapes,
+     beside its plain version and the autograd recompute it replaced, in
+     turns on the same inputs, warm and cold, with its bound;
   6. one torch.profiler pass over a warm serving forward of 256 subjects
      and one over a warm train step (each session records the second of
      two calls, after a warm-up cycle in which the tracer starts): the
@@ -65,16 +76,17 @@ failure propagates and the script exits non-zero:
      `fused_gcn_stack` calls, each of which must launch exactly one
      device kernel, its own (a session with fewer records than calls is
      profiled again, up to three sessions);
-     the train step must launch the kernel twice, and so must one eval
-     batch (counted);
+     the train step must launch the forward kernel twice and the backward
+     kernel twice (profiled and counted), one eval batch the forward
+     twice and the backward never (counted);
   7. the training slice at full width: `iggcn_tpu_torch.main.main` on the
      card, default ModelConfig (L=2, H=16), the real-scale GO topology, an
      874-subject synthetic cohort, batch 32, 5 folds with val, 3 epochs,
      --lambda_disease 1.0; every printed loss finite, the `Result -` line
-     printed, the experiment's wall time, and the kernel's launches over
-     the run equal to what the loop implies (2 per train step and 2 per
-     eval batch: sum over folds of epochs x 2 x (train + val + test
-     batches)); then six train steps of fold 0 from the same weights at
+     printed, the experiment's wall time, and the kernels' launches over
+     the run equal to what the loop implies (forward 2 per train step
+     and 2 per eval batch: sum over folds of epochs x 2 x (train + val +
+     test batches); backward 2 per train step); then six train steps of fold 0 from the same weights at
      dropout 0 on the card, on the CPU and on the CPU in float64:
      per-step losses card vs CPU within rtol 2e-4, the first step's
      gradients and the final params and batch_stats held to float64 as
@@ -83,8 +95,9 @@ failure propagates and the script exits non-zero:
   8. multi-fusion training at full width: the CLI route `--isMultiFusion`
      (N=270, F0=1: the kernel's 2-CTA cluster path in every step) at the
      widest configuration of its grid (L=3, H=10), phase 7's cohort size,
-     batch and folds, 2 epochs; the kernel's launches counted in one train
-     step and one eval batch (2 each) and over the run (the loop's count);
+     batch and folds, 2 epochs; the kernels' launches counted in one train
+     step (2 forward, 2 backward) and one eval batch (2 forward) and over
+     the run (the loop's count);
      a warm step's host wall, device busy, idle share and kernel share;
      six card steps against the CPU under phase 7's rules; the run exports
      its serving bundles (`--export_bundle`) for phase 10;
@@ -93,7 +106,8 @@ failure propagates and the script exits non-zero:
      experiment each at the default widths; the kernel's launches per
      train step and per eval batch must be the family's (`STACK_CALLS`: 1
      for GCN_IMGSNP, 2 for CLUSTERLABEL, 0 for the rest, which do not run
-     the stack) and over the run the loop's count; two card steps against
+     the stack; as many backward launches per train step, none per eval
+     batch) and over the run the loop's count; two card steps against
      the CPU under phase 7's rules (dropout 0, GUIDE's Gumbel noise 0);
      GUIDE_IMGSNP and SGCN_GCN_CLUSTERLABEL export their bundles;
  10. what an experiment keeps, at phase 7's setting: the flagship CLI run
@@ -198,6 +212,10 @@ failure propagates and the script exits non-zero:
      `data/cluster.py` are not run on the card (no matplotlib or
      scikit-learn there).
 
+Every route's launches are counted for both kernels of the fp32 stack,
+the forward and its backward: the loop's count is the forward's per
+train step and eval batch, and the backward's per train step.
+
 Phases 7-11 build their synthetic cohorts without the cohort cache
 (`--cohort_cache_dir ''`), so no cache hit changes their readings.
 
@@ -257,6 +275,7 @@ from iggcn_tpu_torch.utils import cuda_build
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "results", "chip_smoke")
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs plain, fp32
+BWD_TOL = 1e-4                   # gradients, rtol and atol (phase 2's)
 SERVE_ATOL = 1e-4                # card vs CPU serving
 COHORT, BATCH = 874, 256         # ADNI cohort size, serving batch
 # imaging-stack shapes of both search grids (main.py:_combos), (N, F0,
@@ -293,6 +312,12 @@ BF16_BATCHES = (1, 7, 106, 133, 256, 874)
 # samples each, so the barrier's parity flips 5-6 times
 BF16_REFILL_CASES = [(874, 90, 3, (64, 64))]
 FLUSH_BYTES = 256 * 2**20        # written between cold calls; L2 is 50 MB
+# the backward kernel: its device kernels' names (the main kernel first,
+# then the per-set sum of dW and db), the batches of its checks at every
+# grid shape, and its timed shapes (name, F, B, N, F0, widths), F = 0 for
+# shared weights: the training batch at both N, then the grouped form's
+BACKWARD_KERNELS = ("gcn_stack_backward_kernel", "sum_weight_slots")
+BWD_BATCHES = (1, 7, 32)
 # phase 7: the training route at full width (default ModelConfig L=2, H=16;
 # the real GO graph's scale; batch 32; 5 folds with val; 3 epochs)
 TRAIN_EPOCHS, TRAIN_FOLDS, TRAIN_BATCH = 3, 5, 32
@@ -361,6 +386,9 @@ GROUPED_TIMED = [("fold-parallel training", 5, 32, 90, 3, (16, 16)),
                  ("seed batch training", 15, 32, 90, 3, (16, 16)),
                  ("multi-fusion fold-parallel training", 5, 32, 270, 1,
                   (10, 10, 10))]
+BWD_TIMED = [("training", 0, 32, 90, 3, (16, 16)),
+             ("multi-fusion training", 0, 32, 270, 1, (10, 10, 10)),
+             *GROUPED_TIMED]
 # phase 15: the batched routes; the flagship at FP_EPOCHS beside a
 # sequential run of as many epochs, the others at 1 epoch; FP_STEPS
 # fold-parallel steps against sequential ones; the seeds of the batches
@@ -764,9 +792,256 @@ def phase_grouped_vs_plain(dev):
     return max_err
 
 
-def counted_out(fn):
-    """(fn's result, the kernel's launches in that call)."""
+def reset_launches():
+    """Both fp32 counts to 0: the stack's forward kernel's and its
+    backward kernel's."""
     gcn_stack.fused_gcn_stack.launches = 0
+    gcn_stack.fused_gcn_stack.launches_backward = 0
+
+
+def launch_counts():
+    """The fp32 stack's launches since `reset_launches`: {"forward": n,
+    "backward": n}."""
+    return {"forward": gcn_stack.fused_gcn_stack.launches,
+            "backward": gcn_stack.fused_gcn_stack.launches_backward}
+
+
+def backward_grads(fn, prop, x, ws, bs, cot, needs=(True, True, True)):
+    """The gradients of sum(fn(prop, x, ws, bs) * cot) through autograd,
+    from leaves that require grad as `needs` (prop, x, weights and biases)
+    says: [dprop, dx, dW..., db...], None where not needed. With
+    `fn=gcn_stack.fused_gcn_stack` on the card that is one backward
+    kernel launch."""
+    layers = len(ws)
+    leaves = [t.detach().requires_grad_(need) for t, need in zip(
+        (prop, x, *ws, *bs), (needs[0], needs[1], *[needs[2]] * 2 * layers))]
+    out = fn(leaves[0], leaves[1], leaves[2:2 + layers], leaves[2 + layers:])
+    grads = iter(torch.autograd.grad(out, [t for t in leaves
+                                           if t.requires_grad], cot))
+    return [next(grads) if t.requires_grad else None for t in leaves]
+
+
+def plain_backward(prop, x, ws, bs, cot, needs=(True, True, True)):
+    """`gcn_stack_backward_reference` as `backward_grads` lists them."""
+    dprop, dx, dws, dbs = gcn_stack.gcn_stack_backward_reference(
+        prop, x, ws, bs, cot, needs)
+    return [dprop, dx, *(dws or [None] * len(ws)), *(dbs or [None] * len(ws))]
+
+
+def reference_for(ws):
+    """The forward's plain version of the form `ws` has."""
+    return (gcn_stack.gcn_stack_reference_grouped if ws[0].dim() == 3
+            else gcn_stack.gcn_stack_reference)
+
+
+def phase_backward_vs_plain(dev):
+    """The backward kernel on the card (through `fused_gcn_stack`'s
+    autograd, one launch per call) against `gcn_stack_backward_reference`
+    and against autograd of the forward's plain version, rtol / atol
+    BWD_TOL: at every grid shape x `BWD_BATCHES` and the branch shapes at
+    B=7, P in both layouts; P and x without grad; isolated nodes 0-4 with
+    zero biases, so z ties at 0 there; transposed P by 4-byte copies (odd
+    N, a 4-byte-offset view); the grouped form at `GROUPED_CHECKS` in both
+    layouts and through `torch.func.vmap` with one weight broadcast to
+    every fold. Every call is made twice and must be bit-equal. Returns
+    the largest difference from the plain version and the calls."""
+    rng = np.random.default_rng(8)
+    max_err, calls = 0.0, 0
+
+    def held(what, got, plain, auto, again):
+        nonlocal max_err, calls
+        err = 0.0
+        for k, (g, p, a, r) in enumerate(zip(got, plain, auto, again)):
+            if g is None:
+                if p is not None or r is not None:
+                    raise AssertionError(f"{what}: gradient {k} missing")
+                continue
+            torch.testing.assert_close(g, p, rtol=BWD_TOL, atol=BWD_TOL)
+            torch.testing.assert_close(g, a, rtol=BWD_TOL, atol=BWD_TOL)
+            if not torch.equal(g, r):
+                raise AssertionError(f"{what}: gradient {k} differs between "
+                                     "two runs of the same call")
+            err = max(err, float((g - p).abs().max()))
+        max_err, calls = max(max_err, err), calls + 1
+        log(f"backward {what}: max_abs_err {err:.3e}, bit-equal twice")
+
+    def check(what, prop, x, ws, bs, needs=(True, True, True)):
+        total = sum(w.shape[-1] for w in ws)
+        cot = torch.from_numpy(rng.normal(size=(*prop.shape[:2], total))
+                               .astype(np.float32)).to(dev)
+        reset_launches()
+        got = backward_grads(gcn_stack.fused_gcn_stack, prop, x, ws, bs, cot,
+                             needs)
+        torch.cuda.synchronize()
+        if launch_counts() != {"forward": 1, "backward": 1}:
+            raise AssertionError(f"backward {what}: launches "
+                                 f"{launch_counts()}, not one of each")
+        again = backward_grads(gcn_stack.fused_gcn_stack, prop, x, ws, bs, cot,
+                               needs)
+        held(what, got, plain_backward(prop, x, ws, bs, cot, needs),
+             backward_grads(reference_for(ws), prop, x, ws, bs, cot, needs),
+             again)
+
+    runs = [(b, *shape) for b in BWD_BATCHES for shape in STACK_SHAPES]
+    for b, n, f0, widths in runs + [(7, *shape) for shape in BRANCH_SHAPES]:
+        prop, x, ws, bs = stack_inputs(rng, b, n, f0, widths, dev)
+        plan = gcn_stack.plan_backward(b, n, (f0, *widths))
+        for layout, p in (("transposed", prop), ("row-major", prop.contiguous())):
+            check(f"B={b} N={n} F0={f0} H={widths} P {layout} (cluster "
+                  f"{plan.cluster}, {plan.smem_bytes} B)", p, x, ws, bs)
+    for n, f0, widths in ((90, 3, (16, 16)), (270, 1, (10, 10, 10))):
+        prop, x, ws, bs = stack_inputs(rng, TRAIN_BATCH, n, f0, widths, dev)
+        for needs in ((False, True, True), (False, False, True),
+                      (True, False, True), (True, True, False)):
+            check(f"B={TRAIN_BATCH} N={n} needs (P, x, W/b) {needs}", prop, x,
+                  ws, bs, needs)
+    for n, f0 in ((90, 3), (270, 1)):   # isolated nodes: z = 0 exactly
+        adj = np.abs(rng.normal(size=(7, n, n))).astype(np.float32)
+        adj[:, :5, :] = 0.0
+        adj[:, :, :5] = 0.0
+        prop = gcn_propagation_matrix(torch.from_numpy(adj).to(dev),
+                                      add_self_loops=False)
+        _, x, ws, bs = stack_inputs(rng, 7, n, f0, (10, 10), dev)
+        check(f"B=7 N={n} isolated nodes 0-4, zero biases", prop, x, ws,
+              [torch.zeros_like(v) for v in bs])
+    for n, f0, widths in ((91, 3, (16, 16)), (271, 1, (10, 10, 10)),
+                          (90, 3, (16, 16))):
+        prop, x, ws, bs = stack_inputs(rng, 7, n, f0, widths, dev)
+        what = f"B=7 N={n} P transposed"
+        if n % 2 == 0:
+            buf = torch.empty(prop.numel() + 1, device=dev)
+            rows = buf[1:].view(prop.shape)
+            rows.copy_(prop.transpose(1, 2))
+            prop, what = rows.transpose(1, 2), what + ", 4-byte offset"
+        plan = gcn_stack.plan_backward(7, n, (f0, *widths))
+        if gcn_stack._bulk_copyable(prop, plan):
+            raise AssertionError(f"{what}: expected the 4-byte copy path")
+        check(f"{what}, 4-byte copies (cluster {plan.cluster})", prop, x, ws,
+              bs)
+    for f, b, n, f0, widths in GROUPED_CHECKS:
+        prop, x, ws, bs = grouped_inputs(rng, f, b, n, f0, widths, dev)
+        for layout, p in (("transposed", prop), ("row-major", prop.contiguous())):
+            check(f"grouped F={f} x B={b} N={n} H={widths} P {layout}", p, x,
+                  ws, bs)
+        # as the fold-parallel model calls it: P built per fold inside the
+        # vmap, the first weight one set broadcast to every fold
+        layers = len(widths)
+        adj = torch.from_numpy(np.abs(rng.normal(size=(f, b, n, n))).astype(
+            np.float32)).to(dev)
+        params = [ws[0][0], *ws[1:], *bs]
+        in_dims = (0, 0, None, *[0] * (len(params) - 1))
+
+        def per_fold(a, xx, *ps):
+            return gcn_stack.fused_gcn_stack(gcn_propagation_matrix(a), xx,
+                                             ps[:layers], ps[layers:])
+
+        def ref_fold(a, xx, *ps):
+            sets = [ps[0].expand(f, *ps[0].shape), *ps[1:layers]]
+            return gcn_stack.gcn_stack_reference_grouped(
+                gcn_propagation_matrix(a).reshape(f * b, n, n),
+                xx.reshape(f * b, n, f0), sets, ps[layers:]
+            ).reshape(f, b, n, -1)
+
+        cot = torch.randn(f, b, n, sum(widths), device=dev)
+        grads = []
+        for fn in (torch.func.vmap(per_fold, in_dims=in_dims),
+                   torch.func.vmap(per_fold, in_dims=in_dims), ref_fold):
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (adj, x.reshape(f, b, n, f0), *params)]
+            reset_launches()
+            grads.append(torch.autograd.grad(fn(*leaves), leaves, cot))
+            torch.cuda.synchronize()
+            want = ({"forward": 0, "backward": 0} if fn is ref_fold
+                    else {"forward": 1, "backward": 1})
+            if launch_counts() != want:
+                raise AssertionError(f"vmap over F={f}: launches "
+                                     f"{launch_counts()}, not {want}")
+        got, again, auto = grads
+        held(f"vmap over F={f} folds of B={b}, N={n}, W0 broadcast", got,
+             auto, auto, again)
+    log(f"backward kernel: {calls} calls, max_abs_err {max_err:.3e} against "
+        f"the plain version (rtol/atol {BWD_TOL})")
+    return max_err, calls
+
+
+def backward_work(f, b, n, f0, widths):
+    """(bytes, flops) of the backward of F*B samples (F = 0: shared
+    weights): P, x, the output gradient and each weight set read once;
+    dP, dx and each set's dW, db written once; the recompute's and the
+    backward's products and elementwise steps."""
+    sets, s = max(f, 1), max(f, 1) * b
+    dims = [f0] + list(widths)
+    params = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(widths)))
+    nbytes = 4 * (2 * s * n * n + 2 * s * n * f0 + s * n * sum(widths)
+                  + 2 * sets * params)
+    per = 2 * n * n * sum(widths)                         # dP
+    for fin, h in zip(dims[:-1], dims[1:]):
+        per += 2 * n * fin * h + 2 * n * n * h + 2 * n * h  # a, P a + b, relu
+        per += 2 * n * n * h + 2 * n * fin * h + 3 * n * h  # da, dW; mask, db
+        per += 2 * n * h * fin + n * fin                    # e, + g
+    return nbytes, s * per
+
+
+def recompute_backward(prop, x, ws, bs, cot):
+    """What the backward ran on the card before its kernel: autograd of the
+    forward's plain version, recomputed from the inputs. A yardstick only;
+    the port no longer runs it on the card."""
+    leaves = [t.detach().requires_grad_(True) for t in (prop, x, *ws, *bs)]
+    layers = len(ws)
+    out = reference_for(ws)(leaves[0], leaves[1], leaves[2:2 + layers],
+                            leaves[2 + layers:])
+    return torch.autograd.grad(out, leaves, cot)
+
+
+def phase_backward_times(dev, card_name):
+    """Phase 5's backward rows at `BWD_TIMED`: the kernel's wrapper (one
+    backward launch and the per-set sum), the plain version and the
+    autograd recompute it replaces, in turns, each warm and cold, beside
+    the bound."""
+    log("== phase 5 (backward): the backward kernel's times")
+    spec, bw, peak = card_spec(card_name)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(9)
+    rows = []
+    for name, f, b, n, f0, widths in BWD_TIMED:
+        args = (grouped_inputs(rng, f, b, n, f0, widths, dev) if f
+                else stack_inputs(rng, b, n, f0, widths, dev))
+        cot = torch.randn(max(f, 1) * b, n, sum(widths), device=dev)
+        needs = (True, True, True)
+        fns = {"kernel": lambda: gcn_stack._launch_backward(*args, cot, needs),
+               "plain": lambda: gcn_stack.gcn_stack_backward_reference(
+                   *args, cot, needs),
+               "library": lambda: recompute_backward(*args, cot)}
+        nbytes, flops = backward_work(f, b, n, f0, widths)
+        bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+        row = {"shape": name, "F": f, "B": b, "N": n, "F0": f0,
+               "widths": list(widths), "bytes": nbytes, "flops": flops,
+               "bound_ms": max(bytes_ms, flops_ms),
+               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+               "cluster": gcn_stack.plan_backward(
+                   max(f, 1) * b, n, (f0, *widths)).cluster}
+        for what, fn in fns.items():   # in turns on the same inputs
+            # the plain version and the recompute enqueue ~100 ops a call:
+            # a longer sleep keeps the host ahead of the card
+            row[f"{what}_ms"] = device_ms(
+                fn, sleep_cycles=20_000_000 if what == "kernel"
+                else 100_000_000)
+            row[f"{what}_cold_ms"] = cold_device_ms(fn, flush)
+        rows.append(row)
+        log(f"gcn_stack backward {name} F={f} B={b} N={n} F0={f0} "
+            f"H={widths} (cluster {row['cluster']}): kernel "
+            f"{row['kernel_ms']:.5f} ms warm / {row['kernel_cold_ms']:.5f} "
+            f"cold, plain {row['plain_ms']:.5f} / {row['plain_cold_ms']:.5f}, "
+            f"autograd recompute {row['library_ms']:.5f} / "
+            f"{row['library_cold_ms']:.5f}, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}; {nbytes} B, {flops} FLOP, {spec} peaks)")
+    del flush
+    return rows
+
+
+def counted_out(fn):
+    """(fn's result, the forward kernel's launches in that call)."""
+    reset_launches()
     out = fn()
     torch.cuda.synchronize()
     return out, gcn_stack.fused_gcn_stack.launches
@@ -962,6 +1237,8 @@ def summarize_profile(events, wall_us):
     device_us = sum(t for t, _ in totals.values())
     kernel_us = sum(t for name, (t, _) in totals.items()
                     if "gcn_stack_kernel" in name)
+    backward_us = sum(t for name, (t, _) in totals.items()
+                      if any(k in name for k in BACKWARD_KERNELS))
     top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:10]
     return {"wall_us": wall_us, "device_busy_us": busy,
             "device_op_us": device_us, "device_ops": len(events),
@@ -969,6 +1246,11 @@ def summarize_profile(events, wall_us):
             "gcn_stack_us": kernel_us, "gcn_stack_share": kernel_us / device_us,
             "gcn_stack_launches": sum(c for name, (_, c) in totals.items()
                                       if "gcn_stack_kernel" in name),
+            "gcn_stack_backward_us": backward_us,
+            "gcn_stack_backward_share": backward_us / device_us,
+            "gcn_stack_backward_launches": sum(
+                c for name, (_, c) in totals.items()
+                if BACKWARD_KERNELS[0] in name),
             "top10": [{"name": name, "us": t, "count": c}
                       for name, (t, c) in top]}
 
@@ -978,7 +1260,10 @@ def log_profile(what, out):
         f"{out['device_busy_us']:.1f} us over {out['device_ops']} device ops "
         f"(idle share {out['idle_share']:.3f}); gcn_stack "
         f"{out['gcn_stack_us']:.1f} us in {out['gcn_stack_launches']} "
-        f"launch(es) = {out['gcn_stack_share']:.4f} of device time")
+        f"launch(es) = {out['gcn_stack_share']:.4f} of device time; its "
+        f"backward {out['gcn_stack_backward_us']:.1f} us in "
+        f"{out['gcn_stack_backward_launches']} launch(es) = "
+        f"{out['gcn_stack_backward_share']:.4f}")
     for row in out["top10"]:
         log(f"  {row['us']:10.1f} us  x{row['count']:<4d} {row['name'][:110]}")
 
@@ -1047,20 +1332,26 @@ def phase_profile(dev, model, cohort, train):
     out["train_step"] = summarize_profile(step_events, step_wall_us)
     log_profile(f"warm train step (B={TRAIN_BATCH}, both passes, backward, "
                 "Adam)", out["train_step"])
-    if out["train_step"]["gcn_stack_launches"] != 2:
-        raise AssertionError("a train step must launch the kernel twice (plain "
-                             "and masked pass); the profiler saw "
-                             f"{out['train_step']['gcn_stack_launches']}")
-    gcn_stack.fused_gcn_stack.launches = 0
-    steps.eval_step(train["state"].model, train["eval_batch"], train["mcfg"],
-                    train["tcfg"])
-    torch.cuda.synchronize()
-    out["eval_batch_launches"] = gcn_stack.fused_gcn_stack.launches
-    log(f"one eval batch (B={TRAIN_BATCH}, both passes) launched the kernel "
-        f"{out['eval_batch_launches']} times")
-    if out["eval_batch_launches"] != 2:
-        raise AssertionError("an eval batch must launch the kernel twice; it "
-                             f"launched {out['eval_batch_launches']}")
+    step_seen = {"forward": out["train_step"]["gcn_stack_launches"],
+                 "backward": out["train_step"]["gcn_stack_backward_launches"]}
+    per_step, per_eval = step_launches(STACK_CALLS["SGCN_GCN_IMGSNP"])
+    if step_seen != per_step:
+        raise AssertionError("a train step must launch the forward kernel "
+                             "twice (plain and masked pass) and the backward "
+                             f"kernel twice; the profiler saw {step_seen}")
+    out["train_step_launches"] = counted_launches(train["step"])
+    out["eval_batch_launches"] = counted_launches(lambda: steps.eval_step(
+        train["state"].model, train["eval_batch"], train["mcfg"],
+        train["tcfg"]))
+    log(f"one train step launched the kernels {out['train_step_launches']}, "
+        f"one eval batch (B={TRAIN_BATCH}, both passes) "
+        f"{out['eval_batch_launches']}")
+    if (out["train_step_launches"], out["eval_batch_launches"]) != (
+            per_step, per_eval):
+        raise AssertionError(f"a train step / an eval batch must launch the "
+                             f"kernels {per_step} / {per_eval}; they launched "
+                             f"{out['train_step_launches']} / "
+                             f"{out['eval_batch_launches']}")
     return out
 
 
@@ -1118,26 +1409,43 @@ def training_setup(dev, argv=TRAIN_ARGV):
 
 
 def counted_launches(fn):
-    """The kernel's launches in one call of `fn` (the wrapper's counter)."""
-    return counted_out(fn)[1]
+    """The kernels' launches in one call of `fn` (the wrappers' counters):
+    {"forward": n, "backward": n}."""
+    counted_out(fn)
+    return launch_counts()
+
+
+def step_launches(per_batch):
+    """What one train step and one eval batch launch, as
+    `counted_launches` reads them, for a route that calls the stack
+    `per_batch` times a pass: each call's forward, and in a train step its
+    backward."""
+    return ({"forward": per_batch, "backward": per_batch},
+            {"forward": per_batch, "backward": 0})
 
 
 def expected_launches(splits, tcfg, per_batch=2, test_size=None):
-    """The kernel's launches over one CV run with a validation split, as
-    the loop implies: `per_batch` per train step and per eval batch (2 for
-    the two-pass families, 1 for GCN_IMGSNP, 0 where no stack runs), every
-    epoch, over the train, val and test batches; with `test_size` every
-    fold tests on an external cohort of that many subjects instead of its
-    test split."""
+    """The kernels' launches over one CV run with a validation split, as
+    the loop implies: forward, `per_batch` per train step and per eval
+    batch (2 for the two-pass families, 1 for GCN_IMGSNP, 0 where no stack
+    runs), every epoch, over the train, val and test batches; backward,
+    `per_batch` per train step. With `test_size` every fold tests on an
+    external cohort of that many subjects instead of its test split."""
     b = tcfg.batch_size
 
-    def batches(split):
+    def batches(split, kinds):
         train, test, val = (len(idx) for idx in split)
         if test_size is not None:
             test = test_size
-        return sum(math.ceil(n / b) for n in (train, test, val))
+        counts = {"train": train, "test": test, "val": val}
+        return sum(math.ceil(counts[k] / b) for k in kinds)
 
-    return per_batch * sum(tcfg.epochs * batches(split) for split in splits)
+    def total(kinds):
+        return per_batch * sum(tcfg.epochs * batches(split, kinds)
+                               for split in splits)
+
+    return {"forward": total(("train", "test", "val")),
+            "backward": total(("train",))}
 
 
 def phase_train_times(dev, train):
@@ -1172,18 +1480,8 @@ def phase_train_times(dev, train):
     step_device_ms = summarize_profile(events, 1.0)["device_busy_us"] / 5e3
     prop, x, ws, bs = stack_inputs(np.random.default_rng(5), TRAIN_BATCH, 90,
                                    3, (16, 16), dev)
-    leaves = [t.requires_grad_(True) for t in (prop, x, *ws, *bs)]
     with torch.inference_mode():
         fwd_ms = device_ms(lambda: gcn_stack.fused_gcn_stack(prop, x, ws, bs))
-    out = gcn_stack.fused_gcn_stack(prop, x, ws, bs)
-    grad_out = torch.randn_like(out)
-    def backward():
-        return torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
-
-    bwd_ms = device_ms(backward, sleep_cycles=100_000_000)
-    bwd_events, _ = profiled(backward)
-    bwd = summarize_profile(bwd_events, 1.0)
-    bwd_busy_ms = bwd["device_busy_us"] / 1e3
     tcfg, mcfg, fold0 = train["tcfg"], train["mcfg"], train["fold0"]
     perm = torch.as_tensor(fold0["perms"][0], device=dev).long()
     fold_loop.train_epoch(train["state"], train["train_dev"], perm, mcfg,
@@ -1196,17 +1494,14 @@ def phase_train_times(dev, train):
     epoch_s = time.perf_counter() - t0
     out = {"step_wall_ms": step_wall_ms, "step_span_ms": step_span_ms,
            "step_device_ms": step_device_ms,
-           "fwd_kernel_b32_ms": fwd_ms, "bwd_recompute_b32_ms": bwd_ms,
-           "bwd_recompute_b32_busy_ms": bwd_busy_ms,
-           "bwd_recompute_b32_ops": bwd["device_ops"],
+           "fwd_kernel_b32_ms": fwd_ms,
            "epoch_s": epoch_s, "epoch_graphs": fold0["n_train"],
            "epoch_graphs_per_s": fold0["n_train"] / epoch_s}
     log(f"train step B={TRAIN_BATCH}: device busy {step_device_ms:.4f} ms, "
         f"span on the card {step_span_ms:.4f} ms, host wall "
         f"{step_wall_ms:.4f} ms; gcn_stack at B={TRAIN_BATCH}: forward kernel "
-        f"{fwd_ms:.5f} ms, autograd backward (recompute) {bwd_ms:.5f} ms "
-        f"(events; profiler busy {bwd_busy_ms:.5f} ms over "
-        f"{bwd['device_ops']} device ops); one epoch of fold 0: "
+        f"{fwd_ms:.5f} ms (the backward's rows: phase 5 (backward)); one "
+        f"epoch of fold 0: "
         f"{fold0['n_train']} graphs in "
         f"{epoch_s:.4f} s = {out['epoch_graphs_per_s']:.1f} graphs/s")
     return out
@@ -1551,10 +1846,11 @@ def card_vs_cpu_steps(dev, route, n_steps=CARD_CPU_STEPS):
 
 
 def cli_run(argv):
-    """(stdout, the kernel's launches, wall s, return value) of
-    `iggcn_tpu_torch.main.main(argv)` on the card; the output is logged."""
+    """(stdout, the kernels' launches as `launch_counts` reads them, wall
+    s, return value) of `iggcn_tpu_torch.main.main(argv)` on the card; the
+    output is logged."""
     buf = io.StringIO()
-    gcn_stack.fused_gcn_stack.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         results = port_main.main(argv)
@@ -1562,7 +1858,7 @@ def cli_run(argv):
     wall_s = time.perf_counter() - t0
     text = buf.getvalue()
     log(text.rstrip())
-    return text, gcn_stack.fused_gcn_stack.launches, wall_s, results
+    return text, launch_counts(), wall_s, results
 
 
 def run_dir(appendix):
@@ -1602,10 +1898,10 @@ def run_route(train, per_batch):
     steps_run = sum(tcfg.epochs * math.ceil(len(tr) / tcfg.batch_size)
                     for tr, _, _ in train["splits"])
     shown = " ".join(argv[argv.index("--save_appendix") + 1:])
-    log(f"experiment {shown}: {wall_s:.3f} s wall, {launches} "
-        f"kernel launches (= {want} implied: {steps_run} train steps x "
-        f"{per_batch} + eval batches x {per_batch}), {throughput.group(0)}, "
-        f"{result.group(0)}")
+    log(f"experiment {shown}: {wall_s:.3f} s wall, kernel launches {launches} "
+        f"(= {want} implied: forward {steps_run} train steps x {per_batch} + "
+        f"eval batches x {per_batch}, backward {steps_run} x {per_batch}), "
+        f"{throughput.group(0)}, {result.group(0)}")
     res = results[0]
     return {"text": text, "experiment_wall_s": wall_s, "launches": launches,
             "expected_launches": want, "train_steps": steps_run,
@@ -1655,19 +1951,22 @@ def phase_multi_fusion(dev):
         train["state"].model, train["eval_batch"], train["mcfg"],
         train["tcfg"], train["kind"]))
     want = STACK_CALLS["SGCN_GCN_IMGSNP"]
-    if (per_step, per_eval) != (want, want):
+    if (per_step, per_eval) != step_launches(want):
         raise AssertionError(f"a multi-fusion train step / eval batch "
-                             f"launched the kernel {per_step} / {per_eval} "
-                             f"times; expected {want} / {want}")
+                             f"launched the kernels {per_step} / {per_eval} "
+                             f"times; expected {step_launches(want)}")
     breakdown = step_breakdown(train)
     one = breakdown["profiled_step"]
     log_profile(f"warm multi-fusion train step (B={TRAIN_BATCH}, N=270)", one)
     log(f"multi-fusion train step: host wall {breakdown['step_wall_ms']:.4f} "
         f"ms (median of 10), device busy {breakdown['step_device_ms']:.4f} ms "
         f"(profiler, 5 steps)")
-    if one["gcn_stack_launches"] != want:
-        raise AssertionError("the profiled multi-fusion step ran the kernel "
-                             f"{one['gcn_stack_launches']} times, not {want}")
+    if (one["gcn_stack_launches"], one["gcn_stack_backward_launches"]) != (
+            want, want):
+        raise AssertionError("the profiled multi-fusion step ran the forward "
+                             f"/ backward kernels {one['gcn_stack_launches']} "
+                             f"/ {one['gcn_stack_backward_launches']} times, "
+                             f"not {want} each")
     out = run_route(train, want)
     out.update(breakdown, launches_per_train_step=per_step,
                launches_per_eval_batch=per_eval,
@@ -1689,12 +1988,12 @@ def phase_families(dev):
             train["state"].model, train["eval_batch"], train["mcfg"],
             train["tcfg"], train["kind"]))
         want = STACK_CALLS[model]
-        log(f"{model}: one train step launched the kernel {per_step} times, "
-            f"one eval batch {per_eval} (expected {want})")
-        if (per_step, per_eval) != (want, want):
+        log(f"{model}: one train step launched the kernels {per_step}, one "
+            f"eval batch {per_eval} (expected {step_launches(want)})")
+        if (per_step, per_eval) != step_launches(want):
             raise AssertionError(f"{model}: {per_step} / {per_eval} launches "
                                  f"per train step / eval batch; expected "
-                                 f"{want} / {want}")
+                                 f"{step_launches(want)}")
         run = run_route(train, want)
         run.update(launches_per_train_step=per_step,
                    launches_per_eval_batch=per_eval,
@@ -1818,8 +2117,8 @@ def phase_artifacts(dev, train, cohort):
     want = expected_launches([train["splits"][k] for k in RESUME_FOLDS],
                              tcfg, per_batch)
     if launches != want:
-        raise AssertionError(f"the resumed run launched the kernel {launches} "
-                             f"times; the loop implies {want} for folds "
+        raise AssertionError(f"the resumed run launched the kernels "
+                             f"{launches}; the loop implies {want} for folds "
                              f"{list(RESUME_FOLDS)}")
     scores = np.load(os.path.join(res_dir, f"{name}.npy"))
     if not np.array_equal(scores[kept], scores_first[kept]):
@@ -1893,7 +2192,7 @@ def phase_snps(dev):
     for model in SNP_MODELS:
         kind = "mlp" if model == "MLP_Model" else "go"
         text, launches, wall_s, res = cli_run(["--model", model, *argv])
-        total_launches += launches
+        total_launches += sum(launches.values())
         result = re.search(rf"^Result - .* \(SNP-only, {model}\)$", text, re.M)
         if result is None:
             raise AssertionError(f"{model}: no `Result - ... (SNP-only)` line")
@@ -2078,8 +2377,8 @@ def run_zoo(dev, argv):
 
 
 def gcn_launch_counts(dev, route):
-    """The kernel's launches in one generic train step and one eval batch
-    of the GCN route's first batch on the card (both must be 1)."""
+    """The kernels' launches in one generic train step and one eval batch
+    of the GCN route's first batch on the card (`step_launches(1)`)."""
     card = route["state"](copy.deepcopy(route["model"]).to(dev))
     batch = to_device({k: v[:TRAIN_BATCH] for k, v in route["data"].items()},
                       dev)
@@ -2088,9 +2387,10 @@ def gcn_launch_counts(dev, route):
         adj_only=False, aux_loss=False, takes_weight=False)
     per_step = counted_launches(lambda: card.train_step(batch, None, 1e-3))
     per_eval = counted_launches(lambda: evaluate(batch))
-    if (per_step, per_eval) != (1, 1):
+    if (per_step, per_eval) != step_launches(1):
         raise AssertionError(f"GCN: {per_step} / {per_eval} launches per "
-                             "train step / eval batch; expected 1 / 1")
+                             f"train step / eval batch; expected "
+                             f"{step_launches(1)}")
     return per_step, per_eval
 
 
@@ -2115,8 +2415,8 @@ def phase_zoo(dev):
                                               epochs=args.epochs),
                 1 if model == "GCN" else 0)
             if run["launches"] != want:
-                raise AssertionError(f"{model}: the run launched the kernel "
-                                     f"{run['launches']} times; the loop "
+                raise AssertionError(f"{model}: the run launched the kernels "
+                                     f"{run['launches']}; the loop "
                                      f"implies {want}")
             run["expected_launches"] = want
             if model in ZOO_CARD_CPU:
@@ -2417,17 +2717,18 @@ def phase_other_routes(dev, layout, real):
 
 def fp_expected_launches(split_lists, batch, epochs, per_batch=2,
                          no_val=False):
-    """The kernel's launches over one fold-parallel run of the fold entries
+    """The kernels' launches over one fold-parallel run of the fold entries
     of `split_lists` (one list of splits per seed; all entries in one
-    batched program): `per_batch` per batched train step and per batched
-    eval batch, every epoch, each split kind padded to its largest entry's
-    batches."""
+    batched program): forward, `per_batch` per batched train step and per
+    batched eval batch, every epoch, each split kind padded to its largest
+    entry's batches; backward, `per_batch` per batched train step."""
     entries = [split for splits in split_lists for split in splits]
     train = max(math.ceil(len(tr) / batch) for tr, _, _ in entries)
     test = max(math.ceil(len(te) / batch) for _, te, _ in entries)
     val = 0 if no_val else max(math.ceil(len(va) / batch)
                                for _, _, va in entries)
-    return per_batch * epochs * (train + val + test)
+    return {"forward": per_batch * epochs * (train + val + test),
+            "backward": per_batch * epochs * train}
 
 
 def epoch_losses(text):
@@ -2450,10 +2751,11 @@ def fp_run(argv, split_lists, tcfg, what, epochs=1, per_batch=2):
     if len(re.findall(r"^Result - .*$", text, re.M)) != len(split_lists):
         raise AssertionError(f"{what}: expected one `Result -` line per seed")
     if launches != want:
-        raise AssertionError(f"{what}: the run launched the kernel {launches} "
-                             f"times; the batched loop implies {want}")
-    log(f"{what}: {wall_s:.3f} s wall, {launches} kernel launches (= {want}: "
-        f"{per_batch} per batched train step and eval batch)")
+        raise AssertionError(f"{what}: the run launched the kernels {launches}"
+                             f"; the batched loop implies {want}")
+    log(f"{what}: {wall_s:.3f} s wall, kernel launches {launches} (= {want}: "
+        f"{per_batch} forward per batched train step and eval batch, "
+        f"{per_batch} backward per batched train step)")
     return {"text": text, "experiment_wall_s": wall_s, "launches": launches,
             "expected_launches": want, "epochs": epochs,
             "result_line": re.search(r"^Result - .*$", text, re.M).group(0)}
@@ -2596,10 +2898,13 @@ def fold_parallel_vs_sequential_steps(dev, train, n_steps=FP_STEPS):
     one = breakdown["profiled_step"]
     log_profile(f"warm fold-parallel train step ({len(ps)} folds x "
                 f"B={b}, N=90)", one)
-    if one["gcn_stack_launches"] != 2:
-        raise AssertionError("a fold-parallel step must launch the kernel "
-                             "twice (plain and masked pass, all folds); the "
-                             f"profiler saw {one['gcn_stack_launches']}")
+    if (one["gcn_stack_launches"], one["gcn_stack_backward_launches"]) != (
+            2, 2):
+        raise AssertionError("a fold-parallel step must launch the forward "
+                             "and the backward kernel twice each (plain and "
+                             "masked pass, all folds); the profiler saw "
+                             f"{one['gcn_stack_launches']} and "
+                             f"{one['gcn_stack_backward_launches']}")
     log(f"fold-parallel train step: host wall {breakdown['step_wall_ms']:.4f}"
         f" ms (median of 10), device busy {breakdown['step_device_ms']:.4f} "
         f"ms (profiler, 5 steps)")
@@ -2678,8 +2983,8 @@ def phase_fold_parallel(dev, train):
         f"wall {fp['experiment_wall_s']:.3f} s against {seq_wall:.3f} s "
         f"sequential ({seq_wall / fp['experiment_wall_s']:.2f}x); launches "
         f"{fp['launches']} against {launches} "
-        f"({fp['launches'] // FP_EPOCHS} against {launches // FP_EPOCHS} per "
-        "epoch)")
+        f"({fp['launches']['forward'] // FP_EPOCHS} against "
+        f"{launches['forward'] // FP_EPOCHS} forward per epoch)")
     if worst > 1e-3:
         raise AssertionError("fold-parallel epoch losses depart from the "
                              f"sequential run's by {worst:.3e} (> 1e-3 of the "
@@ -2753,7 +3058,7 @@ def phase_fold_parallel(dev, train):
                      + shlex.join(fused) + "\n\n" + shlex.join(zoo) + "\n"
                      + "--device cuda --model BOGUS\n")
         buf = io.StringIO()
-        gcn_stack.fused_gcn_stack.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf), \
                 contextlib.redirect_stderr(io.StringIO()):
@@ -2771,10 +3076,10 @@ def phase_fold_parallel(dev, train):
             not in buf.getvalue():
         raise AssertionError(f"--batch_file: exit {code}, runs done {done}")
     log(f"--batch_file of a fused, a zoo and a failing line: exit 1, the "
-        f"first two done, {batch_wall:.3f} s, "
-        f"{gcn_stack.fused_gcn_stack.launches} kernel launches")
+        f"first two done, {batch_wall:.3f} s, kernel launches "
+        f"{launch_counts()}")
     out["batch_file"] = {"exit": code, "wall_s": batch_wall,
-                         "launches": gcn_stack.fused_gcn_stack.launches}
+                         "launches": launch_counts()}
     return out
 
 # phase 16: bf16 serving. The bf16 form against its plain version at the
@@ -3275,10 +3580,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card, build_s = phase_build()
     max_err, train_grad_err, grouped_err = phase_kernel_vs_plain(dev)
+    backward_err, backward_calls = phase_backward_vs_plain(dev)
     cohort = make_cohort(np.random.default_rng(1), COHORT)
     model, served, launches = phase_serve(dev, cohort)
     http_times = phase_http(dev, model, cohort, served)
     times = phase_times(dev, torch.cuda.get_device_name(0), model, cohort)
+    backward_times = phase_backward_times(dev, torch.cuda.get_device_name(0))
     train = training_setup(dev)
     train_times = phase_train_times(dev, train)
     profile = phase_profile(dev, model, cohort, train)
@@ -3316,8 +3623,7 @@ def main() -> int:
                       "imported reference .pt": other["imported_serving"]}
     per_route = {name: {
         "launches_per_train_step": run.get(
-            "launches_per_train_step",
-            profile["train_step"]["gcn_stack_launches"]),
+            "launches_per_train_step", profile["train_step_launches"]),
         "launches_per_eval_batch": run.get(
             "launches_per_eval_batch", profile["eval_batch_launches"]),
         "launches_run": run["launches"],
@@ -3333,8 +3639,7 @@ def main() -> int:
         "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"], "library_ms": serving["library_ms"],
         "training": {
-            "launches_per_train_step":
-                profile["train_step"]["gcn_stack_launches"],
+            "launches_per_train_step": profile["train_step_launches"],
             "launches_per_eval_batch": profile["eval_batch_launches"],
             "launches_run": training["launches"],
             "expected_launches_run": training["expected_launches"],
@@ -3342,7 +3647,7 @@ def main() -> int:
             "step_span_ms": train_times["step_span_ms"],
             "step_wall_ms": train_times["step_wall_ms"],
             "fwd_kernel_b32_ms": train_times["fwd_kernel_b32_ms"],
-            "bwd_recompute_b32_ms": train_times["bwd_recompute_b32_ms"],
+            "bwd_kernel_b32_ms": backward_times[0]["kernel_ms"],
             "grad_max_abs_err_b32": train_grad_err,
             "step_gcn_stack_share": profile["train_step"]["gcn_stack_share"],
             "step_idle_share": profile["train_step"]["idle_share"]},
@@ -3372,7 +3677,7 @@ def main() -> int:
         "name": "gcn_stack_grouped", "route": "cuda",
         "source": "iggcn_tpu_torch/csrc/gcn_stack.cu",
         "replaces": "iggcn_tpu/ops/pallas_gcn.py:83",
-        "launches": batched["flagship"]["launches"],
+        "launches": batched["flagship"]["launches"]["forward"],
         "max_abs_err": grouped_err,
         "ms": fp_row["kernel_ms"], "cold_ms": fp_row["kernel_cold_ms"],
         "plain_ms": fp_row["plain_ms"], "bound_ms": fp_row["bound_ms"],
@@ -3392,6 +3697,40 @@ def main() -> int:
             "kernel_cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
             "library_cold_ms", "bound_ms", "bound_by")}
             for row in times["grouped"]]}, {
+        # the backward (the JAX VJP's `_bwd`, a recompute and its
+        # gradients; no pallas_call): one launch per backward call of the
+        # fp32 forms, shared-weight and grouped; `launches` over phase 7's
+        # flagship run
+        "name": "gcn_stack_backward", "route": "cuda",
+        "source": "iggcn_tpu_torch/csrc/gcn_stack_backward.cu",
+        "replaces": "iggcn_tpu/ops/pallas_gcn.py:116",
+        "launches": training["launches"]["backward"],
+        "max_abs_err": backward_err, "checked_calls": backward_calls,
+        "ms": backward_times[0]["kernel_ms"],
+        "cold_ms": backward_times[0]["kernel_cold_ms"],
+        "plain_ms": backward_times[0]["plain_ms"],
+        "bound_ms": backward_times[0]["bound_ms"],
+        "bound_by": backward_times[0]["bound_by"],
+        "library_ms": backward_times[0]["library_ms"],
+        "launches_per_train_step": {
+            name: r["launches_per_train_step"]["backward"]
+            for name, r in per_route.items()},
+        "routes": {
+            **{name: {"launches_run": r["launches_run"]["backward"],
+                      "expected_launches_run":
+                          r["expected_launches_run"]["backward"]}
+               for name, r in per_route.items()},
+            **{what: {"launches_run": run["launches"]["backward"],
+                      "expected_launches_run":
+                          run["expected_launches"]["backward"]}
+               for what, run in (
+                   ("SGCN_GCN_IMGSNP --fold_parallel", batched["flagship"]),
+                   ("--cv_seeds " + FP_SEEDS, batched["cv_seeds"]))}},
+        "shapes": [{k: row[k] for k in (
+            "shape", "F", "B", "N", "F0", "widths", "cluster", "kernel_ms",
+            "kernel_cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
+            "library_cold_ms", "bound_ms", "bound_by")}
+            for row in backward_times]}, {
         # the bf16-operand form: bf16 serving's one launch per forward
         "name": "gcn_stack_bf16", "route": "cuda",
         "source": "iggcn_tpu_torch/csrc/gcn_stack_bf16.cu",
@@ -3487,7 +3826,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "result.json"), "w") as fh:
         json.dump({"card": card, "build_s": build_s, **kernels, **serve,
-                   "times": times, "train_times": train_times,
+                   "times": times, "backward_times": backward_times,
+                   "train_times": train_times,
                    "profile": profile, "training": training,
                    "multi_fusion": multi, "families": families,
                    "artifacts": artifacts, "snps_only": snps,

@@ -12,9 +12,14 @@ H100 and how the design meets it.
 
 Dispatch is by device, with no switch and no fallback: on CUDA tensors
 `fused_gcn_stack` launches the kernel (or raises), on CPU tensors it runs
-`gcn_stack_reference`. The backward is autograd through
-`gcn_stack_reference`, a recompute, exactly as the JAX custom VJP did; the
-JAX package has no backward kernel and neither does the port.
+`gcn_stack_reference`. The backward computes what the JAX custom VJP's
+does (`jax.vjp` of the reference, the forward recomputed from the saved
+inputs): on CUDA tensors one hand-written kernel,
+`csrc/gcn_stack_backward.cu` (the forward's cluster split, planned by
+`plan_backward`), for the shared-weight and the grouped forms; on CPU
+tensors autograd of `gcn_stack_reference`. Its plain version step by
+step, `gcn_stack_backward_reference`, is the kernel's yardstick.
+`fused_gcn_stack.launches_backward` counts its launches.
 
 Under `torch.func.vmap` over a fold axis (the fold-parallel trainer, the
 counterpart of the JAX package's vmapped fold program, where the
@@ -49,10 +54,13 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from torch.autograd.function import once_differentiable
+
 from iggcn_tpu_torch.utils.cuda_build import load_library
 
 SOURCE = "gcn_stack.cu"
 BF16_SOURCE = "gcn_stack_bf16.cu"
+BACKWARD_SOURCE = "gcn_stack_backward.cu"
 MAX_LAYERS = 8
 
 
@@ -88,6 +96,58 @@ def gcn_stack_reference_grouped(prop: torch.Tensor, x: torch.Tensor,
         feats.append(h)
     return torch.cat(feats, dim=-1).reshape(s, n, sum(w.shape[-1]
                                                         for w in weights))
+
+
+def gcn_stack_backward_reference(prop: torch.Tensor, x: torch.Tensor,
+                                 weights: Sequence[torch.Tensor],
+                                 biases: Sequence[torch.Tensor],
+                                 grad_out: torch.Tensor,
+                                 needs: Tuple[bool, bool, bool] = (True, True,
+                                                                   True)):
+    """Plain version of the stack's backward: the VJP of
+    `gcn_stack_reference` (grouped: `gcn_stack_reference_grouped` where the
+    weights are 3-D) for the output gradient `grad_out` (B, N, sum H),
+    step by step as the kernel computes it. The recompute: a_l = h_l W_l,
+    z_l = P a_l + b_l, h_{l+1} = relu(z_l); then for l = L-1 .. 0 from
+    e_L = 0: dz_l = (grad_out's slice of layer l + e_{l+1}) * [z_l > 0],
+    db_l = sum over rows of dz_l, da_l = P^T dz_l, dW_l = h_l^T da_l,
+    e_l = da_l W_l^T; dx = e_0 and dP = sum_l dz_l a_l^T. Returns
+    (dprop, dx, dweights, dbiases), each None where `needs` (prop, x,
+    weights and biases) says no; grouped gradients are summed per set."""
+    need_p, need_x, need_w = needs
+    grouped = _weight_sets(weights) > 0
+    ws = [w if grouped else w[None] for w in weights]
+    bs = [bb if grouped else bb[None] for bb in biases]
+    sets = ws[0].shape[0]
+    s, n, _ = prop.shape
+    p = prop.reshape(sets, s // sets, n, n)
+    hs = [x.reshape(sets, s // sets, n, x.shape[-1])]
+    acts, zs = [], []
+    for w, bb in zip(ws, bs):
+        acts.append(torch.einsum("gbnf,gfh->gbnh", hs[-1], w))
+        zs.append(p @ acts[-1] + bb[:, None, None, :])
+        hs.append(torch.relu(zs[-1]))
+    g = grad_out.reshape(sets, s // sets, n, grad_out.shape[-1])
+    dzs, dws, dbs = [None] * len(ws), [None] * len(ws), [None] * len(ws)
+    e = torch.zeros_like(hs[-1])
+    end = g.shape[-1]
+    for layer in reversed(range(len(ws))):
+        start = end - ws[layer].shape[-1]
+        dz = (g[..., start:end] + e) * (zs[layer] > 0)
+        end = start
+        dbs[layer] = dz.sum(dim=(1, 2))
+        da = p.transpose(-1, -2) @ dz
+        dws[layer] = torch.einsum("gbnf,gbnh->gfh", hs[layer], da)
+        e = da @ ws[layer].transpose(-1, -2)[:, None]
+        dzs[layer] = dz
+    dprop = (sum(dz @ a.transpose(-1, -2) for dz, a in zip(dzs, acts))
+             .reshape(s, n, n) if need_p else None)
+    dx = e.reshape(x.shape) if need_x else None
+    if not need_w:
+        return dprop, dx, None, None
+    if not grouped:
+        dws, dbs = [w[0] for w in dws], [bb[0] for bb in dbs]
+    return dprop, dx, dws, dbs
 
 
 # Hopper limits the plan is held to: 227 KB of dynamic shared memory per
@@ -341,6 +401,112 @@ def _choose_plan(n: int, dims: Tuple[int, ...], elem_bytes: int, sms: int
     return plan
 
 
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How one call of the backward kernel (`csrc/gcn_stack_backward.cu`)
+    is cut up; offsets and sizes in floats from the start of shared memory.
+
+    As in the forward, sample s runs on `cluster` CTAs and CTA k keeps P's
+    columns [k * rows, (k+1) * rows) resident (the band, column-major,
+    stride `ps`) and owns those rows of h, a and dz. After the band: dz^T
+    of every layer and row (`tot_p` x `dts`; the cluster's partial P a
+    during the recompute), a^T and h^T of the CTA's rows (row stride
+    `ats`), da of its rows (row stride `das`), then the weights and biases
+    zero-padded as in the forward. Each CTA sums its rows' dW_l and db_l
+    into its own slot of `wsz` floats (dW_l at `ws_off[l]`, F_l x H_l, then
+    db_l), which a second kernel sums per weight set."""
+    cluster: int
+    rows: int
+    threads: int
+    smem_bytes: int
+    ps: int                   # column stride of P's band (even)
+    tot_p: int                # sum of fout_p: rows of dz^T and a^T
+    hmax: int                 # widest fout_p
+    dts: int                  # row stride of dz^T: N rounded up to 8, + 4
+    ats: int                  # row stride of a^T and h^T: rows + 4
+    das: int                  # row stride of da
+    wsz: int                  # floats of one CTA's dW / db slot
+    fout_p: Tuple[int, ...]   # each layer's width rounded up to 4
+    dz_off: Tuple[int, ...]   # row of layer l in dz^T and a^T
+    h_off: Tuple[int, ...]    # row of h_l in h^T (ceil4(F_l) rows each)
+    ws_off: Tuple[int, ...]   # dW_l's offset in a slot
+    off_dz: int
+    off_at: int
+    off_ht: int
+    off_da: int
+    off_w: Tuple[int, ...]
+    off_b: Tuple[int, ...]
+    elem_bytes: int = 4       # fp32 only: the bf16 form has no backward
+
+
+def _backward_plan_for(n: int, dims: Tuple[int, ...], cluster: int
+                       ) -> BackwardPlan | None:
+    """The backward plan with this cluster size, or None when it cannot
+    run."""
+    rows = _ceil(-(-n // cluster), TILE_ROWS)
+    if (cluster - 1) * rows >= n:          # a CTA would own no column
+        return None
+    fout_p = tuple(_ceil(d, 4) for d in dims[1:])
+    dz_off = tuple(sum(fout_p[:i]) for i in range(len(fout_p)))
+    h_off = tuple(sum(_ceil(d, 4) for d in dims[:i])
+                  for i in range(len(fout_p)))
+    h_rows = h_off[-1] + _ceil(dims[-2], 4)
+    tot_p, hmax = sum(fout_p), max(fout_p)
+    ps = _ceil(n, 2)
+    # strides of 4 (mod 8) floats: the lanes of a warp that read one
+    # operand's neighbouring rows reach different banks
+    dts, ats = _ceil(n, TILE_ROWS) + 4, rows + 4
+    das = hmax + 4 if hmax % 8 == 0 else hmax
+    off_dz = rows * ps + 8                 # the band, and slack for pad rows
+    off_at = off_dz + tot_p * dts
+    off_ht = off_at + tot_p * ats
+    off_da = off_ht + h_rows * ats
+    cur = off_da + rows * das
+    off_w, off_b = [], []
+    for fin, fp in zip(dims[:-1], fout_p):
+        off_w.append(cur)
+        off_b.append(cur + _ceil(fin, 4) * fp)
+        cur += _ceil(fin, 4) * fp + fp
+    if 4 * cur > SMEM_PER_BLOCK - STATIC_SMEM:
+        return None
+    sizes = [fin * fout + fout for fin, fout in zip(dims[:-1], dims[1:])]
+    ws_off = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+    return BackwardPlan(cluster, rows, MAX_THREADS, 4 * cur, ps, tot_p, hmax,
+                        dts, ats, das, sum(sizes), fout_p, dz_off, h_off,
+                        ws_off, off_dz, off_at, off_ht, off_da, tuple(off_w),
+                        tuple(off_b))
+
+
+@functools.lru_cache(maxsize=None)
+def _choose_backward_plan(n: int, dims: Tuple[int, ...]) -> BackwardPlan:
+    if n < 1 or not 1 <= len(dims) - 1 <= MAX_LAYERS or min(dims) < 1:
+        raise ValueError(f"gcn_stack backward kernel takes N >= 1 and "
+                         f"1..{MAX_LAYERS} layers of width >= 1; got N={n}, "
+                         f"dims={dims}")
+    plan = next((plan for c in CLUSTER_SIZES
+                 if (plan := _backward_plan_for(n, dims, c)) is not None),
+                None)
+    if plan is None:
+        raise ValueError(f"gcn_stack backward kernel cannot hold N={n} with "
+                         f"widths {list(dims)} resident in shared memory "
+                         f"(cluster {CLUSTER_SIZES}, {SMEM_PER_BLOCK} B per "
+                         "CTA)")
+    return plan
+
+
+def plan_backward(b: int, n: int, dims: Sequence[int]) -> BackwardPlan:
+    """Launch plan of the backward kernel for a batch of `b` samples of N
+    nodes with layer widths `dims` = (F0, H_1, ..., H_L): the smallest
+    cluster whose CTAs hold their band of P and the backward's operands in
+    shared memory (the forward's split where both fit: one CTA at N=90,
+    two at N=270). Raises ValueError for a shape it cannot hold."""
+    plan = _choose_backward_plan(n, tuple(int(d) for d in dims))
+    if not 0 <= b * plan.cluster < 2 ** 31:
+        raise ValueError(f"a batch of {b} takes {b * plan.cluster} CTAs; one "
+                         "launch takes 0 to 2**31 - 1")
+    return plan
+
+
 class _CPlan(ctypes.Structure):
     """`StackPlan` of csrc/gcn_stack.cu, field for field."""
     _fields_ = [(name, ctypes.c_int) for name in (
@@ -406,6 +572,43 @@ def _c_bf16_plan(plan: PersistentPlan, n: int, dims: Tuple[int, ...],
         out_off=ints([sum(dims[1:1 + i]) for i in range(len(dims) - 1)]))
 
 
+class _CBackwardPlan(ctypes.Structure):
+    """`BackwardPlan` of csrc/gcn_stack_backward.cu, field for field."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n", "num_layers", "cluster", "rows", "threads", "smem_bytes", "ps",
+        "total", "tot_p", "hmax", "dts", "ats", "das", "p_transposed",
+        "copy_bulk", "group", "wsz", "off_dz", "off_at", "off_ht",
+        "off_da")] + [
+            (name, ctypes.c_int * size) for name, size in (
+                ("dims", MAX_LAYERS + 1), ("fout_p", MAX_LAYERS),
+                ("off_w", MAX_LAYERS), ("off_b", MAX_LAYERS),
+                ("out_off", MAX_LAYERS), ("dz_off", MAX_LAYERS),
+                ("h_off", MAX_LAYERS), ("ws_off", MAX_LAYERS),
+                ("w_stride", MAX_LAYERS), ("b_stride", MAX_LAYERS))]
+
+
+@functools.lru_cache(maxsize=64)
+def _c_backward_plan(plan: BackwardPlan, n: int, dims: Tuple[int, ...],
+                     transposed: bool, bulk: bool, group: int,
+                     w_strides: Tuple[int, ...], b_strides: Tuple[int, ...]
+                     ) -> _CBackwardPlan:
+    def ints(values, size=MAX_LAYERS):
+        return (ctypes.c_int * size)(*values)
+    return _CBackwardPlan(
+        n=n, num_layers=len(dims) - 1, cluster=plan.cluster, rows=plan.rows,
+        threads=plan.threads, smem_bytes=plan.smem_bytes, ps=plan.ps,
+        total=sum(dims[1:]), tot_p=plan.tot_p, hmax=plan.hmax, dts=plan.dts,
+        ats=plan.ats, das=plan.das, p_transposed=int(transposed),
+        copy_bulk=int(bulk), group=group, wsz=plan.wsz, off_dz=plan.off_dz,
+        off_at=plan.off_at, off_ht=plan.off_ht, off_da=plan.off_da,
+        dims=ints(dims, MAX_LAYERS + 1), fout_p=ints(plan.fout_p),
+        off_w=ints(plan.off_w), off_b=ints(plan.off_b),
+        out_off=ints([sum(dims[1:1 + i]) for i in range(len(dims) - 1)]),
+        dz_off=ints(plan.dz_off), h_off=ints(plan.h_off),
+        ws_off=ints(plan.ws_off), w_stride=ints(w_strides),
+        b_stride=ints(b_strides))
+
+
 def band_copy(addr: int, own: int, n: int, elem_bytes: int
               ) -> Tuple[int, int, int, int]:
     """How the kernels copy a band of P (`own` columns of N values, one
@@ -423,7 +626,8 @@ def band_copy(addr: int, own: int, n: int, elem_bytes: int
     return mis // elem_bytes, head, body, nbytes - head - body
 
 
-def _bulk_copyable(prop: torch.Tensor, plan: LaunchPlan) -> bool:
+def _bulk_copyable(prop: torch.Tensor, plan: LaunchPlan | BackwardPlan
+                   ) -> bool:
     """True when every CTA's band of P is one block of memory that the
     bulk-copy engine takes: P transposed in memory; in fp32, with the
     block's start and length multiples of 16 bytes; in bf16, with the
@@ -443,6 +647,7 @@ def _bulk_copyable(prop: torch.Tensor, plan: LaunchPlan) -> bool:
 
 _lib: ctypes.CDLL | None = None
 _bf16_lib: ctypes.CDLL | None = None
+_backward_lib: ctypes.CDLL | None = None
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -470,6 +675,19 @@ def declare_bf16(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def declare_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`declare` for the backward kernel's library."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gcn_stack_backward.argtypes = [
+        ctypes.POINTER(_CBackwardPlan), ptr, ctypes.c_longlong, ptr,
+        ctypes.POINTER(ptr), ctypes.POINTER(ptr), ptr, ptr, ptr, ptr, ptr,
+        i32, i32, ptr]
+    lib.gcn_stack_backward.restype = i32
+    lib.gcn_stack_backward_error_string.argtypes = [i32]
+    lib.gcn_stack_backward_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use."""
     global _lib
@@ -484,6 +702,14 @@ def _bf16_library() -> ctypes.CDLL:
     if _bf16_lib is None:
         _bf16_lib = declare_bf16(load_library(BF16_SOURCE))
     return _bf16_lib
+
+
+def _backward_library() -> ctypes.CDLL:
+    """The backward kernel's library, built at first use."""
+    global _backward_lib
+    if _backward_lib is None:
+        _backward_lib = declare_backward(load_library(BACKWARD_SOURCE))
+    return _backward_lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -630,6 +856,80 @@ def _launch_persistent(plan: PersistentPlan, prop, x, weights, biases, out,
                            + lib.gcn_stack_bf16_error_string(code).decode())
 
 
+def _launch_backward(prop, x, weights, biases, grad_out,
+                     needs: Tuple[bool, bool, bool]):
+    """The backward kernel (and its per-set sum of dW, db) on PyTorch's
+    current stream, no synchronisation: (dprop, dx, dweights, dbiases),
+    each None where `needs` (prop, x, weights and biases) says no. dprop
+    comes in P's layout."""
+    dims, transposed = _check_inputs(prop, x, weights, biases)
+    if prop.dtype != torch.float32:
+        raise ValueError("the backward kernel takes float32; the bf16 form "
+                         "serves only")
+    b, n, _ = prop.shape
+    if (tuple(grad_out.shape) != (b, n, sum(dims[1:]))
+            or grad_out.dtype != torch.float32
+            or grad_out.device != prop.device):
+        raise ValueError(f"grad_out must be float32 ({b}, {n}, "
+                         f"{sum(dims[1:])}) on {prop.device}; got "
+                         f"{grad_out.dtype} {tuple(grad_out.shape)} on "
+                         f"{grad_out.device}")
+    need_p, need_x, need_w = needs
+    plan = plan_backward(b, n, tuple(dims))
+    groups = _weight_sets(weights)
+    sets = groups or 1
+    g = grad_out.contiguous()
+
+    def empty(*shape):
+        return torch.empty(shape, device=prop.device, dtype=torch.float32)
+
+    dprop = empty(b, n, n) if need_p else None
+    dx = torch.empty_like(x) if need_x else None
+    ws = empty(b * plan.cluster * plan.wsz) if need_w else None
+    wgrad = empty(sets, plan.wsz) if need_w else None
+    if b > 0:
+        layers = len(weights)
+        index = (prop.device.index if prop.device.index is not None
+                 else torch.cuda.current_device())
+        w_strides = tuple(w.stride(0) if groups else 0 for w in weights)
+        b_strides = tuple(bb.stride(0) if groups else 0 for bb in biases)
+        c_plan = _c_backward_plan(
+            plan, n, tuple(dims), transposed,
+            transposed and _bulk_copyable(prop, plan),
+            b // sets, w_strides + (0,) * (MAX_LAYERS - layers),
+            b_strides + (0,) * (MAX_LAYERS - layers))
+        lib = _backward_library()
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        code = lib.gcn_stack_backward(
+            ctypes.byref(c_plan), prop.data_ptr(), prop.stride(0),
+            x.data_ptr(),
+            (ctypes.c_void_p * layers)(*(w.data_ptr() for w in weights)),
+            (ctypes.c_void_p * layers)(*(bb.data_ptr() for bb in biases)),
+            g.data_ptr(), ptr(dprop), ptr(dx), ptr(ws), ptr(wgrad), b, index,
+            torch.cuda.current_stream(prop.device).cuda_stream)
+        if code != 0:
+            raise RuntimeError(
+                "gcn_stack backward kernel launch failed: "
+                + lib.gcn_stack_backward_error_string(code).decode())
+        fused_gcn_stack.launches_backward += 1
+    elif need_w:
+        wgrad.zero_()
+    if need_p and transposed:
+        dprop = dprop.transpose(1, 2)     # memory [s, j, i] holds dP[i, j]
+    if not need_w:
+        return dprop, dx, None, None
+    dweights, dbiases = [], []
+    for off, fin, fout in zip(plan.ws_off, dims[:-1], dims[1:]):
+        dw = wgrad[:, off:off + fin * fout].view(sets, fin, fout)
+        db = wgrad[:, off + fin * fout:off + fin * fout + fout]
+        dweights.append(dw if groups else dw[0])
+        dbiases.append(db if groups else db[0])
+    return dprop, dx, dweights, dbiases
+
+
 def _plain(prop, x, weights, biases) -> torch.Tensor:
     """The plain version of either form: grouped when the weights are 3-D;
     bf16 inputs upcast to fp32 first, as the bf16 form computes."""
@@ -653,9 +953,11 @@ def _to_front(t: torch.Tensor, dim, size: int) -> torch.Tensor:
 class _GcnStack(torch.autograd.Function):
     """Forward: the kernel on CUDA, the plain version on the CPU; weights
     (F_l, H_l) shared by every sample, or the grouped form (G, F_l, H_l).
-    Backward: autograd of the plain version on the saved inputs (a
-    recompute). Under `torch.func.vmap` the `vmap` rule below runs the
-    grouped form once for every fold."""
+    Backward, from the saved inputs (a recompute, as the JAX VJP): the
+    backward kernel on CUDA, for either form; on the CPU autograd of the
+    plain version. Once differentiable: the port never differentiates it
+    twice. Under `torch.func.vmap` the `vmap` rule below runs the grouped
+    form once for every fold."""
 
     @staticmethod
     def forward(prop, x, num_layers, *params):
@@ -674,12 +976,22 @@ class _GcnStack(torch.autograd.Function):
         ctx.save_for_backward(prop, x, *params)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_out):
-        saved = [t.detach().requires_grad_(need) for t, need in
-                 zip(ctx.saved_tensors, (ctx.needs_input_grad[:2]
-                                         + ctx.needs_input_grad[3:]))]
-        prop, x, *params = saved
+        needs = ctx.needs_input_grad[:2] + ctx.needs_input_grad[3:]
         nl = ctx.num_layers
+        if ctx.saved_tensors[0].device.type == "cuda":
+            prop, x, *params = ctx.saved_tensors
+            dprop, dx, dws, dbs = _launch_backward(
+                prop, x, params[:nl], params[nl:], grad_out,
+                (needs[0], needs[1], any(needs[2:])))
+            grads = [*(dws or [None] * nl), *(dbs or [None] * nl)]
+            return (dprop, dx, None,
+                    *(d if need else None for d, need in zip(grads,
+                                                             needs[2:])))
+        saved = [t.detach().requires_grad_(need) for t, need in
+                 zip(ctx.saved_tensors, needs)]
+        prop, x, *params = saved
         with torch.enable_grad():
             out = _plain(prop, x, params[:nl], params[nl:])
             wanted = [t for t in saved if t.requires_grad]
@@ -720,7 +1032,9 @@ def fused_gcn_stack(prop: torch.Tensor, x: torch.Tensor,
     bf16 P, x, weights and biases run the bf16-operand form (shared weights
     only, no backward) and give a float32 output.
     `fused_gcn_stack.launches` counts kernel launches of the fp32 forms,
-    `fused_gcn_stack.launches_bf16` those of the bf16 form.
+    `fused_gcn_stack.launches_bf16` those of the bf16 form and
+    `fused_gcn_stack.launches_backward` those of the backward kernel (one
+    per backward call on CUDA tensors).
     """
     if prop.dtype == torch.bfloat16:
         # the CPU path checks what the kernel's wrapper checks on CUDA
@@ -739,3 +1053,4 @@ def fused_gcn_stack(prop: torch.Tensor, x: torch.Tensor,
 
 fused_gcn_stack.launches = 0
 fused_gcn_stack.launches_bf16 = 0
+fused_gcn_stack.launches_backward = 0

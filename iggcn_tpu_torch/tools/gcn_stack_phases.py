@@ -12,7 +12,11 @@ each phase over a CTA's samples: its rows are per sample (layer 0's h W
 before the stage's wait, the wait, each layer's P hW and later layers' h W,
 the output), beside the prologue's parts per CTA. Last it times the
 persistent kernel at each K split its plan may choose, beside the fp32
-form (`ksplit_sweep`). Needs a CUDA card:
+form (`ksplit_sweep`). Then the backward kernel
+(`csrc/gcn_stack_backward.cu`, stamped the same way) at the training
+shapes: each phase's mean over the CTAs, from the prologue through the
+recompute, each layer's backward steps and dP (`run_backward_phases`).
+Needs a CUDA card:
 
     python -m iggcn_tpu_torch.tools.gcn_stack_phases
 """
@@ -78,6 +82,28 @@ def persistent_phase_names(layers):
                 (f"layer {l}: P hW + sync", 4 + 2 * l)]
     return out + [("output stores", 23),
                   ("next x, edges + sync", 3 + 2 * layers)]
+
+
+# the backward kernel's stamps: 64 slots (kPhaseSlots of
+# csrc/gcn_stack_backward.cu); its timed shapes, (name, B, N, F0, widths)
+BACKWARD_SLOTS = 64
+BACKWARD_SHAPES = [("training", 32, 90, 3, (16, 16)),
+                   ("multi-fusion training", 32, 270, 1, (10, 10, 10))]
+
+
+def backward_phase_names(layers):
+    """The backward kernel's phases, one per pair of consecutive slots, in
+    the order it stamps them."""
+    out = ["prologue: P, x, W in"]
+    for l in range(layers):
+        out += [f"recompute layer {l}: a = h W", f"recompute layer {l}: "
+                "z = P a + b (+ cluster sum)"]
+    out.append("g into dz^T, dz of the last layer")
+    for l in reversed(range(layers)):
+        out += [f"backward layer {l}: gather dz (cluster), db",
+                f"backward layer {l}: da = P^T dz", f"backward layer {l}: dW",
+                f"backward layer {l}: e = da W^T (dz or dx)"]
+    return out + ["dP = DZ A^T", "dP stored", "final cluster barrier"]
 
 
 def _stamped(source, declare, stamps):
@@ -230,6 +256,48 @@ def run_phases(dev):
                       f"{(clk[:, s1] - clk[:, s0]).mean():9.0f} cycles")
 
 
+def run_backward_phases(dev):
+    """The stamped backward kernel at `BACKWARD_SHAPES`: each phase's mean
+    duration over the CTAs, the per-CTA span and the launch's span."""
+    source = gcn_stack.BACKWARD_SOURCE
+    lib = _stamped(source, gcn_stack.declare_backward,
+                   "gcn_stack_backward_phase_stamps")
+    print(f"ptxas, {source}:")
+    for line in cuda_build.BUILD_LOGS.get(source, "").splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            print("  " + line.strip())
+    gcn_stack._backward_lib = lib
+    rng = np.random.default_rng(2)
+    for name, b, n, f0, widths in BACKWARD_SHAPES:
+        args = _inputs(rng, b, n, f0, widths, dev)
+        cot = torch.randn(b, n, sum(widths), device=dev)
+        plan = gcn_stack.plan_backward(b, n, (f0, *widths))
+        for _ in range(4):
+            gcn_stack._launch_backward(*args, cot, (True, True, True))
+        torch.cuda.synchronize()
+        ctas = b * plan.cluster
+        ns = np.zeros(ctas * BACKWARD_SLOTS, np.uint64)
+        clk = np.zeros(ctas * BACKWARD_SLOTS, np.int64)
+        code = lib.gcn_stack_backward_phase_stamps(ns.ctypes.data,
+                                                   clk.ctypes.data, ctas)
+        if code:
+            raise RuntimeError(lib.gcn_stack_backward_error_string(code)
+                               .decode())
+        ns = ns.reshape(ctas, BACKWARD_SLOTS).astype(np.int64)
+        clk = clk.reshape(ctas, BACKWARD_SLOTS)
+        names = backward_phase_names(len(widths))
+        last = len(names)
+        print(f"backward {name}: B={b} N={n} F0={f0} H={widths}, cluster "
+              f"{plan.cluster}, {plan.threads} threads, {plan.smem_bytes} B; "
+              f"launch span {(ns[:, last].max() - ns[:, 0].min()) / 1e3:.2f} "
+              f"us, per-CTA {(ns[:, last] - ns[:, 0]).mean() / 1e3:.2f} us "
+              "(mean)")
+        for k, label in enumerate(names):
+            print(f"  {label:<48s} "
+                  f"{(ns[:, k + 1] - ns[:, k]).mean() / 1e3:8.3f} us "
+                  f"{(clk[:, k + 1] - clk[:, k]).mean():9.0f} cycles")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("gcn_stack_phases: needs a CUDA card", file=sys.stderr)
@@ -239,6 +307,7 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip())
     run_phases(torch.device("cuda", 0))
     ksplit_sweep(torch.device("cuda", 0))
+    run_backward_phases(torch.device("cuda", 0))
     return 0
 
 
