@@ -11,7 +11,7 @@ failure propagates and the script exits non-zero:
      torch, CUDA, numpy and scipy versions, then every CUDA source under
      iggcn_tpu_torch/csrc/ built by nvcc (one process per source, all
      started together), with the build time and ptxas's
-     register/shared-memory report;
+     register/shared-memory report, which must show no spills;
   2. kernel vs plain on the card: `fused_gcn_stack` against
      `gcn_stack_reference` at every imaging-stack shape of both search
      grids (N=90, F0=3 and N=270, F0=1; B in {1, 7, 32, 256}), each with P
@@ -616,6 +616,12 @@ def phase_build():
     build_s = time.perf_counter() - t0
     for source, text in cuda_build.BUILD_LOGS.items():
         log(f"-- nvcc {source}:\n{text.strip()}")
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", text)
+        if source in sources and (
+                not spills or any(int(a) or int(b) for a, b in spills)):
+            raise AssertionError(f"ptxas reports spills in {source} (or no "
+                                 f"report): {spills}")
     log(f"built {sources} in {build_s:.2f} s")
     return card, build_s
 

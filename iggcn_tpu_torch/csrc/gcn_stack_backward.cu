@@ -27,10 +27,15 @@
 //   [k R, (k+1) R) resident, P read from device memory once (one
 //   cp.async.bulk from the transposed layout, 4-byte cp.asyncs otherwise),
 //   and owns rows [k R, (k+1) R) of h, a, z and dz.
+// - P's copy is issued first, and all that needs no P runs behind it: the
+//   weights, x into h^T, the pads zeroed, g's rows into dz^T (one CTA; with
+//   a cluster dz^T holds the partial P a until the recompute ends) and
+//   a_0 = h_0 W_0. Only then does the CTA wait for P.
 // - The recompute sums each CTA's partial P a through distributed shared
 //   memory, as csrc/gcn_stack.cu does, and keeps a_l for every layer (a^T,
 //   for dP) and h_l (h^T, for dW and the relu masks) for its rows; the last
-//   layer's output only gives the mask of dz_{L-1}, formed at once from g.
+//   layer's output only gives the mask of dz_{L-1}, applied to g's slice
+//   in z's epilogue (one CTA) or when g is written (a cluster).
 // - dz is kept for every row and layer (dz^T, sum H x N): its CTA's rows
 //   start as g's (read once, all loads in flight), a CTA finishes its rows
 //   of a layer, then gathers the other CTAs' rows of it through
@@ -38,19 +43,27 @@
 //   for the CTA's rows then needs only its own band, and so does dP's
 //   block of columns, staged in the band's space once P is read for the
 //   last time and written once with coalesced stores (in the transposed
-//   layout one contiguous block per CTA).
+//   layout one contiguous block per CTA). A layer takes two passes, each
+//   behind one barrier: da_l with db_l on the warps past da's tiles, then
+//   dW_l and e_l side by side on two ranges of threads.
 // - dW_l and db_l are summed over each CTA's rows into its own slot of a
 //   workspace; a second small kernel sums the slots of each weight set in
 //   a fixed order. No float atomics: two runs give bit-equal gradients.
 // - Grouped weights (the fold-parallel trainer): sample s reads weight set
 //   s / group at w_stride / b_stride floats per set (0: shared), and the
 //   second kernel sums per set.
-// - Arithmetic: plain fp32 FMAs (no TF32, no tensor cores) in 4 x 4
-//   register tiles, the reduction dimension split over up to 32 adjacent
-//   lanes and summed by a shuffle butterfly where the tiles are too few to
-//   occupy the CTA. Operands are laid out (P's band column-major, a^T,
-//   h^T, dz^T with padded strides) so that each product's inner loop reads
-//   one operand as 8- or 16-byte vectors.
+// - Arithmetic: plain fp32 FMAs (no TF32, no tensor cores) in register
+//   tiles through one routine (product): 4 x 4 in the P-products (z = P a,
+//   da = P^T dz) where their K is short (N=90), 8 x 4 where it is long
+//   (N=270), 8 x 4 in dP, 4 x 4 in the small steps (a, dW, e). Every
+//   operand is read in vectors along the dimension it is contiguous in:
+//   16 bytes, or 8 for P's band where its column stride is only even
+//   (N=90, 270); K in chunks of 4, split over up to 4 adjacent lanes in
+//   the P-products (chunk s, s + ks, ... to lane s) and summed by a
+//   shuffle butterfly in a fixed order. Reads past K's end meet exact
+//   zeros in one operand and finite values in the other: the band's pads
+//   and a^T, h^T, da and dz^T are zeroed before use, and only in-range
+//   values are written there.
 //
 // The launch plan (cluster, band, shared-memory offsets) is computed in
 // Python (ops/gcn_stack.py:plan_backward) and passed as a BackwardPlan.
@@ -151,8 +164,15 @@ __device__ __forceinline__ void cp_async_4(float* dst, const float* src) {
                :: "r"(smem_addr(dst)), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` of this thread's latest cp.async groups
+// are still in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
@@ -208,75 +228,173 @@ __device__ __forceinline__ const float* peer_ptr(const float* p, int rank) {
   return reinterpret_cast<const float*>(out);
 }
 
-// C(m, n) = sum_{k < kn} A(m, k) B(k, n) for m < mn, n < nn, in 4 x 4
-// register tiles, with A(m, k) = a[m * am + k * ak] and B(k, n) =
-// b[k * bk + n * bn]. AVec: am == 1 and pairs 8-byte aligned, so A's four
-// values come in two 8-byte loads; BVec: bn == 1 and b + k * bk + n0
-// 16-byte aligned, one 16-byte load. Reads of m and n up to the next
-// multiple of 4 must stay in shared memory: what they find reaches only
-// outputs that are not stored (epi checks m < mn, n < nn). ks adjacent
-// lanes share a tile, lane s summing k = s, s + ks, ... in ascending
-// order, then a shuffle butterfly gives every lane the full sums and
-// lane 0 of the tile hands them to epi(m0, n0, acc). Every thread runs
-// the same rounds, so the shuffles see full warps.
-template <bool AVec, bool BVec, typename Epi>
+// V consecutive floats of shared memory at p (4 V-byte aligned) in one
+// load.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  static_assert(V == 2 || V == 4, "vectors of 2 or 4 floats");
+  if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x; out[1] = v.y;
+  }
+}
+
+// log2 of the lanes that share one tile of a product of `tiles` tiles and
+// `chunks` chunks of K over `span` threads: the most, up to `ksw`, that
+// fit in `span` with at least one chunk each.
+__device__ __forceinline__ int ksplit_log2(int tiles, int chunks, int span,
+                                           int ksw) {
+  int lg = 0;
+  while (lg < 5 && (2 << lg) <= ksw && (tiles << (lg + 1)) <= span &&
+         (2 << lg) <= chunks) {
+    ++lg;
+  }
+  return lg;
+}
+
+// C(m, n) = sum_{k < kn} A(m, k) B(k, n) for m < mn, n < nn, in TM x TN
+// register tiles over the threads [t0, t0 + span) of the CTA (both
+// multiples of 32; the others skip it). A(m, k) = a[m * as + k] where AK
+// (contiguous in k), else a[k * as + m]; B(k, n) = b[n * bs + k] where BK,
+// else b[k * bs + n]. Each operand is read in VA- / VB-float vectors along
+// the dimension it is contiguous in, every vector aligned to its size, and
+// K in chunks of 4: k up to the next multiple of 4 is read, so there one
+// operand must hold exact zeros and the other finite values. A tile's
+// rows past mn (AK) or columns past nn (BK) read row mn - 1 or column
+// nn - 1 again; otherwise m and n up to the tile's edge must stay in
+// shared memory. What they find reaches only outputs that are not stored
+// (epi stores m < mn, n < nn). ks adjacent lanes share a tile
+// (ksplit_log2, at most ksw); lane s of them sums chunks s, s + ks, ... in
+// ascending order (k in order within a chunk), a shuffle butterfly in a
+// fixed order gives every lane the tile's sums, and lane 0 of the tile
+// hands them to epi(m0, n0, acc). A warp with a lane in the work runs the
+// same rounds as the others, so the shuffles see full warps.
+template <int TM, int TN, int VA, bool AK, int VB, bool BK, typename Epi>
 __device__ __forceinline__ void product(int mn, int nn, int kn,
-                                        const float* a, int am, int ak,
-                                        const float* b, int bk, int bn,
-                                        Epi epi) {
-  const int nt = (nn + 3) >> 2;
-  const int tiles = ((mn + 3) >> 2) * nt;
-  const int nthr = blockDim.x;
-  int lg = 0;   // ks = 2^lg: enough lanes to occupy the CTA, >= 2 steps each
-  while (lg < 5 && (tiles << (lg + 1)) <= nthr && (4 << lg) <= kn) ++lg;
+                                        const float* a, int as,
+                                        const float* b, int bs,
+                                        int t0, int span, int ksw, Epi epi) {
+  // A is read a group of RG rows at a time (one row where it is
+  // contiguous in k, VA rows where in m), B a whole chunk at a time: the
+  // registers hold the tile, B's chunk and RG rows of A's.
+  constexpr int RG = AK ? 1 : VA;
+  const int t = static_cast<int>(threadIdx.x) - t0;
+  if (t < 0 || t >= span) return;
+  const int nt = (nn + TN - 1) / TN;
+  const int tiles = (mn + TM - 1) / TM * nt;
+  const int lg = ksplit_log2(tiles, (kn + 3) >> 2, span, ksw);
   const int ks = 1 << lg;
   const int work = tiles << lg;
-  for (int base = 0; base < work; base += nthr) {
-    const int t = base + static_cast<int>(threadIdx.x);
-    const bool active = t < work;
-    const int tile = t >> lg;
-    const int slice = t & (ks - 1);
-    const int m0 = (tile / nt) * 4;
-    const int n0 = (tile % nt) * 4;
-    float acc[4][4] = {};
+  for (int base = 0; base + (t & ~31) < work; base += span) {
+    const int u = base + t;
+    const bool active = u < work;
+    const int tile = u >> lg;
+    const int slice = u & (ks - 1);
+    const int m0 = tile / nt * TM;
+    const int n0 = tile % nt * TN;
+    float acc[TM][TN] = {};
     if (active) {
-      const float* ap = a + m0 * am;
-      const float* bp = b + n0 * bn;
-#pragma unroll 2
-      for (int k = slice; k < kn; k += ks) {
-        float av[4], bv[4];
-        if constexpr (AVec) {
-          const float2 lo = *reinterpret_cast<const float2*>(ap + k * ak);
-          const float2 hi = *reinterpret_cast<const float2*>(ap + k * ak + 2);
-          av[0] = lo.x; av[1] = lo.y; av[2] = hi.x; av[3] = hi.y;
+#pragma unroll 1
+      for (int k0 = slice * 4; k0 < kn; k0 += ks * 4) {
+        float bv[4][TN];
+        if constexpr (BK) {
+#pragma unroll
+          for (int c = 0; c < TN; ++c) {
+#pragma unroll
+            for (int v = 0; v < 4; v += VB) {
+              float w[VB];
+              load_vec<VB>(b + min(n0 + c, nn - 1) * bs + k0 + v, w);
+#pragma unroll
+              for (int q = 0; q < VB; ++q) bv[v + q][c] = w[q];
+            }
+          }
         } else {
 #pragma unroll
-          for (int r = 0; r < 4; ++r) av[r] = ap[r * am + k * ak];
-        }
-        if constexpr (BVec) {
-          const float4 v = *reinterpret_cast<const float4*>(bp + k * bk);
-          bv[0] = v.x; bv[1] = v.y; bv[2] = v.z; bv[3] = v.w;
-        } else {
+          for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) bv[c] = bp[k * bk + c * bn];
+            for (int v = 0; v < TN; v += VB) {
+              load_vec<VB>(b + (k0 + kk) * bs + n0 + v, &bv[kk][v]);
+            }
+          }
         }
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
+        for (int r0 = 0; r0 < TM; r0 += RG) {
+          float av[RG][4];
+          if constexpr (AK) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+            for (int v = 0; v < 4; v += VA) {
+              load_vec<VA>(a + min(m0 + r0, mn - 1) * as + k0 + v, &av[0][v]);
+            }
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              float w[VA];
+              load_vec<VA>(a + (k0 + kk) * as + m0 + r0, w);
+#pragma unroll
+              for (int q = 0; q < VA; ++q) av[q][kk] = w[q];
+            }
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+            for (int r = 0; r < RG; ++r) {
+#pragma unroll
+              for (int c = 0; c < TN; ++c) {
+                acc[r0 + r][c] = fmaf(av[r][kk], bv[kk][c], acc[r0 + r][c]);
+              }
+            }
+          }
         }
       }
     }
     for (int m = ks >> 1; m >= 1; m >>= 1) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < TM; ++r) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < TN; ++c) {
           acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], m);
         }
       }
     }
     if (active && slice == 0) epi(m0, n0, acc);
+  }
+}
+
+// The P-products (z = P a, da = P^T dz) read P's band in 16-byte vectors
+// where its column stride is a multiple of 4 floats, else in 8-byte ones
+// (ps is even), the other operand in 16-byte vectors along K, in 4 x 4
+// tiles, 8 x 4 from a K of kDeepK on. dP: 8 x 4 tiles; the small steps
+// (a, dW, e): 4 x 4. The tiles and the K splits below (the most lanes a
+// tile may take) are the fastest an H100 read at N=90 and N=270
+// (tools/gcn_stack_phases.py --backward-variants); 4 x 8 tiles, whose
+// loads feed 8 FMAs each, read slower there (PERF.md section 6). dW's and
+// e's splits also keep dW's and dx's error against float64 at the level
+// of a deeper split (longer sequential sums round more).
+constexpr int kDeepK = 128;
+constexpr int kPSplit = 4;     // z and da
+constexpr int kASplit = 1;     // a = h W
+constexpr int kWSplit = 8;     // dW
+constexpr int kESplit = 4;     // e = da W^T
+constexpr int kDSplit = 32;    // dP
+
+// One P-product: A is P's band (contiguous in k where AK, else in m), B
+// is contiguous in k; epi(m0, n0, acc) gets acc[TM][4].
+template <bool AK, typename Epi>
+__device__ __forceinline__ void p_product(bool vec4, int mn, int nn, int kn,
+                                          const float* pt, int ps,
+                                          const float* b, int bs, int nthr,
+                                          Epi epi) {
+  if (kn < kDeepK && vec4) {
+    product<4, 4, 4, AK, 4, true>(mn, nn, kn, pt, ps, b, bs, 0, nthr, kPSplit, epi);
+  } else if (kn < kDeepK) {
+    product<4, 4, 2, AK, 4, true>(mn, nn, kn, pt, ps, b, bs, 0, nthr, kPSplit, epi);
+  } else if (vec4) {
+    product<8, 4, 4, AK, 4, true>(mn, nn, kn, pt, ps, b, bs, 0, nthr, kPSplit, epi);
+  } else {
+    product<8, 4, 2, AK, 4, true>(mn, nn, kn, pt, ps, b, bs, 0, nthr, kPSplit, epi);
   }
 }
 
@@ -299,6 +417,7 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
   const int n = p.n, rows = p.rows, ps = p.ps, L = p.num_layers;
   const int dts = p.dts, ats = p.ats, das = p.das, hmax = p.hmax;
   const int cl = p.cluster;
+  const bool p_vec4 = ps % 4 == 0;
   const int rank = cl > 1 ? cluster_rank() : 0;
   const long long sample = blockIdx.x / cl;
   const int r0 = rank * rows;                 // first column of P it owns
@@ -314,9 +433,60 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
   float* ht = smem + p.off_ht;                // ht[(h_off + f) * ats + j] = h[r0 + j][f]
   float* da = smem + p.off_da;                // da[j * das + c] = da[r0 + j][c]
 
-  // 1. The weights and biases of this sample's set, zero-padded, as 4-byte
-  //    cp.asyncs; x's rows of this CTA into h^T; then P's band: one bulk
-  //    copy where it is one aligned block, else 4-byte cp.asyncs.
+  // `count` floats from `from` zeroed (16-byte stores where `from` and
+  // `count` allow: every region below but the band's tail)
+  auto zero = [&](float* from, int count) {
+    if (reinterpret_cast<unsigned long long>(from) % 16 == 0 && count % 4 == 0) {
+      for (int idx = 4 * tid; idx < count; idx += 4 * nthr) {
+        *reinterpret_cast<float4*>(from + idx) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int idx = tid; idx < count; idx += nthr) from[idx] = 0.f;
+    }
+  };
+  // dz^T zeroed, then this CTA's rows of g set in it, kGather of each
+  // thread's loads in flight together (the first ones before the zeros);
+  // with mask_last, dz_{L-1} is g's slice where z_{L-1} > 0 (h_L staged
+  // in da). Holds one barrier.
+  auto fill_dz = [&](bool mask_last) {
+    const int count = own * p.total;
+    float v[kGather];
+    auto load = [&](int base) {
+#pragma unroll
+      for (int k = 0; k < kGather; ++k) {
+        const int e = base + k * nthr + tid;
+        v[k] = e < count ? g_s[e] : 0.f;
+      }
+    };
+    load(0);
+    zero(dzt, p.tot_p * dts);
+    __syncthreads();
+    for (int base = 0; base < count; base += kGather * nthr) {
+      if (base > 0) load(base);
+#pragma unroll
+      for (int k = 0; k < kGather; ++k) {
+        const int e = base + k * nthr + tid;
+        if (e >= count) continue;
+        const int j = e / p.total;
+        const int col = e - j * p.total;
+        int l = 0;
+        while (l + 1 < L && col >= p.out_off[l + 1]) ++l;
+        const int c = col - p.out_off[l];
+        const bool off = mask_last && l == L - 1 && !(da[j * das + c] > 0.f);
+        dzt[(p.dz_off[l] + c) * dts + r0 + j] = off ? 0.f : v[k];
+      }
+    }
+  };
+
+  // 1. P's band first, so that its copy runs behind all that needs no P:
+  //    one bulk copy where it is one aligned block (thread 0). Then the
+  //    weights and biases of this sample's set, zero-padded, and x's rows
+  //    of this CTA into h^T (zeros elsewhere, so that h^T's pads stay exact
+  //    zeros), as 4-byte cp.asyncs in one group; else P's band as 4-byte
+  //    cp.asyncs in a second group.
+  if (p.copy_bulk && tid == 0) {
+    bulk_load(pt, band, static_cast<unsigned>(own * n * 4), &p_ready);
+  }
   for (int l = 0; l < L; ++l) {
     const int fin = p.dims[l], fout = p.dims[l + 1], fp = p.fout_p[l];
     float* ws = smem + p.off_w[l];
@@ -337,20 +507,21 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
   {
     const int f0 = p.dims[0];
     const float* x_s = sa.x + (sample * n + r0) * f0;
-    for (int e = tid; e < own * f0; e += nthr) {
-      ht[(e % f0) * ats + e / f0] = x_s[e];
+    for (int idx = tid; idx < f0 * ats; idx += nthr) {
+      const int f = idx / ats;
+      const int j = idx - f * ats;
+      if (j < own) cp_async_4(ht + idx, x_s + j * f0 + f);
+      else ht[idx] = 0.f;
     }
+    zero(ht + f0 * ats, p.off_da - p.off_ht - f0 * ats);
   }
-  if (p.copy_bulk) {
-    if (tid == 0) {
-      bulk_load(pt, band, static_cast<unsigned>(own * n * 4), &p_ready);
-    }
-  } else if (p.p_transposed) {
+  cp_async_commit();
+  if (!p.copy_bulk && p.p_transposed) {
     for (int idx = tid; idx < own * n; idx += nthr) {
       const int j = idx / n;
       cp_async_4(pt + j * ps + (idx - j * n), band + idx);
     }
-  } else {
+  } else if (!p.copy_bulk) {
     // row-major: coalesced reads along P's rows, transposed into place
     for (int idx = tid; idx < n * own; idx += nthr) {
       const int i = idx / own;
@@ -358,22 +529,41 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
       cp_async_4(pt + j * ps + i, prop_s + static_cast<long long>(i) * n + r0 + j);
     }
   }
-  cp_async_wait_all();
-  if (p.copy_bulk) mbar_wait_phase0(&p_ready);
-  __syncthreads();
-  phase(stamp++);                             // prologue: P, x, W in
+  cp_async_commit();
 
-  // 2. The recompute, layer by layer: a_l = h_l W_l for this CTA's rows
+  // 2. While they land: the band's pads (n <= i < ps in each column, and
+  //    the tail from column `own` to the slack's end) zeroed, since the
+  //    products read K and M there and must find finite values; a^T and da
+  //    zeroed, so that their pads stay exact zeros; with one CTA, dz^T
+  //    (with a cluster the partial P a lives there until the recompute
+  //    ends). Then a_0 = h_0 W_0, and only then the wait for P.
+  if (ps > n) {
+    for (int idx = tid; idx < own * (ps - n); idx += nthr) {
+      const int j = idx / (ps - n);
+      pt[j * ps + n + idx - j * (ps - n)] = 0.f;
+    }
+  }
+  zero(pt + own * ps, p.off_dz - own * ps);
+  zero(at, p.off_ht - p.off_at);
+  zero(da, rows * das);
+  if (cl == 1) fill_dz(false);
+  cp_async_wait<1>();                         // the weights and x, not P
+  __syncthreads();
+  phase(stamp++);                             // prologue: P queued; W, x, pads, g in
+
+  // 3. The recompute, layer by layer: a_l = h_l W_l for this CTA's rows
   //    (into a^T), then z_l = P a_l + b_l. A relu'd z is h_{l+1} (into h^T);
-  //    the last layer's goes to da's space, where it waits for the mask of
-  //    dz_{L-1}.
+  //    the last layer's gives only the mask of dz_{L-1}: applied to g's
+  //    slice in dz^T at once with one CTA, else staged in da.
+  const int last = L - 1;
   for (int l = 0; l < L; ++l) {
     const int fp = p.fout_p[l];
     const float* wl = smem + p.off_w[l];
     const float* bl = smem + p.off_b[l];
     float* at_l = at + p.dz_off[l] * ats;
-    product<true, true>(own, fp, p.dims[l], ht + p.h_off[l] * ats, 1, ats,
-                        wl, fp, 1, [&](int m0, int n0, float (&acc)[4][4]) {
+    product<4, 4, 4, false, 4, false>(
+        own, fp, p.dims[l], ht + p.h_off[l] * ats, ats, wl, fp, 0, nthr,
+        kASplit, [&](int m0, int n0, float (&acc)[4][4]) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (m0 + r >= own) continue;
@@ -383,39 +573,63 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
     });
     __syncthreads();
     phase(stamp++);                           // recompute: a_l
-    const bool last = l == L - 1;
-    float* h_next = last ? nullptr : ht + p.h_off[l + 1] * ats;
+    if (l == 0) {
+      cp_async_wait<0>();
+      if (p.copy_bulk) mbar_wait_phase0(&p_ready);
+      __syncthreads();
+      phase(stamp++);                         // wait on P
+    }
+    float* h_next = l == last ? nullptr : ht + p.h_off[l + 1] * ats;
+    float* dz_last = dzt + p.dz_off[last] * dts;
     const int fout = p.dims[l + 1];
     auto store_h = [&](int j, int c, float z) {
       const float h = fmaxf(z + bl[c], 0.f);
-      if (last) da[j * das + c] = h;
+      if (l == last) da[j * das + c] = h;
       else h_next[c * ats + j] = h;
     };
-    product<true, false>(n, fp, own, pt, 1, ps, at_l, 1, ats,
-                         [&](int m0, int n0, float (&acc)[4][4]) {
+    auto z_epi = [&](int m0, int n0, auto& acc) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if (m0 + r >= n) continue;
+      for (int r = 0; r < static_cast<int>(sizeof(acc) / sizeof(acc[0])); ++r) {
+        const int i = m0 + r;
+        if (i >= n) continue;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          if (cl > 1) part[(m0 + r) * hmax + n0 + c] = acc[r][c];
-          else if (n0 + c < fout) store_h(m0 + r, n0 + c, acc[r][c]);
+          const int col = n0 + c;
+          if (col >= fout) continue;
+          if (cl > 1) {
+            part[i * hmax + col] = acc[r][c];
+          } else if (l == last) {
+            if (!(acc[r][c] + bl[col] > 0.f)) dz_last[col * dts + i] = 0.f;
+          } else {
+            store_h(i, col, acc[r][c]);
+          }
         }
       }
-    });
+    };
+    p_product<false>(p_vec4, n, fp, own, pt, ps, at_l, ats, nthr, z_epi);
     if (cl > 1) {
       // h_{l+1} of this CTA's rows: every CTA's partial for them, summed
-      // in rank order through distributed shared memory
+      // in rank order through distributed shared memory, kGather values
+      // of a thread read before any is stored
       cluster_sync();
-      for (int idx = tid; idx < own * fout; idx += nthr) {
-        const int j = idx / fout;
-        const int c = idx - j * fout;
-        const int at_i = (r0 + j) * hmax + c;
-        float z = 0.f;
-        for (int q = 0; q < cl; ++q) {
-          z += (q == rank ? part : peer_ptr(part, q))[at_i];
+      const int count = own * fout;
+      for (int base = 0; base < count; base += kGather * nthr) {
+        float z[kGather];
+#pragma unroll
+        for (int k = 0; k < kGather; ++k) {
+          const int idx = base + k * nthr + tid;
+          z[k] = 0.f;
+          if (idx >= count) continue;
+          const int at_i = (r0 + idx / fout) * hmax + idx % fout;
+          for (int q = 0; q < cl; ++q) {
+            z[k] += (q == rank ? part : peer_ptr(part, q))[at_i];
+          }
         }
-        store_h(j, c, z);
+#pragma unroll
+        for (int k = 0; k < kGather; ++k) {
+          const int idx = base + k * nthr + tid;
+          if (idx < count) store_h(idx / fout, idx % fout, z[k]);
+        }
       }
       cluster_sync();   // no CTA reads a peer's partial after this
     } else {
@@ -423,66 +637,61 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
     }
     phase(stamp++);                           // recompute: z_l, h_{l+1}
   }
-
-  // 3. dz^T zeroed (its pad rows stay 0: dP's product runs over them),
-  //    then this CTA's rows of every layer set to g's slice of that layer:
-  //    g's rows of this CTA are one block, read once with kGather loads of
-  //    each thread in flight together (the epilogues below read it from
-  //    here). dz_{L-1} is that slice where z_{L-1} > 0.
-  for (int idx = tid; idx < p.tot_p * dts; idx += nthr) dzt[idx] = 0.f;
-  __syncthreads();
-  {
-    const int count = own * p.total;
-    for (int base = 0; base < count; base += kGather * nthr) {
-      float v[kGather];
-#pragma unroll
-      for (int k = 0; k < kGather; ++k) {
-        const int e = base + k * nthr + tid;
-        v[k] = e < count ? g_s[e] : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < kGather; ++k) {
-        const int e = base + k * nthr + tid;
-        if (e >= count) continue;
-        const int j = e / p.total;
-        const int col = e - j * p.total;
-        int l = 0;
-        while (l + 1 < L && col >= p.out_off[l + 1]) ++l;
-        dzt[(p.dz_off[l] + col - p.out_off[l]) * dts + r0 + j] = v[k];
-      }
-    }
-  }
-  __syncthreads();
-  {
-    const int hl = p.dims[L];
-    float* dz_l = dzt + p.dz_off[L - 1] * dts + r0;
-    for (int idx = tid; idx < own * hl; idx += nthr) {
-      const int j = idx / hl;
-      const int c = idx - j * hl;
-      if (!(da[j * das + c] > 0.f)) dz_l[c * dts + j] = 0.f;
-    }
+  // With a cluster, dz^T is free only now.
+  if (cl > 1) {
+    fill_dz(true);
+    __syncthreads();
   }
   phase(stamp++);                             // g into dz^T, dz_{L-1}
 
-  // 4. Layer by layer, last first.
+  // 4. Layer by layer, last first: da_l (and db_l) in one pass, dW_l and
+  //    e_l in the next.
   float* slot = sa.ws ? sa.ws + (sample * cl + rank) * p.wsz : nullptr;
   for (int l = L - 1; l >= 0; --l) {
     const int fin = p.dims[l], fout = p.dims[l + 1], fp = p.fout_p[l];
     float* dz_l = dzt + p.dz_off[l] * dts;
     if (cl > 1) {
-      // the other CTAs' rows of dz_l, through distributed shared memory
+      // the other CTAs' rows of dz_l, through distributed shared memory,
+      // kGather values of a thread read before any is stored
       cluster_sync();
-      for (int idx = tid; idx < fout * n; idx += nthr) {
-        const int c = idx / n;
-        const int i = idx - c * n;
-        const int q = i / rows;
-        if (q != rank) dz_l[c * dts + i] = peer_ptr(dz_l, q)[c * dts + i];
+      const int count = fout * n;
+      for (int base = 0; base < count; base += kGather * nthr) {
+        float v[kGather];
+#pragma unroll
+        for (int k = 0; k < kGather; ++k) {
+          const int idx = base + k * nthr + tid;
+          const int at_i = idx / n * dts + idx % n;
+          const int q = idx % n / rows;
+          v[k] = idx < count && q != rank ? peer_ptr(dz_l, q)[at_i] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kGather; ++k) {
+          const int idx = base + k * nthr + tid;
+          if (idx < count && idx % n / rows != rank) {
+            dz_l[idx / n * dts + idx % n] = v[k];
+          }
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
-    if (slot) {   // db_l: this CTA's rows, a warp a column
+    phase(stamp++);                           // gather dz_l
+    // da_l = P^T dz_l for this CTA's rows (da's pad columns get 0: dz^T's
+    // pad rows are zeros)
+    auto da_epi = [&](int m0, int n0, auto& acc) {
+#pragma unroll
+      for (int r = 0; r < static_cast<int>(sizeof(acc) / sizeof(acc[0])); ++r) {
+        if (m0 + r >= own) continue;
+        *reinterpret_cast<float4*>(da + (m0 + r) * das + n0) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      }
+    };
+    p_product<true>(p_vec4, own, fp, n, pt, ps, dz_l, dts, nthr, da_epi);
+    if (slot) {
+      // db_l over this CTA's rows, a warp a column, from the last warp
+      // down: the warps past da's tiles take it at once
       const int lane = tid & 31;
-      for (int c = tid >> 5; c < fout; c += nthr >> 5) {
+      const int warps = nthr >> 5;
+      for (int c = warps - 1 - (tid >> 5); c < fout; c += warps) {
         float s = 0.f;
         for (int j = lane; j < own; j += 32) s += dz_l[c * dts + r0 + j];
 #pragma unroll
@@ -490,24 +699,27 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
         if (lane == 0) slot[p.ws_off[l] + fin * fout + c] = s;
       }
     }
-    phase(stamp++);                           // gather dz_l, db_l
-    // da_l = P^T dz_l for this CTA's rows
-    product<false, false>(own, fp, n, pt, ps, 1, dz_l, 1, dts,
-                          [&](int m0, int n0, float (&acc)[4][4]) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if (m0 + r >= own) continue;
-        *reinterpret_cast<float4*>(da + (m0 + r) * das + n0) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      }
-    });
     __syncthreads();
-    phase(stamp++);                           // da_l
+    phase(stamp++);                           // da_l, db_l
+    // One pass: dW_l = h_l^T da_l over this CTA's rows on the first
+    // threads, as many warps as its tiles and K split take (at most half),
+    // and on the rest e_l = da_l W_l^T: dx for l = 0; else, with g's slice
+    // of layer l - 1 (in dz^T) and h_l's mask, dz_{l-1} of this CTA's rows.
     const float* h_l = ht + p.h_off[l] * ats;
-    if (slot) {   // dW_l = h_l^T da_l over this CTA's rows
+    const bool want_e = l > 0 || sa.dx;
+    int span_w = 0;
+    if (slot) {
+      span_w = nthr;
+      if (want_e) {
+        const int tiles = ((fin + 3) >> 2) * ((fout + 3) >> 2);
+        const int work =
+            tiles << ksplit_log2(tiles, (own + 3) >> 2, nthr >> 1, kWSplit);
+        span_w = min(nthr >> 1, (work + 31) & ~31);
+      }
       float* dw = slot + p.ws_off[l];
-      product<false, true>(fin, fout, own, h_l, ats, 1, da, das, 1,
-                           [&](int m0, int n0, float (&acc)[4][4]) {
+      product<4, 4, 4, true, 4, false>(
+          fin, fout, own, h_l, ats, da, das, 0, span_w, kWSplit,
+                                       [&](int m0, int n0, float (&acc)[4][4]) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
 #pragma unroll
@@ -519,15 +731,13 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
         }
       });
     }
-    phase(stamp++);                           // dW_l
-    // e_l = da_l W_l^T: dx for l = 0; else, with g's slice of layer l - 1
-    // (in dz^T since step 3) and h_l's mask, dz_{l-1} of this CTA's rows
-    if (l > 0 || sa.dx) {
+    if (want_e) {
       const float* wl = smem + p.off_w[l];
       float* dz_prev = dzt + p.dz_off[l > 0 ? l - 1 : 0] * dts + r0;
       float* dx_s = l > 0 ? nullptr : sa.dx + (sample * n + r0) * fin;
-      product<false, false>(own, fin, fout, da, das, 1, wl, 1, fp,
-                            [&](int m0, int n0, float (&acc)[4][4]) {
+      product<4, 4, 4, true, 4, true>(
+          own, fin, fout, da, das, wl, fp, span_w, nthr - span_w, kESplit,
+                                      [&](int m0, int n0, float (&acc)[4][4]) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int j = m0 + r;
@@ -546,20 +756,22 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
       });
     }
     __syncthreads();
-    phase(stamp++);                           // e_l: dz_{l-1} or dx
+    phase(stamp++);                           // dW_l and e_l: dz_{l-1} or dx
   }
 
   // 5. dP's columns of this CTA's band: dP[i][r0 + j] = sum_c a[r0 + j][c]
-  //    dz[i][c], over every layer's columns at once, staged in the band's
-  //    space (P is not read again: stage[j * n + i]), then written with
-  //    coalesced stores: in the transposed layout one block of own * n
-  //    values, 16 bytes a store where it is aligned.
+  //    dz[i][c], over every layer's columns at once (the pad rows of a^T
+  //    and dz^T are zeros), staged in the band's space (P is not read
+  //    again: stage[j * n + i]), then written with coalesced stores: in the
+  //    transposed layout one block of own * n values, 16 bytes a store
+  //    where it is aligned.
   if (sa.dprop) {
     float* stage = pt;
-    product<true, true>(own, n, p.tot_p, at, 1, ats, dzt, dts, 1,
-                        [&](int m0, int n0, float (&acc)[4][4]) {
+    product<8, 4, 4, false, 4, false>(
+        own, n, p.tot_p, at, ats, dzt, dts, 0, nthr, kDSplit,
+        [&](int m0, int n0, float (&acc)[8][4]) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < 8; ++r) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           if (m0 + r < own && n0 + c < n) {
@@ -569,7 +781,10 @@ gcn_stack_backward_kernel(const __grid_constant__ BackwardArgs a) {
       }
     });
     __syncthreads();
-    phase(stamp++);                           // dP
+  }
+  phase(stamp++);                             // dP
+  if (sa.dprop) {
+    float* stage = pt;
     const long long at_v = (sample * n + r0) * n;
     const int count = own * n;
     if (!p.p_transposed) {
@@ -642,7 +857,7 @@ int gcn_stack_backward(const BackwardPlan* plan, const float* prop,
                        float* wgrad, int batch, int device, void* stream) {
   const BackwardPlan& p = *plan;
   if (batch < 0 || p.num_layers < 1 || p.num_layers > kMaxLayers ||
-      p.threads < 32 || p.threads > kMaxThreads || p.threads % 32 != 0 ||
+      p.threads < 64 || p.threads > kMaxThreads || p.threads % 64 != 0 ||
       p.cluster < 1 || p.cluster > kMaxCluster || p.ps % 2 != 0 ||
       p.group < 1 || batch % p.group != 0 || (ws == nullptr) != (wgrad == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -419,7 +419,8 @@ class BackwardPlan:
     rows: int
     threads: int
     smem_bytes: int
-    ps: int                   # column stride of P's band (even)
+    ps: int                   # column stride of P's band (even; read in
+    #                           16-byte vectors where it is a multiple of 4)
     tot_p: int                # sum of fout_p: rows of dz^T and a^T
     hmax: int                 # widest fout_p
     dts: int                  # row stride of dz^T: N rounded up to 8, + 4
@@ -453,8 +454,9 @@ def _backward_plan_for(n: int, dims: Tuple[int, ...], cluster: int
     h_rows = h_off[-1] + _ceil(dims[-2], 4)
     tot_p, hmax = sum(fout_p), max(fout_p)
     ps = _ceil(n, 2)
-    # strides of 4 (mod 8) floats: the lanes of a warp that read one
-    # operand's neighbouring rows reach different banks
+    # strides of 4 (mod 8) floats: rows 16-byte aligned for the products'
+    # vector reads, and two 4-row tiles read by one quarter-warp reach
+    # different banks (a K split's lanes read consecutive 16-byte chunks)
     dts, ats = _ceil(n, TILE_ROWS) + 4, rows + 4
     das = hmax + 4 if hmax % 8 == 0 else hmax
     off_dz = rows * ps + 8                 # the band, and slack for pad rows
@@ -505,6 +507,86 @@ def plan_backward(b: int, n: int, dims: Sequence[int]) -> BackwardPlan:
         raise ValueError(f"a batch of {b} takes {b * plan.cluster} CTAs; one "
                          "launch takes 0 to 2**31 - 1")
     return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardProduct:
+    """One product of the backward kernel as its `product<>` runs it,
+    offsets in floats from the start of shared memory: C(m, n) = sum_k
+    A(m, k) B(k, n) for m < mn, n < nn, k < kn, in tm x tn register tiles,
+    K read in chunks of 4 (so up to the next multiple of 4). A(m, k) is
+    smem[a + m * a_stride + k] where `a_k` (contiguous in k), else
+    smem[a + k * a_stride + m], read `a_vec` floats at a time along the
+    contiguous dimension; B(k, n) is smem[b + n * b_stride + k] where
+    `b_k`, else smem[b + k * b_stride + n], `b_vec` at a time. A tile's
+    rows past mn (`a_k`) and columns past nn (`b_k`) read row mn - 1 and
+    column nn - 1 again; otherwise reads run to the tile's edge."""
+    name: str                 # a, z (recompute); da, dW, e (backward); dP
+    layer: int                # -1 for dP
+    tm: int
+    tn: int
+    mn: int
+    nn: int
+    kn: int
+    a: int
+    a_stride: int
+    a_k: bool
+    a_vec: int
+    b: int
+    b_stride: int
+    b_k: bool
+    b_vec: int
+
+    @property
+    def fmas(self) -> int:
+        """FMAs its tiles run, pads included."""
+        return (_ceil(self.mn, self.tm) * _ceil(self.nn, self.tn)
+                * _ceil(self.kn, 4))
+
+
+# the backward's P-products (z = P a, da = P^T dz) take 8 x 4 register
+# tiles where their K is at least this long, else 4 x 4 (kDeepK)
+P_DEEP_K = 128
+
+
+def _p_rows(k: int) -> int:
+    return 8 if k >= P_DEEP_K else 4
+
+
+def backward_products(plan: BackwardPlan, n: int, dims: Sequence[int],
+                      rank: int = 0) -> List[BackwardProduct]:
+    """The products CTA `rank` of a cluster runs in the backward kernel,
+    in the order it runs them: per layer the recompute's a = h W and
+    z = P a; per layer, last first, da = P^T dz, dW = h^T da and
+    e = da W^T; then dP = A^T DZ. P's band is read 4 floats at a time
+    where its column stride allows, else 2; the P-products' tiles have 8
+    rows where their K is at least `P_DEEP_K`, else 4."""
+    own = min(n, (rank + 1) * plan.rows) - rank * plan.rows
+    pv = 4 if plan.ps % 4 == 0 else 2
+    ats, dts = plan.ats, plan.dts
+    out = []
+    for l, fp in enumerate(plan.fout_p):
+        at_l = plan.off_at + plan.dz_off[l] * ats
+        out += [BackwardProduct("a", l, 4, 4, own, fp, dims[l],
+                                plan.off_ht + plan.h_off[l] * ats, ats, False,
+                                4, plan.off_w[l], fp, False, 4),
+                BackwardProduct("z", l, _p_rows(own), 4, n, fp, own, 0,
+                                plan.ps, False, pv, at_l, ats, True, 4)]
+    for l in reversed(range(len(plan.fout_p))):
+        fin, fout, fp = dims[l], dims[l + 1], plan.fout_p[l]
+        out += [BackwardProduct("da", l, _p_rows(n), 4, own, fp, n, 0,
+                                plan.ps, True, pv,
+                                plan.off_dz + plan.dz_off[l] * dts, dts, True,
+                                4),
+                BackwardProduct("dW", l, 4, 4, fin, fout, own,
+                                plan.off_ht + plan.h_off[l] * ats, ats, True,
+                                4, plan.off_da, plan.das, False, 4),
+                BackwardProduct("e", l, 4, 4, own, fin, fout, plan.off_da,
+                                plan.das, True, 4, plan.off_w[l], fp, True, 4)]
+    out.append(BackwardProduct("dP", -1, 8, 4, own, n, plan.tot_p,
+                               plan.off_at, ats, False, 4, plan.off_dz, dts,
+                               False, 4))
+    return out
 
 
 class _CPlan(ctypes.Structure):

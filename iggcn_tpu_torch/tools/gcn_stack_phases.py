@@ -15,14 +15,34 @@ persistent kernel at each K split its plan may choose, beside the fp32
 form (`ksplit_sweep`). Then the backward kernel
 (`csrc/gcn_stack_backward.cu`, stamped the same way) at the training
 shapes: each phase's mean over the CTAs, from the prologue through the
-recompute, each layer's backward steps and dP (`run_backward_phases`).
-Needs a CUDA card:
+recompute, each layer's backward steps and dP, with each P-product's FMAs
+per SM clock (`run_backward_phases`). Needs a CUDA card:
 
     python -m iggcn_tpu_torch.tools.gcn_stack_phases
+    python -m iggcn_tpu_torch.tools.gcn_stack_phases --backward
+    python -m iggcn_tpu_torch.tools.gcn_stack_phases --backward-turns DIR
+
+`--backward` stamps the backward kernel only. `--backward-turns DIR`
+first times the backward wrapper of the checkout unpacked at DIR (an
+earlier commit, its sources built there) beside this one's, in turns in
+fresh processes (DIR, this, this, DIR; warm and cold), and prints DIR's
+own backward stamps, then this one's. `--backward-variants NAME=CONST:
+VALUE,... ...` builds variants of the backward kernel with its integer
+constants (tiles, K splits) set otherwise (`NAME=@DIR`: DIR's backward
+source as it is), checks each against the plain version (and prints its
+error against float64), times them in turns and prints their stamps side
+by side, e.g.
+
+    python -m iggcn_tpu_torch.tools.gcn_stack_phases --backward-variants \
+        as-is= deep64=kDeepK:64 split2=kPSplit:2
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import json
+import os
+import re
 import subprocess
 import sys
 
@@ -93,17 +113,35 @@ BACKWARD_SHAPES = [("training", 32, 90, 3, (16, 16)),
 
 def backward_phase_names(layers):
     """The backward kernel's phases, one per pair of consecutive slots, in
-    the order it stamps them."""
-    out = ["prologue: P, x, W in"]
-    for l in range(layers):
+    the order it stamps them: P's copy queued first and waited for after
+    a_0, each layer's da with db, then its dW and e in one pass."""
+    out = ["prologue: P queued; W, x, pads (+ g, one CTA) in",
+           "recompute layer 0: a = h W", "prologue: wait on P",
+           "recompute layer 0: z = P a + b (+ cluster sum)"]
+    for l in range(1, layers):
         out += [f"recompute layer {l}: a = h W", f"recompute layer {l}: "
                 "z = P a + b (+ cluster sum)"]
     out.append("g into dz^T, dz of the last layer")
     for l in reversed(range(layers)):
-        out += [f"backward layer {l}: gather dz (cluster), db",
-                f"backward layer {l}: da = P^T dz", f"backward layer {l}: dW",
-                f"backward layer {l}: e = da W^T (dz or dx)"]
+        out += [f"backward layer {l}: gather dz (cluster)",
+                f"backward layer {l}: da = P^T dz, db",
+                f"backward layer {l}: dW, e = da W^T (dz or dx), one pass"]
     return out + ["dP = DZ A^T", "dP stored", "final cluster barrier"]
+
+
+def backward_p_products(plan, n, dims):
+    """{phase name: FMAs that CTA 0 runs there} for the P-products (the
+    design's count: its tiles, pads included)."""
+    out = {}
+    for spec in gcn_stack.backward_products(plan, n, dims):
+        if spec.name == "z":
+            out[f"recompute layer {spec.layer}: z = P a + b (+ cluster sum)"] = \
+                spec.fmas
+        elif spec.name == "da":
+            out[f"backward layer {spec.layer}: da = P^T dz, db"] = spec.fmas
+        elif spec.name == "dP":
+            out["dP = DZ A^T"] = spec.fmas
+    return out
 
 
 def _stamped(source, declare, stamps):
@@ -256,9 +294,24 @@ def run_phases(dev):
                       f"{(clk[:, s1] - clk[:, s0]).mean():9.0f} cycles")
 
 
+def _backward_stamps(lib, ctas):
+    """(ns, clk), each (ctas, BACKWARD_SLOTS): the stamped backward
+    kernel's stamps of its last launch."""
+    ns = np.zeros(ctas * BACKWARD_SLOTS, np.uint64)
+    clk = np.zeros(ctas * BACKWARD_SLOTS, np.int64)
+    code = lib.gcn_stack_backward_phase_stamps(ns.ctypes.data, clk.ctypes.data,
+                                               ctas)
+    if code:
+        raise RuntimeError(lib.gcn_stack_backward_error_string(code).decode())
+    return (ns.reshape(ctas, BACKWARD_SLOTS).astype(np.int64),
+            clk.reshape(ctas, BACKWARD_SLOTS))
+
+
 def run_backward_phases(dev):
     """The stamped backward kernel at `BACKWARD_SHAPES`: each phase's mean
-    duration over the CTAs, the per-CTA span and the launch's span."""
+    duration over the CTAs, the per-CTA span and the launch's span, and
+    for each P-product the FMAs per SM clock (one CTA an SM at B=32: the
+    design's FMA count over the phase's mean clock64 cycles)."""
     source = gcn_stack.BACKWARD_SOURCE
     lib = _stamped(source, gcn_stack.declare_backward,
                    "gcn_stack_backward_phase_stamps")
@@ -275,17 +328,9 @@ def run_backward_phases(dev):
         for _ in range(4):
             gcn_stack._launch_backward(*args, cot, (True, True, True))
         torch.cuda.synchronize()
-        ctas = b * plan.cluster
-        ns = np.zeros(ctas * BACKWARD_SLOTS, np.uint64)
-        clk = np.zeros(ctas * BACKWARD_SLOTS, np.int64)
-        code = lib.gcn_stack_backward_phase_stamps(ns.ctypes.data,
-                                                   clk.ctypes.data, ctas)
-        if code:
-            raise RuntimeError(lib.gcn_stack_backward_error_string(code)
-                               .decode())
-        ns = ns.reshape(ctas, BACKWARD_SLOTS).astype(np.int64)
-        clk = clk.reshape(ctas, BACKWARD_SLOTS)
+        ns, clk = _backward_stamps(lib, b * plan.cluster)
         names = backward_phase_names(len(widths))
+        fmas = backward_p_products(plan, n, (f0, *widths))
         last = len(names)
         print(f"backward {name}: B={b} N={n} F0={f0} H={widths}, cluster "
               f"{plan.cluster}, {plan.threads} threads, {plan.smem_bytes} B; "
@@ -293,21 +338,241 @@ def run_backward_phases(dev):
               f"us, per-CTA {(ns[:, last] - ns[:, 0]).mean() / 1e3:.2f} us "
               "(mean)")
         for k, label in enumerate(names):
-            print(f"  {label:<48s} "
+            cycles = (clk[:, k + 1] - clk[:, k]).mean()
+            rate = (f"  {fmas[label] / cycles:6.1f} FMA/clk ({fmas[label]} FMA)"
+                    if label in fmas and cycles > 0 else "")
+            print(f"  {label:<56s} "
                   f"{(ns[:, k + 1] - ns[:, k]).mean() / 1e3:8.3f} us "
-                  f"{(clk[:, k + 1] - clk[:, k]).mean():9.0f} cycles")
+                  f"{cycles:9.0f} cycles{rate}")
 
 
-def main() -> int:
+def _cold_ms(fn, flush, runs=25):
+    """Median device ms of one call of `fn` with L2 cold: the card writes
+    all of `flush` before each call, outside the events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    marks = []
+    torch.cuda._sleep(20_000_000)
+    for _ in range(runs):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(e) for a, e in marks]))
+
+
+def time_backward(dev):
+    """One JSON line per `BACKWARD_SHAPES` shape: the backward wrapper's
+    warm and cold device ms (its kernel and the per-set sum), for the
+    package this process imports."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(3)
+    for name, b, n, f0, widths in BACKWARD_SHAPES:
+        args = _inputs(rng, b, n, f0, widths, dev)
+        cot = torch.randn(b, n, sum(widths), device=dev)
+
+        def fn():
+            return gcn_stack._launch_backward(*args, cot, (True, True, True))
+        print(json.dumps({"shape": name, "B": b, "N": n,
+                          "warm_ms": _device_ms(fn),
+                          "cold_ms": _cold_ms(fn, flush)}), flush=True)
+
+
+def _flat(grads):
+    """(dprop, dx, dweights, dbiases) as one list."""
+    return [grads[0], grads[1], *grads[2], *grads[3]]
+
+
+def _stamp_means(lib, plan, b, layers):
+    """Mean duration (us) over the CTAs of each backward phase of the last
+    launch of `lib`, and of the whole CTA."""
+    ns, _ = _backward_stamps(lib, b * plan.cluster)
+    last = len(backward_phase_names(layers))
+    return [(ns[:, k + 1] - ns[:, k]).mean() / 1e3 for k in range(last)] + [
+        (ns[:, last] - ns[:, 0]).mean() / 1e3]
+
+
+def backward_variants(specs, dev):
+    """Variants of the backward kernel, each `NAME=CONST:VALUE,...`: the
+    integer constants CONST of csrc/gcn_stack_backward.cu set to VALUE
+    (none: the source as it is), or `NAME=@DIR`: the backward source of the
+    checkout at DIR as it is (same C interface; no stamps). Each is built
+    (plain and stamped, into iggcn_tpu_torch/_build/variants), held against
+    the plain version at `BACKWARD_SHAPES` (rtol / atol 1e-4, two runs
+    bit-equal), its gradients' relative L2 error against the plain version
+    in float64 printed, timed warm in turns (every variant, then in reverse
+    order; the mean of the two) and stamped; prints ptxas's register and
+    spill line of each."""
+    text = open(os.path.join(cuda_build.CSRC_DIR,
+                             gcn_stack.BACKWARD_SOURCE)).read()
+    out = os.path.join(cuda_build.BUILD_DIR, "variants")
+    os.makedirs(out, exist_ok=True)
+    procs, other = {}, set()
+    for spec in specs:
+        name, _, sets = spec.partition("=")
+        src = text
+        if sets.startswith("@"):
+            other.add(name)
+            with open(os.path.join(sets[1:], "iggcn_tpu_torch", "csrc",
+                                   gcn_stack.BACKWARD_SOURCE)) as fh:
+                src, sets = fh.read(), ""
+        for item in filter(None, sets.split(",")):
+            const, value = item.split(":")
+            src, hits = re.subn(rf"constexpr int {const} = -?\d+;",
+                                f"constexpr int {const} = {int(value)};", src)
+            if hits != 1:
+                raise ValueError(f"{name}: no constant {const} in the source")
+        path = os.path.join(out, f"{name}.cu")
+        with open(path, "w") as fh:
+            fh.write(src)
+        for flags in ((), ("-DGCN_STACK_PHASES",))[:1 if name in other else 2]:
+            lib = os.path.join(out, f"{name}{'-stamped' if flags else ''}.so")
+            procs[(name, bool(flags))] = (lib, subprocess.Popen(
+                [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o",
+                 lib, path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    libs = {}
+    for (name, stamped), (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        lib = gcn_stack.declare_backward(ctypes.CDLL(path))
+        if stamped:
+            lib.gcn_stack_backward_phase_stamps.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+            lib.gcn_stack_backward_phase_stamps.restype = ctypes.c_int
+        else:
+            print(f"variant {name}: " + "; ".join(
+                line.strip() for line in log.splitlines()[-6:]
+                if "registers" in line or "spill" in line))
+        libs[(name, stamped)] = lib
+    names = [spec.partition("=")[0] for spec in specs]
+    rng = np.random.default_rng(4)
+    for shape, b, n, f0, widths in BACKWARD_SHAPES:
+        args = _inputs(rng, b, n, f0, widths, dev)
+        cot = torch.randn(b, n, sum(widths), device=dev)
+        plan = gcn_stack.plan_backward(b, n, (f0, *widths))
+        want = _flat(gcn_stack.gcn_stack_backward_reference(*args, cot))
+        prop, x, ws, bs = args
+        exact = _flat(gcn_stack.gcn_stack_backward_reference(
+            prop.cpu().double(), x.cpu().double(),
+            [w.cpu().double() for w in ws], [v.cpu().double() for v in bs],
+            cot.cpu().double()))
+
+        def run():
+            return gcn_stack._launch_backward(*args, cot, (True, True, True))
+        times, stamps = {}, {}
+        for name in names + names[::-1]:
+            gcn_stack._backward_lib = libs[(name, False)]
+            if name not in times:
+                got, again = _flat(run()), _flat(run())
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                close = all(torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+                            for g, w in zip(got, want))
+                same = all(torch.equal(g, r) for g, r in zip(got, again))
+                rel = [float((g.cpu().double() - e).norm() / e.norm())
+                       for g, e in zip(got, exact)]
+                print(f"variant {name}, backward {shape}: max_abs_err "
+                      f"{err:.3e}, within 1e-4 {close}, bit-equal twice "
+                      f"{same}; relative L2 error against float64: dP "
+                      f"{rel[0]:.3e}, dx {rel[1]:.3e}, dW/db up to "
+                      f"{max(rel[2:]):.3e}")
+                if not (close and same):
+                    raise AssertionError(f"variant {name} is wrong at {shape}")
+            times.setdefault(name, []).append(_device_ms(run))
+        stamped = [name for name in names if name not in other]
+        for name in stamped:
+            gcn_stack._backward_lib = libs[(name, True)]
+            for _ in range(4):
+                run()
+            torch.cuda.synchronize()
+            stamps[name] = _stamp_means(libs[(name, True)], plan, b,
+                                        len(widths))
+        print(f"variants, backward {shape}: B={b} N={n} F0={f0} H={widths}, "
+              "warm ms (mean of 2 in turns): " + ", ".join(
+                  f"{name} {np.mean(times[name]):.5f}" for name in names))
+        print("  " + " " * 56 + " ".join(f"{name:>9s}" for name in stamped))
+        for k, label in enumerate(backward_phase_names(len(widths))
+                                  + ["per CTA"]):
+            print(f"  {label:<56s} " + " ".join(
+                f"{stamps[name][k]:9.3f}" for name in stamped))
+
+
+def backward_turns(other):
+    """The backward wrapper of the checkout at `other` (its own sources,
+    built there) and of this one, timed in turns in fresh processes:
+    other, this, this, other; then the stamps of the other's own
+    `run_backward_phases` (its phase names). Prints each process's times
+    and each side's mean."""
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    other = os.path.abspath(other)
+    results = {}
+    for root in (other, here, here, other):
+        env = dict(os.environ, PYTHONPATH=root)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--time-backward"], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode:
+            raise RuntimeError(f"timing in {root} failed:\n{out.stderr}")
+        side = "this" if root == here else "other"
+        for line in out.stdout.splitlines():
+            row = json.loads(line)
+            print(f"{side} ({root}): backward {row['shape']} B={row['B']} "
+                  f"N={row['N']}: {row['warm_ms']:.5f} ms warm, "
+                  f"{row['cold_ms']:.5f} cold")
+            results.setdefault((row["shape"], side), []).append(row)
+    for (shape, side), rows in results.items():
+        print(f"mean of {len(rows)}, {side}: backward {shape}: "
+              f"{np.mean([r['warm_ms'] for r in rows]):.5f} ms warm, "
+              f"{np.mean([r['cold_ms'] for r in rows]):.5f} cold")
+    stamps = subprocess.run(
+        [sys.executable, "-c", "import torch; from iggcn_tpu_torch.tools."
+         "gcn_stack_phases import run_backward_phases; "
+         "run_backward_phases(torch.device('cuda', 0))"],
+        cwd=other, env=dict(os.environ, PYTHONPATH=other),
+        capture_output=True, text=True, timeout=900)
+    print(f"stamps of {other}:\n{stamps.stdout}{stamps.stderr}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--backward", action="store_true",
+                        help="only the backward kernel's stamps")
+    parser.add_argument("--backward-turns", metavar="CHECKOUT",
+                        help="time the backward beside CHECKOUT's, in turns")
+    parser.add_argument("--backward-variants", nargs="+",
+                        metavar="NAME=CONST:VALUE,...",
+                        help="variants of the backward kernel's constants "
+                             "(or NAME=@DIR: DIR's backward source), "
+                             "checked, timed in turns and stamped")
+    parser.add_argument("--time-backward", action="store_true",
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("gcn_stack_phases: needs a CUDA card", file=sys.stderr)
         return 1
+    dev = torch.device("cuda", 0)
+    if args.time_backward:
+        time_backward(dev)
+        return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
-    run_phases(torch.device("cuda", 0))
-    ksplit_sweep(torch.device("cuda", 0))
-    run_backward_phases(torch.device("cuda", 0))
+    if args.backward_turns:
+        backward_turns(args.backward_turns)
+    if args.backward_variants:
+        backward_variants(args.backward_variants, dev)
+    if not (args.backward or args.backward_turns or args.backward_variants):
+        run_phases(dev)
+        ksplit_sweep(dev)
+    run_backward_phases(dev)
     return 0
 
 
