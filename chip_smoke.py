@@ -211,6 +211,24 @@ failure propagates and the script exits non-zero:
      cohort, with the three walls. It says in one line that `--plot` and
      `data/cluster.py` are not run on the card (no matplotlib or
      scikit-learn there).
+ 17. the streamed form (`csrc/gcn_stack_streamed.cu`), which takes every
+     shape the resident kernels cannot hold; no earlier phase may have
+     run it. Against its plain versions, each call twice and bit-equal,
+     with the counters showing the streamed form where the plan streams
+     and the resident kernels where it does not: the fp32 forward in
+     both P layouts (rtol 1e-4 / atol 1e-5) and the backward, all four
+     gradients (rtol/atol 1e-4), at `STREAMED_SHAPES` (N=90 at 2 and 3
+     layers of 128 and at 9 of 16, N=270 at 3 of 32 and 1 of 64, N=620
+     at 3 of 32); the grouped form at 5 x 32 x (90, 3, 3 x 128); the bf16
+     form at `STREAMED_BF16`. Warm and cold times of the forward and the
+     backward at the flagship's (32, 90, 3, 3 x 128) and the zoo's (32,
+     620, 3, 3 x 32) beside the plain versions, the library yardsticks
+     and the bounds. Then three CLI routes, 1 epoch each, with the loop's
+     launches split over the forms and six card steps against the CPU
+     under phase 7's rules: the flagship `--layers 3 --hiddens 128`,
+     `--isMultiFusion --layers 3 --hiddens 32`, and the zoo's `--model
+     GCN` over a PROTEINS-shaped TU layout the script writes
+     (`write_tu_layout`: 400 graphs, the largest of 620 nodes).
 
 Every route's launches are counted for both kernels of the fp32 stack,
 the forward and its backward: the loop's count is the forward's per
@@ -2357,9 +2375,10 @@ def zoo_route(args, ds):
             "lr": lambda t: lr_t}
 
 
-def run_zoo(dev, argv):
-    """One zoo CLI experiment on the card: every per-epoch accuracy finite,
-    the `Using` and `Result -` lines printed; returns its readings."""
+def run_zoo(dev, argv, layers=2, hidden=16):
+    """One zoo CLI experiment on the card (`layers` x `hidden` as argv
+    says): every per-epoch accuracy finite, the `Using` and `Result -`
+    lines printed; returns its readings."""
     args, ds = zoo_data(argv)
     text, launches, wall_s, results = cli_run(argv)
     accs = re.findall(r"^fold \d+ epoch \d+: acc (\S+)$", text, re.M)
@@ -2367,7 +2386,8 @@ def run_zoo(dev, argv):
             or not all(np.isfinite(float(a)) for a in accs)):
         raise AssertionError(f"{args.model}: per-epoch lines {accs}")
     result = re.search(r"^Result - .*$", text, re.M)
-    if result is None or "Using 2 layers, 16 hidden units" not in text:
+    if (result is None
+            or f"Using {layers} layers, {hidden} hidden units" not in text):
         raise AssertionError(f"{args.model}: no `Using`/`Result -` line")
     splits = k_fold(ds.y, TRAIN_FOLDS, args.seed)
     graphs = ZOO_EPOCHS * sum(len(tr) for tr, _, _ in splits)
@@ -3578,6 +3598,378 @@ def phase_bf16(dev, card_name, fp32_model, fp32_served, cohort, artifacts,
             "serving": serving, "http": http, "tools": tools}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the streamed form, for shapes the resident kernels cannot hold
+
+# (B, N, F0, widths) of the streamed form's checks: the flagship at 2 and
+# 3 layers of 128 (at 2 only the backward streams), 9 layers, the
+# multi-fusion cohort at 3 layers of 32 (only the backward streams) and 1
+# of 64 (only the forward), and the zoo's GCN at PROTEINS' 620 nodes
+STREAMED_SHAPES = [(32, 90, 3, (128, 128)), (32, 90, 3, (128, 128, 128)),
+                   (32, 90, 3, (16,) * 9), (32, 270, 1, (32, 32, 32)),
+                   (32, 270, 1, (64,)), (32, 620, 3, (32, 32, 32))]
+STREAMED_GROUPED = [(5, 32, 90, 3, (128, 128, 128))]
+# the bf16 form's streamed shapes: a bundle trained at --layers 3
+# --hiddens 128 served at batch 256, and N=620 at three layers of 32 (at
+# 620 x (16, 16) the bf16 form stays on the resident cluster design)
+STREAMED_BF16 = [(256, 90, 3, (128, 128, 128)), (256, 620, 3, (32, 32, 32))]
+# timed: the flagship's widest training shape and the zoo's (name, B, N,
+# F0, widths)
+STREAMED_TIMED = [("flagship training --layers 3 --hiddens 128", 32, 90, 3,
+                   (128, 128, 128)),
+                  ("zoo GCN training, 620 nodes", 32, 620, 3, (32, 32, 32))]
+# the routes: one epoch each; the TU layout's graphs leave fold 0 the six
+# train batches of 32 that the card-vs-CPU steps take
+STREAMED_EPOCHS = 1
+TU_NAME, TU_GRAPHS, TU_MAX_NODES = "PROTEINS", 400, 620
+
+
+def all_counts():
+    """Every form's count: the resident fp32 forward's and backward's, and
+    the streamed form's calls."""
+    return {**launch_counts(),
+            "streamed": gcn_stack.fused_gcn_stack.launches_streamed}
+
+
+def reset_all():
+    reset_launches()
+    gcn_stack.fused_gcn_stack.launches_streamed = 0
+
+
+def streamed_forms(b, n, dims):
+    """(the forward streams, the backward streams) at this shape."""
+    return (isinstance(gcn_stack.plan_launch(b, n, dims),
+                       gcn_stack.StreamedPlan),
+            isinstance(gcn_stack.plan_backward(b, n, dims),
+                       gcn_stack.StreamedPlan))
+
+
+def split_counts(want, forms):
+    """The loop's {"forward", "backward"} launches split over the three
+    counters as the forms at the route's shape say."""
+    fwd, bwd = forms
+    return {"forward": 0 if fwd else want["forward"],
+            "backward": 0 if bwd else want["backward"],
+            "streamed": (want["forward"] if fwd else 0)
+            + (want["backward"] if bwd else 0)}
+
+
+def phase_streamed_kernel(dev):
+    """The streamed form against its plain versions on the card: the fp32
+    forward in both P layouts and the backward (all four gradients,
+    BWD_TOL) at `STREAMED_SHAPES`, the grouped form at `STREAMED_GROUPED`
+    (forward and backward), the bf16 form at `STREAMED_BF16` (both
+    layouts); each call made twice and bit-equal, the counters showing
+    the streamed form where the plan says so and the resident kernels
+    elsewhere. Returns the largest differences."""
+    rng = np.random.default_rng(17)
+    errs = {"forward": 0.0, "backward": 0.0, "grouped": 0.0, "bf16": 0.0}
+
+    def run(fn):
+        reset_all()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, all_counts()
+
+    def forward(what, key, args, ref, forms_fwd):
+        got, counts = run(lambda: gcn_stack.fused_gcn_stack(*args))
+        again = gcn_stack.fused_gcn_stack(*args)
+        bf16 = args[0].dtype == torch.bfloat16
+        want = {"forward": int(not forms_fwd and not bf16), "backward": 0,
+                "streamed": int(forms_fwd)}
+        if counts != want:
+            raise AssertionError(f"streamed {what}: launches {counts}, not "
+                                 f"{want}")
+        ref_out = ref(*args)
+        torch.testing.assert_close(got, ref_out, rtol=RTOL, atol=ATOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"streamed {what}: two runs differ")
+        err = float((got - ref_out).abs().max())
+        errs[key] = max(errs[key], err)
+        log(f"streamed {what}: forward max_abs_err {err:.3e}, launches "
+            f"{counts}, bit-equal twice")
+
+    def backward(what, key, args, forms):
+        prop, x, ws, bs = args
+        cot = torch.from_numpy(rng.normal(size=(
+            *prop.shape[:2], sum(w.shape[-1] for w in ws))).astype(
+            np.float32)).to(dev)
+        got, counts = run(lambda: backward_grads(
+            gcn_stack.fused_gcn_stack, prop, x, ws, bs, cot))
+        want = split_counts({"forward": 1, "backward": 1}, forms)
+        if counts != want:
+            raise AssertionError(f"streamed {what}: launches {counts}, not "
+                                 f"{want}")
+        again = backward_grads(gcn_stack.fused_gcn_stack, prop, x, ws, bs, cot)
+        plain = plain_backward(prop, x, ws, bs, cot)
+        err = 0.0
+        for k, (g, p, r) in enumerate(zip(got, plain, again)):
+            torch.testing.assert_close(g, p, rtol=BWD_TOL, atol=BWD_TOL)
+            if not torch.equal(g, r):
+                raise AssertionError(f"streamed {what}: gradient {k} differs "
+                                     "between two runs")
+            err = max(err, float((g - p).abs().max()))
+        errs[key] = max(errs[key], err)
+        log(f"streamed {what}: backward max_abs_err {err:.3e}, launches "
+            f"{counts}, bit-equal twice")
+
+    for b, n, f0, widths in STREAMED_SHAPES:
+        forms = streamed_forms(b, n, (f0, *widths))
+        if not any(forms):
+            raise AssertionError(f"N={n} {widths}: nothing streams here")
+        prop, x, ws, bs = stack_inputs(rng, b, n, f0, widths, dev)
+        for layout, p in (("transposed", prop), ("row-major",
+                                                 prop.contiguous())):
+            what = (f"B={b} N={n} F0={f0} H={widths} P {layout} (forward "
+                    f"{'streamed' if forms[0] else 'resident'}, backward "
+                    f"{'streamed' if forms[1] else 'resident'})")
+            forward(what, "forward", (p, x, ws, bs),
+                    gcn_stack.gcn_stack_reference, forms[0])
+            backward(what, "backward", (p, x, ws, bs), forms)
+    for f, b, n, f0, widths in STREAMED_GROUPED:
+        args = grouped_inputs(rng, f, b, n, f0, widths, dev)
+        forms = streamed_forms(f * b, n, (f0, *widths))
+        what = f"grouped F={f} x B={b} N={n} H={widths}"
+        forward(what, "grouped", args, gcn_stack.gcn_stack_reference_grouped,
+                forms[0])
+        backward(what, "grouped", args, forms)
+    for b, n, f0, widths in STREAMED_BF16:
+        if not isinstance(gcn_stack.plan_launch(b, n, (f0, *widths), 2),
+                          gcn_stack.StreamedPlan):
+            raise AssertionError(f"bf16 N={n} {widths} does not stream")
+        prop, x, ws, bs = to_bf16(stack_inputs(rng, b, n, f0, widths, dev))
+        for layout, p in (("transposed", prop), ("row-major",
+                                                 prop.contiguous())):
+            with torch.no_grad():
+                forward(f"bf16 B={b} N={n} F0={f0} H={widths} P {layout}",
+                        "bf16", (p, x, ws, bs), plain_stack_bf16, True)
+    log(f"streamed form: max_abs_err {errs} (forward rtol {RTOL} / atol "
+        f"{ATOL}, backward rtol/atol {BWD_TOL})")
+    return errs
+
+
+def phase_streamed_times(dev, card_name):
+    """The streamed form at `STREAMED_TIMED`, in turns on the same inputs,
+    warm and cold: the forward's wrapper beside `gcn_stack_reference` and
+    `library_stack`, the backward's beside `gcn_stack_backward_reference`
+    and the autograd recompute; each with its bound."""
+    spec, bw, peak = card_spec(card_name)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(18)
+    rows = []
+    for name, b, n, f0, widths in STREAMED_TIMED:
+        args = stack_inputs(rng, b, n, f0, widths, dev)
+        cot = torch.randn(b, n, sum(widths), device=dev)
+        needs = (True, True, True)
+        for direction, fns, (nbytes, flops) in (
+                ("forward", {"kernel": lambda: gcn_stack._launch(*args),
+                             "plain": lambda: gcn_stack.gcn_stack_reference(
+                                 *args),
+                             "library": lambda: library_stack(*args)},
+                 stack_work(b, n, f0, widths)),
+                ("backward", {"kernel": lambda: gcn_stack._launch_backward(
+                    *args, cot, needs),
+                              "plain": lambda:
+                                  gcn_stack.gcn_stack_backward_reference(
+                                      *args, cot, needs),
+                              "library": lambda: recompute_backward(*args,
+                                                                    cot)},
+                 backward_work(0, b, n, f0, widths))):
+            bytes_ms, flops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+            plan = (gcn_stack.plan_launch(b, n, (f0, *widths))
+                    if direction == "forward"
+                    else gcn_stack.plan_backward(b, n, (f0, *widths)))
+            row = {"shape": name, "direction": direction, "B": b, "N": n,
+                   "F0": f0, "widths": list(widths), "bytes": nbytes,
+                   "flops": flops, "bound_ms": max(bytes_ms, flops_ms),
+                   "bound_by": "bytes" if bytes_ms >= flops_ms
+                   else "operations",
+                   "form": type(plan).__name__}
+            for what, fn in fns.items():
+                row[f"{what}_ms"] = device_ms(
+                    fn, sleep_cycles=20_000_000 if what == "kernel"
+                    else 100_000_000)
+                row[f"{what}_cold_ms"] = cold_device_ms(fn, flush)
+            rows.append(row)
+            log(f"gcn_stack streamed {direction} {name} B={b} N={n} F0={f0} "
+                f"H={widths} ({row['form']}): kernel {row['kernel_ms']:.5f} "
+                f"ms warm / {row['kernel_cold_ms']:.5f} cold, plain "
+                f"{row['plain_ms']:.5f} / {row['plain_cold_ms']:.5f}, library "
+                f"{row['library_ms']:.5f} / {row['library_cold_ms']:.5f}, "
+                f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}; {nbytes} "
+                f"B, {flops} FLOP, {spec} peaks)")
+    del flush
+    return rows
+
+
+def streamed_fused_route(dev, argv, what):
+    """A fused CLI route whose stack shape streams: one train step's and one
+    eval batch's launches (three counters), the CLI run over
+    `STREAMED_EPOCHS` with the loop's launches split as the forms say, and
+    six card steps against the CPU under phase 7's rules."""
+    train = training_setup(dev, argv)
+    mcfg = train["mcfg"]
+    dims = (mcfg.feat_dim, *([mcfg.hidden] * mcfg.num_layers))
+    forms = streamed_forms(TRAIN_BATCH, mcfg.rois, dims)
+    per_batch = STACK_CALLS["SGCN_GCN_IMGSNP"]
+    step_want, eval_want = (split_counts(w, forms)
+                            for w in step_launches(per_batch))
+
+    def counted(fn):
+        reset_all()
+        fn()
+        torch.cuda.synchronize()
+        return all_counts()
+
+    per_step = counted(train["step"])
+    per_eval = counted(lambda: steps.eval_step(
+        train["state"].model, train["eval_batch"], mcfg, train["tcfg"],
+        train["kind"]))
+    if (per_step, per_eval) != (step_want, eval_want):
+        raise AssertionError(f"{what}: a train step / eval batch launched "
+                             f"{per_step} / {per_eval}; expected {step_want} "
+                             f"/ {eval_want}")
+    reset_all()
+    text, _, wall_s, _ = cli_run(argv)
+    launches = all_counts()
+    want = split_counts(expected_launches(train["splits"], train["tcfg"],
+                                          per_batch), forms)
+    epochs = EPOCH_LINE.findall(text)
+    result = re.search(r"^Result - .*$", text, re.M)
+    if (len(epochs) != TRAIN_FOLDS * STREAMED_EPOCHS or result is None
+            or not all(np.isfinite(float(v)) for e in epochs for v in e[2:])):
+        raise AssertionError(f"{what}: epoch lines {epochs}, result {result}")
+    if launches != want:
+        raise AssertionError(f"{what}: the run launched {launches}; the loop "
+                             f"implies {want}")
+    log(f"{what}: {wall_s:.3f} s wall, launches {launches} (= the loop's), "
+        f"per train step {per_step}, per eval batch {per_eval}, "
+        f"{result.group(0)}")
+    return {"experiment_wall_s": wall_s, "launches": launches,
+            "expected_launches": want, "launches_per_train_step": per_step,
+            "launches_per_eval_batch": per_eval,
+            "forms": {"forward": "streamed" if forms[0] else "resident",
+                      "backward": "streamed" if forms[1] else "resident"},
+            "result_line": result.group(0), "epochs": STREAMED_EPOCHS,
+            "card_vs_cpu": card_vs_cpu_steps(dev, fused_route(train))}
+
+
+def write_tu_layout(root, rng, name=TU_NAME, graphs=TU_GRAPHS,
+                    largest=TU_MAX_NODES):
+    """A raw TU benchmark directory shaped like PROTEINS: `graphs` graphs
+    of 20 to `largest` nodes (one of exactly `largest`, so the dataset
+    pads to it), 3 node labels (one-hot: F0 = 3), about 3.7 neighbours a
+    node, two graph classes; the files `data/tu.py:read_tu_dir` reads."""
+    base = os.path.join(root, name)
+    os.makedirs(base, exist_ok=True)
+    sizes = rng.integers(20, largest, size=graphs)
+    sizes[rng.integers(graphs)] = largest
+    edges, indicator, labels, first = [], [], [], 1
+    for g, n in enumerate(sizes):
+        ring = np.arange(n)
+        extra = rng.integers(0, n, size=(int(n * 0.85), 2))
+        pairs = np.concatenate([np.stack([ring, (ring + 1) % n], 1), extra])
+        pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+        pairs = np.concatenate([pairs, pairs[:, ::-1]]) + first
+        edges.append(pairs)
+        indicator.append(np.full(n, g + 1))
+        labels.append(rng.integers(1, 4, size=n))
+        first += n
+    y = (sizes > np.median(sizes)).astype(int) + 1
+    np.savetxt(os.path.join(base, f"{name}_A.txt"), np.concatenate(edges),
+               fmt="%d", delimiter=", ")
+    np.savetxt(os.path.join(base, f"{name}_graph_indicator.txt"),
+               np.concatenate(indicator), fmt="%d")
+    np.savetxt(os.path.join(base, f"{name}_graph_labels.txt"), y, fmt="%d")
+    np.savetxt(os.path.join(base, f"{name}_node_labels.txt"),
+               np.concatenate(labels), fmt="%d")
+    return root
+
+
+def streamed_zoo_route(dev, tu_root):
+    """The zoo's `--model GCN` over the fabricated TU layout (padded to its
+    largest graph): the CLI run with the loop's launches split as the
+    forms say, one train step's and one eval batch's launches, six card
+    steps against the CPU under phase 7's rules."""
+    appendix = "_chip_smoke_streamed_zoo"
+    shutil.rmtree(run_dir(appendix), ignore_errors=True)
+    argv = ["--device", "cuda", "--model", "GCN", "--data", TU_NAME,
+            "--tu_root", tu_root, "--no-search", "--layers", "3",
+            "--hiddens", "32", "--batch_size", str(TRAIN_BATCH), "--fold",
+            str(TRAIN_FOLDS), "--epochs", str(STREAMED_EPOCHS),
+            "--save_appendix", appendix]
+    args, ds = zoo_data(argv)
+    n, f0 = int(ds.x.shape[1]), int(ds.x.shape[2])
+    forms = streamed_forms(TRAIN_BATCH, n, (f0, 32, 32, 32))
+    if n != TU_MAX_NODES or not all(forms):
+        raise AssertionError(f"zoo GCN: N={n}, F0={f0}, forms {forms}")
+    reset_all()
+    run = run_zoo(dev, argv, layers=3, hidden=32)
+    launches = all_counts()
+    want = split_counts(expected_launches(
+        run["splits"], types.SimpleNamespace(batch_size=args.batch_size,
+                                             epochs=args.epochs), 1), forms)
+    if launches != want:
+        raise AssertionError(f"zoo GCN at N={n}: the run launched {launches}; "
+                             f"the loop implies {want}")
+    route = zoo_route(args, ds)
+    card = route["state"](copy.deepcopy(route["model"]).to(dev))
+    batch = to_device({k: v[:TRAIN_BATCH] for k, v in route["data"].items()},
+                      dev)
+    _, evaluate = generic_cv.build_generic_steps(
+        card.model, card.optimizer, needs_mask=False, needs_assign=False,
+        adj_only=False, aux_loss=False, takes_weight=False)
+    counts = []
+    for fn in (lambda: card.train_step(batch, None, 1e-3),
+               lambda: evaluate(batch)):
+        reset_all()
+        fn()
+        torch.cuda.synchronize()
+        counts.append(all_counts())
+    if counts != [split_counts(w, forms) for w in step_launches(1)]:
+        raise AssertionError(f"zoo GCN: {counts} per train step / eval batch")
+    log(f"zoo GCN at N={n}, F0={f0}, {len(ds)} graphs: launches {launches} "
+        f"(= the loop's), per train step / eval batch {counts}")
+    return {"experiment_wall_s": run["experiment_wall_s"],
+            "launches": launches, "expected_launches": want,
+            "launches_per_train_step": counts[0],
+            "launches_per_eval_batch": counts[1], "nodes": n,
+            "graphs": len(ds), "result_line": run["result_line"],
+            "epochs": STREAMED_EPOCHS,
+            "card_vs_cpu": card_vs_cpu_steps(dev, route)}
+
+
+def phase_streamed(dev, card_name):
+    log("== phase 17: the streamed form (shapes the resident kernels cannot "
+        "hold)")
+    if gcn_stack.fused_gcn_stack.launches_streamed != 0:
+        raise AssertionError(
+            f"an earlier phase ran the streamed form "
+            f"{gcn_stack.fused_gcn_stack.launches_streamed} times")
+    t0 = time.perf_counter()
+    errs = phase_streamed_kernel(dev)
+    times = phase_streamed_times(dev, card_name)
+    routes = {
+        "SGCN_GCN_IMGSNP --layers 3 --hiddens 128": streamed_fused_route(
+            dev, cli_argv(STREAMED_EPOCHS, "_chip_smoke_streamed", "--layers",
+                          "3", "--hiddens", "128"),
+            "flagship --layers 3 --hiddens 128"),
+        "SGCN_GCN_IMGSNP --isMultiFusion --layers 3 --hiddens 32":
+            streamed_fused_route(
+                dev, cli_argv(STREAMED_EPOCHS, "_chip_smoke_streamed_multi",
+                              "--isMultiFusion", "--layers", "3",
+                              "--hiddens", "32"),
+                "--isMultiFusion --layers 3 --hiddens 32")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tu_") as root:
+        routes[f"zoo GCN --data {TU_NAME} (N={TU_MAX_NODES})"] = \
+            streamed_zoo_route(dev, write_tu_layout(
+                root, np.random.default_rng(19)))
+    phase_s = time.perf_counter() - t0
+    log(f"phase 17: {phase_s:.3f} s")
+    return {"max_abs_err": errs, "times": times, "routes": routes,
+            "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -3608,6 +4000,7 @@ def main() -> int:
         batched = phase_fold_parallel(dev, train)
         bf16 = phase_bf16(dev, torch.cuda.get_device_name(0), model, served,
                           cohort, artifacts, layout)
+    streamed = phase_streamed(dev, torch.cuda.get_device_name(0))
 
     serving, *others = times["shapes"]
     fp_row = times["grouped"][0]
@@ -3757,7 +4150,34 @@ def main() -> int:
             "shape", "B", "N", "F0", "widths", "kernel_ms", "kernel_cold_ms",
             "fp32_ms", "plain_ms", "plain_cold_ms", "library_ms",
             "library_cold_ms", "bound_ms", "bound_by", "plan")}
-            for row in bf16["times"]]}]}
+            for row in bf16["times"]]}, {
+        # the streamed form: every shape the three kernels above cannot
+        # hold, forward (fp32, grouped, bf16) and backward; `launches`
+        # over phase 17's flagship run at --layers 3 --hiddens 128, where
+        # both directions stream
+        "name": "gcn_stack_streamed", "route": "cuda",
+        "source": "iggcn_tpu_torch/csrc/gcn_stack_streamed.cu",
+        "replaces": "iggcn_tpu/ops/pallas_gcn.py:83",
+        "launches": streamed["routes"][
+            "SGCN_GCN_IMGSNP --layers 3 --hiddens 128"]["launches"][
+            "streamed"],
+        "max_abs_err": max(streamed["max_abs_err"].values()),
+        "max_abs_err_by_form": streamed["max_abs_err"],
+        "ms": streamed["times"][0]["kernel_ms"],
+        "cold_ms": streamed["times"][0]["kernel_cold_ms"],
+        "plain_ms": streamed["times"][0]["plain_ms"],
+        "bound_ms": streamed["times"][0]["bound_ms"],
+        "bound_by": streamed["times"][0]["bound_by"],
+        "library_ms": streamed["times"][0]["library_ms"],
+        "routes": {name: {k: run[k] for k in (
+            "launches", "expected_launches", "launches_per_train_step",
+            "launches_per_eval_batch")}
+            for name, run in streamed["routes"].items()},
+        "shapes": [{k: row[k] for k in (
+            "shape", "direction", "B", "N", "F0", "widths", "form",
+            "kernel_ms", "kernel_cold_ms", "plain_ms", "plain_cold_ms",
+            "library_ms", "library_cold_ms", "bound_ms", "bound_by")}
+            for row in streamed["times"]]}]}
     serve = {"serve": {"subjects": COHORT, "batch": BATCH,
                        "cohort_wall_s": times["serve_cohort_s"],
                        "request_subjects": BATCH, **http_times},
@@ -3821,6 +4241,12 @@ def main() -> int:
                            bf16["tools"]["diffusion"]["walls_s"],
                        "profile_dir_files":
                            bf16["tools"]["profile_dir"]["files"]},
+             "streamed": {name: {
+                 "experiment_wall_s": run["experiment_wall_s"],
+                 "result_line": run["result_line"],
+                 "card_vs_cpu_loss_max_rel_diff":
+                     run["card_vs_cpu"]["loss_max_rel_diff"]}
+                 for name, run in streamed["routes"].items()},
              "snps_only": {model: {
                  "experiment_wall_s": run["experiment_wall_s"],
                  "result_line": run["result_line"],
@@ -3838,7 +4264,7 @@ def main() -> int:
                    "multi_fusion": multi, "families": families,
                    "artifacts": artifacts, "snps_only": snps,
                    "real_cohort": real, "other_routes": other, "zoo": zoo,
-                   "batched": batched, "bf16": bf16,
+                   "batched": batched, "bf16": bf16, "streamed": streamed,
                    "device": device}, fh, indent=1, default=float)
     log(card)
     log(json.dumps(serve))

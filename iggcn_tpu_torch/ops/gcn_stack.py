@@ -44,6 +44,16 @@ kernel's cluster design on bf16 bands (`csrc/gcn_stack.cu` with
 has no backward and raises when grad is on and an input requires it, and
 it has no grouped form (training is fp32).
 `fused_gcn_stack.launches_bf16` counts its launches.
+
+Every shape the resident designs above cannot hold (P and the operands
+past a cluster's shared memory, or more than `MAX_LAYERS` layers) runs
+the streamed form, `csrc/gcn_stack_streamed.cu`, for each of those forms
+and the backward alike: one batched tiled product per step, K streamed
+through a ring in shared memory, with scratch in device memory
+(`StreamedPlan`; `_layer_products`, `_backward_products` list its
+launches). `plan_launch` and `plan_backward` choose apart, by shape: the
+resident plan wherever it holds, else the streamed one.
+`fused_gcn_stack.launches_streamed` counts its calls.
 """
 from __future__ import annotations
 
@@ -61,6 +71,7 @@ from iggcn_tpu_torch.utils.cuda_build import load_library
 SOURCE = "gcn_stack.cu"
 BF16_SOURCE = "gcn_stack_bf16.cu"
 BACKWARD_SOURCE = "gcn_stack_backward.cu"
+STREAMED_SOURCE = "gcn_stack_streamed.cu"
 MAX_LAYERS = 8
 
 
@@ -359,7 +370,8 @@ def _plan_for(n: int, dims: Sequence[int], cluster: int,
 
 
 def plan_launch(b: int, n: int, dims: Sequence[int], elem_bytes: int = 4,
-                sms: int = H100_SMS) -> LaunchPlan | PersistentPlan:
+                sms: int = H100_SMS
+                ) -> LaunchPlan | PersistentPlan | StreamedPlan:
     """Launch plan for a batch of `b` samples of N nodes with layer widths
     `dims` = (F0, H_1, ..., H_L), P's values `elem_bytes` wide (4 fp32, 2
     for the bf16 form), on a card of `sms` SMs.
@@ -370,35 +382,113 @@ def plan_launch(b: int, n: int, dims: Sequence[int], elem_bytes: int = 4,
     bf16: the persistent kernel's `PersistentPlan` where one CTA holds a
     sample (N=90 and N=270; it does not depend on `b`, whose `grid(b)` is
     the launch's), else the fp32 design's `LaunchPlan` on bf16 bands with
-    a cluster of 2 to 8. Raises ValueError for a shape the kernels cannot
-    hold."""
+    a cluster of 2 to 8. A shape none of those holds resident (or more
+    than `MAX_LAYERS` layers) gets the streamed form's `StreamedPlan`.
+    Raises ValueError only for an invalid shape or a grid past the launch
+    limits."""
     if elem_bytes not in (2, 4):
         raise ValueError(f"elem_bytes is 4 (fp32) or 2 (bf16); got "
                          f"{elem_bytes}")
     plan = _choose_plan(n, tuple(int(d) for d in dims), elem_bytes, sms)
-    if not 0 <= b * plan.cluster < 2 ** 31:
-        raise ValueError(f"a batch of {b} takes {b * plan.cluster} CTAs; one "
-                         "launch takes 0 to 2**31 - 1")
+    _check_grid(b, _ctas_per_sample(plan))
     return plan
 
 
 @functools.lru_cache(maxsize=None)
 def _choose_plan(n: int, dims: Tuple[int, ...], elem_bytes: int, sms: int
-                 ) -> LaunchPlan | PersistentPlan:
-    if n < 1 or not 1 <= len(dims) - 1 <= MAX_LAYERS or min(dims) < 1:
-        raise ValueError(f"gcn_stack kernel takes N >= 1 and 1..{MAX_LAYERS} "
-                         f"layers of width >= 1; got N={n}, dims={dims}")
+                 ) -> LaunchPlan | PersistentPlan | StreamedPlan:
+    _check_shape(n, dims)
+    if len(dims) - 1 > MAX_LAYERS:
+        return streamed_plan(n, dims, elem_bytes)
     if elem_bytes == 2 and (persistent := _choose_persistent(n, dims, sms)):
         return persistent
     clusters = CLUSTER_SIZES if elem_bytes == 4 else CLUSTER_SIZES[1:]
-    plan = next((plan for c in clusters
+    return next((plan for c in clusters
                  if (plan := _plan_for(n, dims, c, elem_bytes)) is not None),
-                None)
-    if plan is None:
-        raise ValueError(f"gcn_stack kernel cannot hold N={n} with widths "
-                         f"{list(dims)} resident in shared memory (cluster "
-                         f"{CLUSTER_SIZES}, {SMEM_PER_BLOCK} B per CTA)")
-    return plan
+                None) or streamed_plan(n, dims, elem_bytes)
+
+
+def _check_shape(n: int, dims: Tuple[int, ...]) -> None:
+    if n < 1 or len(dims) < 2 or min(dims) < 1:
+        raise ValueError(f"gcn_stack kernel takes N >= 1 and at least one "
+                         f"layer, every width >= 1; got N={n}, dims={dims}")
+
+
+def _check_grid(b: int, ctas: int) -> None:
+    if not 0 <= b * ctas < 2 ** 31:
+        raise ValueError(f"a batch of {b} takes {b * ctas} CTAs; one launch "
+                         "takes 0 to 2**31 - 1")
+
+
+def _ctas_per_sample(plan) -> int:
+    return plan.tiles if isinstance(plan, StreamedPlan) else plan.cluster
+
+
+# The streamed form (csrc/gcn_stack_streamed.cu): one batched tiled product
+# C = A B per sample, a CTA per TILE x TILE block of C, K streamed through a
+# ring of STREAM_STAGES chunks of STREAM_CHUNK in shared memory (tiles
+# padded by 4 floats a row), STREAM_THREADS threads of 4 x 4 register tiles
+STREAM_TILE = 64
+STREAM_CHUNK = 16
+STREAM_STAGES = 3
+STREAM_THREADS = 256
+STREAM_PAD = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamedPlan:
+    """The streamed form's plan, for shapes the resident kernels cannot
+    hold (P and the operands past a cluster's shared memory, or more than
+    `MAX_LAYERS` layers). Nothing stays resident: every layer is two
+    launches of one tiled product (a_l = h_l W_l, then relu(P a_l + b_l)
+    into the JK output), and the backward one launch per product of the
+    JAX VJP, through scratch in device memory that the wrapper allocates.
+    Sizes of the scratch in floats per sample; `tiles` is the most CTAs
+    one sample takes in any of the launches (the grid is one dimension,
+    CTAs x samples)."""
+    tile_m: int
+    tile_n: int
+    kchunk: int
+    stages: int
+    threads: int
+    smem_bytes: int           # static shared memory: the ring of A and B
+    a_floats: int             # every layer's a_l (N x sum H)
+    h_floats: int             # backward: the recompute's JK output
+    dz_floats: int            # backward: every layer's dz_l (N x sum H)
+    da_floats: int            # backward: da_l of one layer (N x max H)
+    wsz: int                  # backward: one sample's dW / db slot
+    ws_off: Tuple[int, ...]   # dW_l in a slot (F_l x H_l), then db_l
+    tiles: int
+    backward: bool
+    elem_bytes: int = 4
+
+
+def _tiles(m: int, n: int) -> int:
+    return -(-m // STREAM_TILE) * -(-n // STREAM_TILE)
+
+
+def streamed_plan(n: int, dims: Sequence[int], elem_bytes: int = 4,
+                  backward: bool = False) -> StreamedPlan:
+    """The streamed plan of N nodes and widths `dims` = (F0, H_1, ...,
+    H_L): the forward's (`backward=False`; fp32 or, `elem_bytes=2`, bf16
+    operands) or the backward's (fp32)."""
+    dims = tuple(int(d) for d in dims)
+    _check_shape(n, dims)
+    total, hmax = sum(dims[1:]), max(dims[1:])
+    shapes = [(n, h) for h in dims[1:]]                   # a_l and z_l
+    sizes = [fin * fout + fout for fin, fout in zip(dims[:-1], dims[1:])]
+    if backward:
+        shapes += [(n + 1, h) for h in dims[1:]]          # da_l and db_l
+        shapes += list(zip(dims[:-1], dims[1:]))          # dW_l
+        shapes += [(n, f) for f in dims[:-1]] + [(n, n)]  # e_l, dP
+    smem = 4 * STREAM_STAGES * STREAM_CHUNK * (2 * STREAM_TILE + 2 * STREAM_PAD)
+    return StreamedPlan(
+        STREAM_TILE, STREAM_TILE, STREAM_CHUNK, STREAM_STAGES, STREAM_THREADS,
+        smem, n * total, n * total if backward else 0,
+        n * total if backward else 0, n * hmax if backward else 0,
+        sum(sizes) if backward else 0,
+        tuple(sum(sizes[:i]) for i in range(len(sizes))),
+        max(_tiles(m, c) for m, c in shapes), backward, elem_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -480,32 +570,27 @@ def _backward_plan_for(n: int, dims: Tuple[int, ...], cluster: int
 
 
 @functools.lru_cache(maxsize=None)
-def _choose_backward_plan(n: int, dims: Tuple[int, ...]) -> BackwardPlan:
-    if n < 1 or not 1 <= len(dims) - 1 <= MAX_LAYERS or min(dims) < 1:
-        raise ValueError(f"gcn_stack backward kernel takes N >= 1 and "
-                         f"1..{MAX_LAYERS} layers of width >= 1; got N={n}, "
-                         f"dims={dims}")
-    plan = next((plan for c in CLUSTER_SIZES
+def _choose_backward_plan(n: int, dims: Tuple[int, ...]
+                          ) -> BackwardPlan | StreamedPlan:
+    _check_shape(n, dims)
+    if len(dims) - 1 > MAX_LAYERS:
+        return streamed_plan(n, dims, backward=True)
+    return next((plan for c in CLUSTER_SIZES
                  if (plan := _backward_plan_for(n, dims, c)) is not None),
-                None)
-    if plan is None:
-        raise ValueError(f"gcn_stack backward kernel cannot hold N={n} with "
-                         f"widths {list(dims)} resident in shared memory "
-                         f"(cluster {CLUSTER_SIZES}, {SMEM_PER_BLOCK} B per "
-                         "CTA)")
-    return plan
+                None) or streamed_plan(n, dims, backward=True)
 
 
-def plan_backward(b: int, n: int, dims: Sequence[int]) -> BackwardPlan:
-    """Launch plan of the backward kernel for a batch of `b` samples of N
-    nodes with layer widths `dims` = (F0, H_1, ..., H_L): the smallest
-    cluster whose CTAs hold their band of P and the backward's operands in
-    shared memory (the forward's split where both fit: one CTA at N=90,
-    two at N=270). Raises ValueError for a shape it cannot hold."""
+def plan_backward(b: int, n: int, dims: Sequence[int]
+                  ) -> BackwardPlan | StreamedPlan:
+    """Launch plan of the backward for a batch of `b` samples of N nodes
+    with layer widths `dims` = (F0, H_1, ..., H_L): the resident kernel's
+    smallest cluster whose CTAs hold their band of P and the backward's
+    operands in shared memory (the forward's split where both fit: one
+    CTA at N=90, two at N=270), else the streamed form's `StreamedPlan`
+    (chosen apart from the forward's). Raises ValueError only for an
+    invalid shape or a grid past the launch limits."""
     plan = _choose_backward_plan(n, tuple(int(d) for d in dims))
-    if not 0 <= b * plan.cluster < 2 ** 31:
-        raise ValueError(f"a batch of {b} takes {b * plan.cluster} CTAs; one "
-                         "launch takes 0 to 2**31 - 1")
+    _check_grid(b, _ctas_per_sample(plan))
     return plan
 
 
@@ -727,9 +812,160 @@ def _bulk_copyable(prop: torch.Tensor, plan: LaunchPlan | BackwardPlan
                for k, own in enumerate(owns))
 
 
+# the streamed product's epilogues (`Product.epi`) and operand types
+EPI_STORE, EPI_RELU, EPI_DA, EPI_GRAD_MASK = range(4)
+F32, BF16 = 0, 1
+
+
+class _CProduct(ctypes.Structure):
+    """`Product` of csrc/gcn_stack_streamed.cu, field for field: one
+    launch of the streamed form's tiled product, C(s, i, j) = sum_k
+    A(s, i, k) B(s, k, j) for i < m, j < n, k < k, then its epilogue.
+    Operand X's element (s, i, j) is X + (s // x_div) * x_bs + i * x_s0 +
+    j * x_s1 values in (`x_type`: F32 or BF16); rows of A from `a_rows` on
+    read 0, except the row `a_rows` itself, which reads 1 where `ones` (so
+    that row of C sums B's rows). Epilogues on each C(s, i, j) = v:
+    EPI_STORE c = v; EPI_RELU z = v + bias(s, j), c = relu(z), and where
+    `d` is set d(s, i, j) = g(s, i, j) * [z > 0]; EPI_DA c = v for i <
+    a_rows, d(s, j) = v in the ones row; EPI_GRAD_MASK c = (g(s, i, j) +
+    v) * [mask(s, i, j) > 0]. c's element is c + s * c_bs + i * c_s0 + j *
+    c_s1; d's, g's and mask's the same with a column stride of 1 (and
+    bias(s, j) = bias + (s // bias_div) * bias_bs + j)."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "a", "b", "bias", "g", "mask", "c", "d")]
+        + [(name, ctypes.c_longlong) for name in (
+            "a_bs", "a_s0", "a_s1", "b_bs", "b_s0", "b_s1", "bias_bs",
+            "g_bs", "g_s0", "mask_bs", "mask_s0", "c_bs", "c_s0", "c_s1",
+            "d_bs", "d_s0")]
+        + [(name, ctypes.c_int) for name in (
+            "m", "n", "k", "a_rows", "ones", "epi", "a_div", "b_div",
+            "bias_div", "a_type", "b_type", "bias_type")])
+
+
+def _product(m: int, n: int, k: int, **fields) -> _CProduct:
+    """A `_CProduct` with A's rows `a_rows` = m and every divisor 1 unless
+    `fields` says otherwise."""
+    fields.setdefault("a_rows", m)
+    for div in ("a_div", "b_div", "bias_div"):
+        fields.setdefault(div, 1)
+    return _CProduct(m=m, n=n, k=k, **fields)
+
+
+def _elem(t: torch.Tensor) -> int:
+    return BF16 if t.dtype == torch.bfloat16 else F32
+
+
+def _at(t: torch.Tensor, offset: int = 0) -> int:
+    """The address of `t`'s element `offset` (in its own values)."""
+    return t.data_ptr() + offset * t.element_size()
+
+
+def _layer_products(prop, x, weights, biases, out, acts, group: int,
+                    grad_out=None, dz=None) -> List[_CProduct]:
+    """The streamed forward's launches, two per layer: a_l = h_l W_l into
+    `acts` (B, N x sum H), then relu(P a_l + b_l) into layer l's slice of
+    the JK output `out` (B, N, sum H, fp32), which is h_{l+1}. With
+    `grad_out` and `dz` (the backward's recompute) the last layer's
+    epilogue also writes dz_{L-1} = g_{L-1} * [z > 0] into `dz`."""
+    b, n, _ = prop.shape
+    dims = [int(x.shape[2])] + [int(w.shape[-1]) for w in weights]
+    total = sum(dims[1:])
+    offs = [sum(dims[1:1 + i]) for i in range(len(weights))]
+    grouped = _weight_sets(weights) > 0
+    steps = []
+    for l, (w, bias) in enumerate(zip(weights, biases)):
+        fin, h, off = dims[l], dims[l + 1], offs[l]
+        h_in = (dict(a=_at(x), a_bs=n * fin, a_s0=fin, a_s1=1,
+                     a_type=_elem(x)) if l == 0 else
+                dict(a=_at(out, offs[l - 1]), a_bs=n * total, a_s0=total,
+                     a_s1=1, a_type=F32))
+        steps.append(_product(
+            n, h, fin, **h_in, b=_at(w), b_bs=w.stride(0) if grouped else 0,
+            b_s0=h, b_s1=1, b_div=group, b_type=_elem(w),
+            c=_at(acts, off), c_bs=n * total, c_s0=total, c_s1=1,
+            epi=EPI_STORE))
+        last = dz if l == len(weights) - 1 and dz is not None else None
+        steps.append(_product(
+            n, h, n, a=_at(prop), a_bs=prop.stride(0), a_s0=prop.stride(1),
+            a_s1=prop.stride(2), a_type=_elem(prop),
+            b=_at(acts, off), b_bs=n * total, b_s0=total, b_s1=1, b_type=F32,
+            bias=_at(bias), bias_bs=bias.stride(0) if grouped else 0,
+            bias_div=group, bias_type=_elem(bias),
+            c=_at(out, off), c_bs=n * total, c_s0=total, c_s1=1,
+            epi=EPI_RELU,
+            **(dict(d=_at(last, off), d_bs=n * total, d_s0=total,
+                    g=_at(grad_out, off), g_bs=n * total, g_s0=total)
+               if last is not None else {})))
+    return steps
+
+
+def _backward_products(prop, x, weights, biases, grad_out, needs, plan,
+                       scratch, dprop, dx, ws, group: int
+                       ) -> List[_CProduct]:
+    """The streamed backward's launches: the recompute (`_layer_products`
+    into `scratch["h"]`, keeping every a_l in `scratch["a"]` and forming
+    dz_{L-1}), then for l = L-1 .. 0: da_l = P^T dz_l into `scratch["da"]`
+    with db_l in the ones row (where the weights need it); dW_l = h_l^T
+    da_l into sample s's slot of `ws`; e_l = da_l W_l^T, whose epilogue
+    forms dz_{l-1} = (g_{l-1} + e_l) * [h_l > 0] (dx = e_0 where wanted);
+    then dP = [dz_0 .. dz_{L-1}] [a_0 .. a_{L-1}]^T, one product of depth
+    sum H, written in P's layout."""
+    need_p, need_x, need_w = needs
+    b, n, _ = prop.shape
+    dims = [int(x.shape[2])] + [int(w.shape[-1]) for w in weights]
+    total, hmax = sum(dims[1:]), max(dims[1:])
+    offs = [sum(dims[1:1 + i]) for i in range(len(weights))]
+    grouped = _weight_sets(weights) > 0
+    hb, acts, dz, da = (scratch[k] for k in ("h", "a", "dz", "da"))
+    steps = _layer_products(prop, x, weights, biases, hb, acts, group,
+                            grad_out, dz)
+    jk = dict(c_bs=n * total, c_s0=total, c_s1=1)
+    for l in reversed(range(len(weights))):
+        if not (need_w or need_x or l > 0):
+            continue
+        w, fin, h, off = weights[l], dims[l], dims[l + 1], offs[l]
+        steps.append(_product(
+            n + int(need_w), h, n, a_rows=n, ones=int(need_w),
+            a=_at(prop), a_bs=prop.stride(0), a_s0=prop.stride(2),
+            a_s1=prop.stride(1), b=_at(dz, off), b_bs=n * total, b_s0=total,
+            b_s1=1, c=_at(da), c_bs=n * hmax, c_s0=hmax, c_s1=1, epi=EPI_DA,
+            **(dict(d=_at(ws, plan.ws_off[l] + fin * h), d_bs=plan.wsz)
+               if need_w else {})))
+        if need_w:
+            h_l = (dict(a=_at(x), a_bs=n * fin, a_s0=1, a_s1=fin) if l == 0
+                   else dict(a=_at(hb, offs[l - 1]), a_bs=n * total, a_s0=1,
+                             a_s1=total))
+            steps.append(_product(
+                fin, h, n, **h_l, b=_at(da), b_bs=n * hmax, b_s0=hmax,
+                b_s1=1, c=_at(ws, plan.ws_off[l]), c_bs=plan.wsz, c_s0=h,
+                c_s1=1, epi=EPI_STORE))
+        e_l = dict(a=_at(da), a_bs=n * hmax, a_s0=hmax, a_s1=1, b=_at(w),
+                   b_bs=w.stride(0) if grouped else 0, b_div=group, b_s0=1,
+                   b_s1=h)
+        if l > 0:
+            prev = offs[l - 1]
+            steps.append(_product(
+                n, fin, h, **e_l, c=_at(dz, prev), **jk,
+                g=_at(grad_out, prev), g_bs=n * total, g_s0=total,
+                mask=_at(hb, prev), mask_bs=n * total, mask_s0=total,
+                epi=EPI_GRAD_MASK))
+        elif need_x:
+            steps.append(_product(n, fin, h, **e_l, c=_at(dx), c_bs=n * fin,
+                                  c_s0=fin, c_s1=1, epi=EPI_STORE))
+    if need_p:
+        transposed = _prop_transposed(prop)
+        steps.append(_product(
+            n, n, total, a=_at(dz), a_bs=n * total, a_s0=total, a_s1=1,
+            b=_at(acts), b_bs=n * total, b_s0=1, b_s1=total,
+            c=_at(dprop), c_bs=n * n, c_s0=1 if transposed else n,
+            c_s1=n if transposed else 1, epi=EPI_STORE))
+    return steps
+
+
 _lib: ctypes.CDLL | None = None
 _bf16_lib: ctypes.CDLL | None = None
 _backward_lib: ctypes.CDLL | None = None
+_streamed_lib: ctypes.CDLL | None = None
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -770,6 +1006,17 @@ def declare_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def declare_streamed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`declare` for the streamed form's library."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gcn_stack_streamed.argtypes = [
+        ctypes.POINTER(_CProduct), i32, i32, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.gcn_stack_streamed.restype = i32
+    lib.gcn_stack_streamed_error_string.argtypes = [i32]
+    lib.gcn_stack_streamed_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     """The kernel's library, built at first use."""
     global _lib
@@ -792,6 +1039,14 @@ def _backward_library() -> ctypes.CDLL:
     if _backward_lib is None:
         _backward_lib = declare_backward(load_library(BACKWARD_SOURCE))
     return _backward_lib
+
+
+def _streamed_library() -> ctypes.CDLL:
+    """The streamed form's library, built at first use."""
+    global _streamed_lib
+    if _streamed_lib is None:
+        _streamed_lib = declare_streamed(load_library(STREAMED_SOURCE))
+    return _streamed_lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -835,9 +1090,9 @@ def _check_inputs(prop, x, weights, biases) -> Tuple[List[int], bool]:
     if x.dim() != 3 or x.shape[:2] != (b, n):
         raise ValueError(f"x must be (B, N, F0) = ({b}, {n}, F0); got "
                          f"{tuple(x.shape)}")
-    if not 1 <= len(weights) <= MAX_LAYERS or len(biases) != len(weights):
-        raise ValueError(f"need 1..{MAX_LAYERS} layers with one bias each; "
-                         f"got {len(weights)} weights, {len(biases)} biases")
+    if not weights or len(biases) != len(weights):
+        raise ValueError(f"need at least one layer with one bias each; got "
+                         f"{len(weights)} weights, {len(biases)} biases")
     groups = _weight_sets(weights)
     lead = (groups,) if groups else ()
     if groups and b % groups:
@@ -890,6 +1145,11 @@ def _launch(prop, x, weights, biases) -> torch.Tensor:
                            transposed, index)
         fused_gcn_stack.launches_bf16 += 1
         return out
+    if isinstance(plan, StreamedPlan):
+        acts = _scratch((b, plan.a_floats), prop.device)
+        _run_streamed(_layer_products(prop, x, weights, biases, out, acts,
+                                      b // (groups or 1)), prop, index)
+        return out
     layers = len(weights)
     # shared weights: one set, strides 0, so one code path takes both forms
     w_strides = tuple(w.stride(0) if groups else 0 for w in weights)
@@ -914,6 +1174,31 @@ def _launch(prop, x, weights, biases) -> torch.Tensor:
     else:
         fused_gcn_stack.launches += 1
     return out
+
+
+def _scratch(shape, device) -> torch.Tensor:
+    """Scratch of the streamed form, uninitialised: the schedule writes
+    every value it reads."""
+    return torch.empty(shape, device=device, dtype=torch.float32)
+
+
+def _run_streamed(steps: List[_CProduct], prop, index: int, ws=None,
+                  wgrad=None, slots: int = 0) -> None:
+    """Launch the streamed form's products in order on PyTorch's current
+    stream, then (with `ws`) the per-set sum of the samples' dW / db slots
+    into `wgrad` (sets x wsz), `slots` samples to a set; no
+    synchronisation. Counts one launch of the streamed form."""
+    lib = _streamed_library()
+    sets, wsz = wgrad.shape if wgrad is not None else (0, 0)
+    code = lib.gcn_stack_streamed(
+        (_CProduct * len(steps))(*steps), len(steps), prop.shape[0],
+        None if ws is None else ws.data_ptr(),
+        None if wgrad is None else wgrad.data_ptr(), slots, wsz, sets, index,
+        torch.cuda.current_stream(prop.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError("gcn_stack streamed kernel launch failed: "
+                           + lib.gcn_stack_streamed_error_string(code).decode())
+    fused_gcn_stack.launches_streamed += 1
 
 
 def _launch_persistent(plan: PersistentPlan, prop, x, weights, biases, out,
@@ -963,16 +1248,27 @@ def _launch_backward(prop, x, weights, biases, grad_out,
     g = grad_out.contiguous()
 
     def empty(*shape):
-        return torch.empty(shape, device=prop.device, dtype=torch.float32)
+        return _scratch(shape, prop.device)
 
+    streamed = isinstance(plan, StreamedPlan)
     dprop = empty(b, n, n) if need_p else None
     dx = torch.empty_like(x) if need_x else None
-    ws = empty(b * plan.cluster * plan.wsz) if need_w else None
+    # a slot of dW / db per CTA of the resident kernel, per sample streamed
+    slots = 1 if streamed else plan.cluster
+    ws = empty(b * slots * plan.wsz) if need_w else None
     wgrad = empty(sets, plan.wsz) if need_w else None
-    if b > 0:
+    index = (prop.device.index if prop.device.index is not None
+             else torch.cuda.current_device()) if b > 0 else 0
+    if b > 0 and streamed:
+        scratch = {k: empty(b, size) for k, size in (
+            ("h", plan.h_floats), ("a", plan.a_floats),
+            ("dz", plan.dz_floats), ("da", plan.da_floats))}
+        _run_streamed(_backward_products(prop, x, weights, biases, g, needs,
+                                         plan, scratch, dprop, dx, ws,
+                                         b // sets),
+                      prop, index, ws, wgrad, b // sets)
+    elif b > 0:
         layers = len(weights)
-        index = (prop.device.index if prop.device.index is not None
-                 else torch.cuda.current_device())
         w_strides = tuple(w.stride(0) if groups else 0 for w in weights)
         b_strides = tuple(bb.stride(0) if groups else 0 for bb in biases)
         c_plan = _c_backward_plan(
@@ -1033,7 +1329,8 @@ def _to_front(t: torch.Tensor, dim, size: int) -> torch.Tensor:
 
 
 class _GcnStack(torch.autograd.Function):
-    """Forward: the kernel on CUDA, the plain version on the CPU; weights
+    """Forward: the kernel on CUDA (resident or streamed, as the plan
+    says), the plain version on the CPU; weights
     (F_l, H_l) shared by every sample, or the grouped form (G, F_l, H_l).
     Backward, from the saved inputs (a recompute, as the JAX VJP): the
     backward kernel on CUDA, for either form; on the CPU autograd of the
@@ -1116,7 +1413,9 @@ def fused_gcn_stack(prop: torch.Tensor, x: torch.Tensor,
     `fused_gcn_stack.launches` counts kernel launches of the fp32 forms,
     `fused_gcn_stack.launches_bf16` those of the bf16 form and
     `fused_gcn_stack.launches_backward` those of the backward kernel (one
-    per backward call on CUDA tensors).
+    per backward call on CUDA tensors), each where the shape is held
+    resident; `fused_gcn_stack.launches_streamed` counts the calls, forward
+    or backward and of any form, that run the streamed form instead.
     """
     if prop.dtype == torch.bfloat16:
         # the CPU path checks what the kernel's wrapper checks on CUDA
@@ -1136,3 +1435,4 @@ def fused_gcn_stack(prop: torch.Tensor, x: torch.Tensor,
 fused_gcn_stack.launches = 0
 fused_gcn_stack.launches_bf16 = 0
 fused_gcn_stack.launches_backward = 0
+fused_gcn_stack.launches_streamed = 0

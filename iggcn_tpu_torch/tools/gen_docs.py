@@ -90,6 +90,39 @@ def render_parser(parser: argparse.ArgumentParser) -> str:
     return "\n".join(rows)
 
 
+# the stack shapes `render_stack_forms` tabulates: (N, what gives it),
+# depths and widths
+STACK_NODES = ((90, "the ADNI ROIs"), (270, "`--isMultiFusion`"),
+               (620, "a zoo graph padded to PROTEINS' largest"))
+STACK_DEPTHS = (1, 2, 3, 4, 8, 9)
+STACK_WIDTHS = (5, 16, 32, 64, 128)
+
+
+def render_stack_forms() -> str:
+    """Which design of the GCN-stack kernels each `--layers` x `--hiddens`
+    takes on the card, from the launch plans themselves (`plan_launch`,
+    `plan_backward` at the training batch of 32)."""
+    from iggcn_tpu_torch.ops import gcn_stack
+
+    def form(plan):
+        return "S" if isinstance(plan, gcn_stack.StreamedPlan) else "R"
+
+    rows = ["| N | `--layers` | " + " | ".join(
+        f"H={h}" for h in STACK_WIDTHS) + " |",
+        "|---|---|" + "---|" * len(STACK_WIDTHS)]
+    for n, what in STACK_NODES:
+        f0 = 1 if n == 270 else 3
+        for layers in STACK_DEPTHS:
+            cells = []
+            for h in STACK_WIDTHS:
+                dims = (f0,) + (h,) * layers
+                cells.append(form(gcn_stack.plan_launch(32, n, dims)) + "/"
+                             + form(gcn_stack.plan_backward(32, n, dims)))
+            rows.append(f"| {n} ({what}) | {layers} | " + " | ".join(cells)
+                        + " |")
+    return "\n".join(rows)
+
+
 def render_cli_md() -> str:
     from iggcn_tpu_torch import main as main_mod
     from iggcn_tpu_torch.tools import (doctor, explain, export_cohort,
@@ -114,6 +147,22 @@ def render_cli_md() -> str:
     parts.append(f"| SNP-only | {snp} | `train/snps_trainer.py` |")
     parts.append("")
     parts.append(render_parser(main_mod.build_parser()))
+    parts.append("")
+    parts.append("### GCN-stack shapes on the card\n")
+    parts.append(
+        "Every `--layers` / `--hiddens` runs on the card. The imaging GCN "
+        "stack (`ops/gcn_stack.py:fused_gcn_stack`, in the fused families "
+        "and the zoo's `GCN`) takes one of two designs per shape, chosen "
+        "apart for its forward and its backward. Resident (R): "
+        "`csrc/gcn_stack.cu`, `gcn_stack_bf16.cu` and "
+        "`gcn_stack_backward.cu` hold a sample's P and operands in shared "
+        "memory (232,448 bytes a CTA, a cluster of up to 8 CTAs, up to 8 "
+        "layers); both search grids and the default widths are resident. "
+        "Streamed (S): every other shape, any depth, "
+        "`csrc/gcn_stack_streamed.cu`, which streams P through shared "
+        "memory once per layer. Forward/backward at a batch of 32 (N=270 "
+        "with F0=1, else F0=3):\n")
+    parts.append(render_stack_forms())
 
     for title, blurb, mod in (
         ("## `python -m iggcn_tpu_torch.tools.doctor`",

@@ -51,7 +51,8 @@ from iggcn_tpu_torch.models.go_network import GeneOntologyNetwork
 from iggcn_tpu_torch.ops.gcn_stack import (BF16_KSPLITS, BF16_LEAD,
                                            BF16_MAX_THREADS, MAX_LAYERS,
                                            MAX_THREADS, SMEM_PER_BLOCK,
-                                           PersistentPlan, _c_bf16_plan,
+                                           PersistentPlan, StreamedPlan,
+                                           _c_bf16_plan,
                                            _CBf16Plan, band_copy,
                                            fused_gcn_stack, plan_launch,
                                            stage_schedule)
@@ -236,10 +237,11 @@ def test_bf16_persistent_plan_at_the_serving_shapes():
 
 
 def test_bf16_plan_refuses_what_no_kernel_holds():
-    with pytest.raises(ValueError, match="cannot hold"):
-        plan_launch(256, 1100, (1, 4, 4), elem_bytes=2)
-    with pytest.raises(ValueError, match="cannot hold"):
-        plan_launch(7, 90, (3, 2048), elem_bytes=2)
+    """What no resident kernel holds in bf16 goes to the streamed form (its
+    plan, with bf16 operands); only an invalid argument raises."""
+    for b, n, dims in ((256, 1100, (1, 4, 4)), (7, 90, (3, 2048))):
+        plan = plan_launch(b, n, dims, elem_bytes=2)
+        assert isinstance(plan, StreamedPlan) and plan.elem_bytes == 2
     with pytest.raises(ValueError, match="elem_bytes"):
         plan_launch(7, 90, (3, 16), elem_bytes=1)
 

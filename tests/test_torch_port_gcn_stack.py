@@ -14,8 +14,8 @@ import torch
 from iggcn_tpu.ops.pallas_gcn import fused_gcn_stack as jax_fused
 from iggcn_tpu.ops.pallas_gcn import gcn_stack_reference as jax_reference
 from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
-from iggcn_tpu_torch.ops.gcn_stack import (SMEM_PER_BLOCK, _check_inputs,
-                                           fused_gcn_stack,
+from iggcn_tpu_torch.ops.gcn_stack import (SMEM_PER_BLOCK, StreamedPlan,
+                                           _check_inputs, fused_gcn_stack,
                                            gcn_stack_reference, plan_launch)
 
 # (N, F0, L, H) of both search grids (main.py:_combos): the default 90-ROI
@@ -144,12 +144,12 @@ def test_plan_keeps_p_resident_within_shared_memory(n, f0, layers, hidden):
 
 
 def test_plan_refuses_what_the_kernel_cannot_hold():
-    with pytest.raises(ValueError, match="cannot hold"):
-        plan_launch(256, 90, (3, 4096))
-    with pytest.raises(ValueError, match="cannot hold"):
-        plan_launch(256, 700, (1, 4, 4))    # 1.96 MB of P: > 8 CTAs' worth
-    with pytest.raises(ValueError, match="layers"):
-        plan_launch(256, 90, (3,) + (16,) * 9)
+    """What the resident kernel cannot hold goes to the streamed form (its
+    plan, not an error); only an invalid shape raises."""
+    for dims, n in (((3, 4096), 90),
+                    ((1, 4, 4), 700),     # 1.96 MB of P: > 8 CTAs' worth
+                    ((3,) + (16,) * 9, 90)):
+        assert isinstance(plan_launch(256, n, dims), StreamedPlan)
     with pytest.raises(ValueError, match="width >= 1"):
         plan_launch(256, 90, (3, 0))
 

@@ -21,7 +21,8 @@ import torch
 from iggcn_tpu.ops.pallas_gcn import fused_gcn_stack as jax_fused
 from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
 from iggcn_tpu_torch.ops.gcn_stack import (MAX_LAYERS, SMEM_PER_BLOCK,
-                                           STATIC_SMEM, _CBackwardPlan,
+                                           STATIC_SMEM, StreamedPlan,
+                                           _CBackwardPlan,
                                            fused_gcn_stack,
                                            gcn_stack_backward_reference,
                                            gcn_stack_reference,
@@ -257,12 +258,12 @@ def test_plan_backward_exists_wherever_plan_launch_does():
 
 
 def test_plan_backward_refuses_what_it_cannot_hold():
-    with pytest.raises(ValueError, match="cannot hold"):
-        plan_backward(32, 90, (3, 256, 256))
-    with pytest.raises(ValueError, match="cannot hold"):
-        plan_backward(32, 700, (1, 4, 4))
-    with pytest.raises(ValueError, match="layers"):
-        plan_backward(32, 90, (3,) + (16,) * (MAX_LAYERS + 1))
+    """What the resident backward cannot hold goes to the streamed form
+    (its plan, not an error); only a grid past the launch limits raises."""
+    for dims, n in (((3, 256, 256), 90), ((1, 4, 4), 700),
+                    ((3,) + (16,) * (MAX_LAYERS + 1), 90)):
+        plan = plan_backward(32, n, dims)
+        assert isinstance(plan, StreamedPlan) and plan.backward
     with pytest.raises(ValueError, match="CTAs"):
         plan_backward(2 ** 31, 90, (3, 16, 16))
 
