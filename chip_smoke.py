@@ -219,16 +219,17 @@ failure propagates and the script exits non-zero:
      both P layouts (rtol 1e-4 / atol 1e-5) and the backward, all four
      gradients (rtol/atol 1e-4), at `STREAMED_SHAPES` (N=90 at 2 and 3
      layers of 128 and at 9 of 16, N=270 at 3 of 32 and 1 of 64, N=620
-     at 3 of 32); the grouped form at 5 x 32 x (90, 3, 3 x 128); the bf16
-     form at `STREAMED_BF16`. Warm and cold times of the forward and the
-     backward at the flagship's (32, 90, 3, 3 x 128) and the zoo's (32,
-     620, 3, 3 x 32) beside the plain versions, the library yardsticks
-     and the bounds. Then three CLI routes, 1 epoch each, with the loop's
-     launches split over the forms and six card steps against the CPU
-     under phase 7's rules: the flagship `--layers 3 --hiddens 128`,
-     `--isMultiFusion --layers 3 --hiddens 32`, and the zoo's `--model
-     GCN` over a PROTEINS-shaped TU layout the script writes
-     (`write_tu_layout`: 400 graphs, the largest of 620 nodes).
+     at 3 of 32, 3 of 16 and 2 of 10); the grouped form at 5 x 32 x (90,
+     3, 3 x 128); the bf16 form at `STREAMED_BF16`. Warm and cold times of
+     the forward and the backward at the flagship's (32, 90, 3, 3 x 128)
+     and the zoo's (32, 620, 3, 3 x 32, 3 x 16 and 2 x 10) beside the
+     plain versions, the library yardsticks and the bounds. Then three
+     CLI routes, 1 epoch each, with the loop's launches split over the
+     forms and six card steps against the CPU under phase 7's rules: the
+     flagship `--layers 3 --hiddens 128`, `--isMultiFusion --layers 3
+     --hiddens 32`, and the zoo's `--model GCN` over a PROTEINS-shaped TU
+     layout the script writes (`write_tu_layout`: 400 graphs, the largest
+     of 620 nodes).
 
 Every route's launches are counted for both kernels of the fp32 stack,
 the forward and its backward: the loop's count is the forward's per
@@ -3604,20 +3605,26 @@ def phase_bf16(dev, card_name, fp32_model, fp32_served, cohort, artifacts,
 # (B, N, F0, widths) of the streamed form's checks: the flagship at 2 and
 # 3 layers of 128 (at 2 only the backward streams), 9 layers, the
 # multi-fusion cohort at 3 layers of 32 (only the backward streams) and 1
-# of 64 (only the forward), and the zoo's GCN at PROTEINS' 620 nodes
+# of 64 (only the forward), and the zoo's GCN at PROTEINS' 620 nodes at 3
+# layers of 32 and at two points of its search grid, 3 of 16 and 2 of 10
 STREAMED_SHAPES = [(32, 90, 3, (128, 128)), (32, 90, 3, (128, 128, 128)),
                    (32, 90, 3, (16,) * 9), (32, 270, 1, (32, 32, 32)),
-                   (32, 270, 1, (64,)), (32, 620, 3, (32, 32, 32))]
+                   (32, 270, 1, (64,)), (32, 620, 3, (32, 32, 32)),
+                   (32, 620, 3, (16, 16, 16)), (32, 620, 3, (10, 10))]
 STREAMED_GROUPED = [(5, 32, 90, 3, (128, 128, 128))]
 # the bf16 form's streamed shapes: a bundle trained at --layers 3
 # --hiddens 128 served at batch 256, and N=620 at three layers of 32 (at
 # 620 x (16, 16) the bf16 form stays on the resident cluster design)
 STREAMED_BF16 = [(256, 90, 3, (128, 128, 128)), (256, 620, 3, (32, 32, 32))]
-# timed: the flagship's widest training shape and the zoo's (name, B, N,
-# F0, widths)
+# timed: the flagship's widest training shape and the zoo's at 3 x 32 and
+# at two points of its search grid (name, B, N, F0, widths)
 STREAMED_TIMED = [("flagship training --layers 3 --hiddens 128", 32, 90, 3,
                    (128, 128, 128)),
-                  ("zoo GCN training, 620 nodes", 32, 620, 3, (32, 32, 32))]
+                  ("zoo GCN training, 620 nodes", 32, 620, 3, (32, 32, 32)),
+                  ("zoo GCN grid --layers 3 --hiddens 16, 620 nodes", 32, 620,
+                   3, (16, 16, 16)),
+                  ("zoo GCN grid --layers 2 --hiddens 10, 620 nodes", 32, 620,
+                   3, (10, 10))]
 # the routes: one epoch each; the TU layout's graphs leave fold 0 the six
 # train batches of 32 that the card-vs-CPU steps take
 STREAMED_EPOCHS = 1

@@ -21,33 +21,52 @@
 // the operations bound it; the zoo's GCN at N=620, B=32 F0=3 (32, 32,
 // 32), 2.45 GFLOP take 36.6 us against 57 MB in 17 us. The backward does
 // three times the forward's products: 1.18 and 7.35 GFLOP, 17.6 and 110
-// us.
+// us. At the zoo's narrower grid widths (16, 10) the bytes bound it.
 //
-// Design, against that bound (right and simple first):
-// - One templated batched tiled product, C = A B per sample, with every
-//   operand addressed by its own strides: P in either layout (as
+// Design, against that bound:
+// - One batched tiled product, C = A B per sample, with every operand
+//   addressed by its own strides: P in either layout (as
 //   gcn_propagation_matrix returns it, or row-major) and P^T are the same
-//   operand with its strides swapped; the grouped form's weights are
-//   set s / group at a stride (0 for shared weights).
-// - A CTA computes one 64 x 64 block of C for one sample (a 1-D grid:
-//   block rows fastest, then block columns, then samples, so the CTAs of a
-//   sample run together and share its operands in L2). 256 threads, each
-//   a 4 x 4 register tile; fp32 FMAs on the CUDA cores, no TF32, no tensor
-//   cores, K summed in order.
-// - K streams through a ring of 3 stages of 16 in shared memory: fp32
-//   values by 4-byte cp.async (zero-filled past an edge), bf16 values
-//   widened to fp32 on their way in (a plain load: no overlap for them).
-//   Reads past an edge meet zeros, so the tiles need no masks in the loop;
-//   the epilogue writes only values inside C.
-// - Epilogues: the forward's relu(z + b) written straight into layer l's
-//   slice of the JK output, where the next layer reads h_{l+1} in place;
-//   the backward's da with db in an extra row of ones in P^T (one more row
-//   of C), dz formed in the epilogue of e_{l+1} (or of the recompute's
-//   last z) from g and the relu mask of h_{l+1} (= [z_l > 0]).
-// - Launches: 2 per layer in the forward (a_l, then z_l), so 2L; the
-//   backward 2L + up to 3L + 1 (da, dW, e per layer; dP over the
-//   concatenated dz and a, depth sum H, written in P's layout) and one
-//   per-set sum of the dW / db slots.
+//   operand with its strides swapped; the grouped form's weights are set
+//   s / group at a stride (0 for shared weights).
+// - Tiles sized to the product: the plan (ops/gcn_stack.py:choose_tile)
+//   picks one of four compiled BM x BN tiles (kTileM, kTileN): BN the
+//   smallest of 16, 32, 64, 128 that covers C's width (64 above 128), so
+//   that at the layer widths the search grids give (10, 16, 32, 128) at
+//   most 3/8 of a tile's columns idle (64 x 64 left up to 84 % idle), and
+//   BM the narrowest that gives four warps (32; 64 at BN = 16), for the
+//   most CTAs. Each thread holds a 4 x 4 register tile of fp32 FMAs on the
+//   CUDA cores (no TF32, no tensor cores). A CTA is one tile of one sample
+//   (a 1-D grid: tile rows fastest, then tile columns, then samples).
+//   `ksplit` groups of warps split each chunk of K where a CTA would have
+//   fewer than four warps or the batch fewer than two CTAs per SM.
+// - K streams through a ring of 3 stages of 32 in shared memory, each
+//   operand staged along its own contiguous dimension (A as [k][m] or
+//   [m][k], B as [k][n] or [n][k]; template flags AK, BK) by cp.async of
+//   16 bytes (.cg) where the contiguous stride is 1 and base, strides and
+//   batch stride are 16-byte aligned, 8 bytes where they are 8-byte
+//   aligned, 4 otherwise (`a_vec`, `b_vec`, chosen in Python from the
+//   addresses). Edges are zero-filled through cp.async's src-size, so the
+//   main loop needs no masks; bf16 values and the ones row are written by
+//   plain loads and stores. Register tiles read the stage as float4 along
+//   the staged dimension; where that is K, a thread's rows (columns) are
+//   BM/4 (BN/4) apart so that one warp's reads fall on distinct banks.
+//   K is summed in order within a group.
+// - Epilogues: each K group's sums go through shared memory, where the
+//   groups' sums are added in group order and all threads take C's
+//   elements in turn along C's contiguous dimension (coalesced stores).
+//   The forward's relu(z + b) is written straight into layer l's slice of
+//   the JK output, where the next layer reads h_{l+1} in place; where the
+//   tile covers the layer's width and W_{l+1} fits beside the ring (`w2`),
+//   the same epilogue stages h_{l+1}'s rows in shared memory and computes
+//   a_{l+1} = h_{l+1} W_{l+1} for them (summed over H_{l+1} in order), so a
+//   forward is L + 1 launches (x W_0, then one per layer) instead of 2L.
+//   The backward's da with db in an extra row of ones in P^T (one more row
+//   of C), dz formed in the epilogue of e_{l+1} (or of the recompute's last
+//   z) from g and the relu mask of h_{l+1} (= [z_l > 0]).
+// - Launches: the backward's recompute as the forward, then up to 3L + 1
+//   (da, dW, e per layer; dP over the concatenated dz and a, depth sum H,
+//   written in P's layout) and one per-set sum of the dW / db slots.
 // - dW_l and db_l go to one slot per sample, summed per weight set in a
 //   fixed order by sum_streamed_slots (gcn_stack_backward.cu's
 //   sum_weight_slots, copied: tools/gcn_stack_phases.py builds that
@@ -55,12 +74,18 @@
 //   is bit-equal to its repeat.
 //
 // What it costs against the resident design: nothing stays on chip across
-// layers. The resident kernels read P once a call; this design reads it
-// once per layer (L times P's share of the bound's bytes; the backward
-// 2L times), a_l and h_l go through device memory, and every step is a
-// launch of its own. At the shapes above it remains operations-bound in
-// principle, but a 64 x 64 tile leaves half of its columns or more idle
-// at widths of 32 and below.
+// layers. P is read from device memory (or L2) once a layer in the forward
+// and twice a layer in the backward, a_l and h_l go through device memory,
+// and every step is a launch of its own.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/gcn_stack_phases.py
+// --streamed-turns, warm, B=32): the N=620 3 x 32 forward 0.153 ms (4.2x
+// its bound), backward 0.538 ms (4.9x); the flagship's 3 x 128 at N=90
+// 0.053 and 0.179 ms (9.0x, 10.2x). The P-products' main loops run at
+// 31-36 FMA per SM clock at N=620 (a quarter of the CUDA cores' rate);
+// neither deeper rings nor chunks of 64 read faster, and taking K in
+// reverse on every other P-product (to find P in L2) changed nothing, so
+// they wait on the copies' latency rather than on device memory.
 //
 // The launches are listed in Python (ops/gcn_stack.py:_layer_products,
 // _backward_products) as Product records, one per launch. C interface
@@ -72,12 +97,16 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-constexpr int kTile = 64;       // rows and columns of C per CTA
-constexpr int kChunk = 16;      // K per stage
+constexpr int kChunk = 32;      // K per stage
 constexpr int kStages = 3;
-constexpr int kThreads = 256;   // 16 x 16 threads, a 4 x 4 tile each
-constexpr int kStride = kTile + 4;  // floats per K row of a stage
+constexpr int kPad = 4;         // floats after each staged row
+constexpr int kMaxThreads = 512;
+constexpr int kTiles = 4;       // compiled tiles, BM x BN
+constexpr int kTileM[kTiles] = {64, 32, 32, 32};
+constexpr int kTileN[kTiles] = {16, 32, 64, 128};
 constexpr int kReduceThreads = 256;
+// every launch's dynamic shared memory stays under this (the plan keeps it)
+constexpr int kMaxSmemBytes = 227 * 1024;
 
 enum Epilogue { kStore = 0, kRelu = 1, kDa = 2, kGradMask = 3 };
 enum Elem { kF32 = 0, kBf16 = 1 };
@@ -85,43 +114,81 @@ enum Elem { kF32 = 0, kBf16 = 1 };
 // Field for field the ctypes structure _CProduct in ops/gcn_stack.py.
 // Operand X's element (s, i, j) is X + (s / x_div) * x_bs + i * x_s0 +
 // j * x_s1, in values of its type (x_type); c's is c + s * c_bs + i * c_s0
-// + j * c_s1, and d's, g's and mask's the same with a column stride of 1.
+// + j * c_s1, and d's, g's, mask's and c2's the same with a column stride
+// of 1; w2's (s, i, j) is w2 + (s / w2_div) * w2_bs + i * n2 + j.
 struct Product {
   const void* a;      // A (m x k): rows from a_rows on read 0 (1: the ones row)
   const void* b;      // B (k x n)
   const void* bias;   // kRelu: bias(s, j) = bias + (s / bias_div) * bias_bs + j
+  const void* w2;     // kRelu: W_{l+1} (n x n2) for a_{l+1}, or null
   const float* g;     // kRelu (with d), kGradMask: the output's gradient
   const float* mask;  // kGradMask: h, whose [h > 0] masks
   float* c;
   float* d;           // kRelu: dz (or null); kDa: db, one row per sample
-  long long a_bs, a_s0, a_s1, b_bs, b_s0, b_s1, bias_bs, g_bs, g_s0, mask_bs,
-      mask_s0, c_bs, c_s0, c_s1, d_bs, d_s0;
+  float* c2;          // with w2: a_{l+1} (m x n2)
+  long long a_bs, a_s0, a_s1, b_bs, b_s0, b_s1, bias_bs, w2_bs, g_bs, g_s0,
+      mask_bs, mask_s0, c_bs, c_s0, c_s1, d_bs, d_s0, c2_bs, c2_s0;
   int m, n, k;
   int a_rows;         // rows of A read from memory
   int ones;           // row a_rows of A is ones over k
   int epi;
-  int a_div, b_div, bias_div;
-  int a_type, b_type, bias_type;
+  int n2;             // with w2: columns of a_{l+1}
+  int a_div, b_div, bias_div, w2_div;
+  int a_type, b_type, bias_type, w2_type;
+  int tile;           // index into kTileM / kTileN
+  int ksplit;         // groups of warps that split K: 1, 2, 4 or 8
+  int a_k, b_k;       // the operand is staged along K (else along m / n)
+  int a_vec, b_vec, w2_vec;   // floats per copy: 4, 2 or 1
 };
 
 namespace {
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Built with -DGCN_STACK_PHASES (tools/gcn_stack_phases.py --streamed does),
+// thread 0 of every CTA records %globaltimer and clock64 at four points of
+// launch `step` of a list: its start, the prologue's copies issued, the
+// main loop's end and the epilogue's end; otherwise phase() compiles to
+// nothing.
+#ifdef GCN_STACK_PHASES
+constexpr int kPhaseSlots = 4;
+constexpr int kPhaseCtas = 8192;
+constexpr int kPhaseLaunches = 32;
+__device__ unsigned long long
+    g_phase_ns[kPhaseLaunches * kPhaseCtas * kPhaseSlots];
+__device__ long long g_phase_clk[kPhaseLaunches * kPhaseCtas * kPhaseSlots];
+__device__ __forceinline__ void phase(int step, int slot) {
+  if (threadIdx.x == 0 && blockIdx.x < kPhaseCtas && step < kPhaseLaunches) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    const long long at =
+        (static_cast<long long>(step) * kPhaseCtas + blockIdx.x) * kPhaseSlots +
+        slot;
+    g_phase_ns[at] = ns;
+    g_phase_clk[at] = clock64();
+  }
+}
+#else
+__device__ __forceinline__ void phase(int, int) {}
+#endif
+
+__device__ __forceinline__ float load_value(const void* base, int type,
+                                            long long at) {
+  return type == kBf16
+             ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[at])
+             : static_cast<const float*>(base)[at];
 }
 
-// One value into a stage: fp32 by a 4-byte cp.async that writes 0 where
-// the value is outside its operand (src-size 0); bf16 widened by a load.
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      bool valid) {
+// cp.async of V floats that writes zeros past the first `valid` of them
+template <int V>
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int valid) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
-                                      bool valid) {
-  *dst = valid ? __bfloat162float(*src) : 0.f;
+  if constexpr (V == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
+                 "l"(src), "r"(valid * 4));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(addr),
+                 "l"(src), "n"(V * 4), "r"(valid * 4));
+  }
 }
 
 __device__ __forceinline__ void commit() {
@@ -132,118 +199,347 @@ __device__ __forceinline__ void wait_pending() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage chunk `c` of K: as[kk][mm] = A(m0 + mm, c * kChunk + kk) and
-// bs[kk][nn] = B(c * kChunk + kk, n0 + nn). Each operand's threads walk
-// its contiguous dimension fastest, so that a warp's loads coalesce.
-template <typename TA, typename TB>
-__device__ __forceinline__ void load_chunk(const Product& p, const TA* a,
-                                           const TB* b, int m0, int n0, int c,
-                                           float (*as)[kStride],
-                                           float (*bs)[kStride]) {
-  const int k0 = c * kChunk;
-  const bool a_m_fast = p.a_s0 == 1;
-  for (int e = threadIdx.x; e < kTile * kChunk; e += kThreads) {
-    const int mm = a_m_fast ? e % kTile : e / kChunk;
-    const int kk = a_m_fast ? e / kTile : e % kChunk;
-    const int m = m0 + mm, k = k0 + kk;
-    if (p.ones && m == p.a_rows) {
-      as[kk][mm] = k < p.k ? 1.f : 0.f;
-    } else {
-      const bool valid = m < p.a_rows && k < p.k;
-      stage(&as[kk][mm], valid ? a + m * p.a_s0 + k * p.a_s1 : a, valid);
+// An operand as the loader sees it: X(r, k) = base + r * s_r + k * s_k
+// for r < rows (m of A, n of B) and k < depth, zero elsewhere, and the
+// ones row `ones` (-1: none) reading 1 for k < depth.
+struct Operand {
+  const void* base;
+  long long s_r, s_k;
+  int rows, depth, ones, type, vec;
+};
+
+// Stage chunk k0 .. k0 + kChunk of X's rows r0 .. r0 + R into `xs`: as
+// xs[r][k] (row stride kChunk + kPad) where XK, else xs[k][r] (row stride
+// R + kPad), in copies of V values along the staged dimension (zero-filled
+// past the edge). Vectors wholly outside X are zeros stored, those that
+// meet the ones row and bf16 values plain loads and stores.
+template <int R, bool XK, int V>
+__device__ __forceinline__ void stage_vectors(float* xs, const Operand& x,
+                                              int r0, int k0, int tid,
+                                              int nthreads) {
+  constexpr int kLd = XK ? kChunk + kPad : R + kPad;
+  constexpr int kPer = (XK ? kChunk : R) / V;   // vectors along a line
+  constexpr int kCount = (XK ? R : kChunk) * kPer;
+  const bool plain = x.type == kBf16;
+  for (int e = tid; e < kCount; e += nthreads) {
+    const int line = e / kPer, at = e % kPer * V;
+    const int r = XK ? line : at, kk = XK ? at : line;
+    float* dst = xs + (XK ? r * kLd + kk : kk * kLd + r);
+    const int gr = r0 + r, gk = k0 + kk;
+    const bool meets_ones =
+        x.ones >= 0 && (XK ? gr == x.ones : gr <= x.ones && x.ones < gr + V);
+    if (plain || meets_ones) {
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const int rr = XK ? gr : gr + q, kq = XK ? gk + q : gk;
+        float v = 0.f;
+        if (kq < x.depth) {
+          if (rr == x.ones) {
+            v = 1.f;
+          } else if (rr < x.rows) {
+            v = load_value(x.base, x.type, rr * x.s_r + kq * x.s_k);
+          }
+        }
+        dst[q] = v;
+      }
+      continue;
     }
-  }
-  const bool b_n_fast = p.b_s1 == 1;
-  for (int e = threadIdx.x; e < kTile * kChunk; e += kThreads) {
-    const int nn = b_n_fast ? e % kTile : e / kChunk;
-    const int kk = b_n_fast ? e / kTile : e % kChunk;
-    const int n = n0 + nn, k = k0 + kk;
-    const bool valid = n < p.n && k < p.k;
-    stage(&bs[kk][nn], valid ? b + k * p.b_s0 + n * p.b_s1 : b, valid);
+    int valid = XK ? (gr < x.rows ? x.depth - gk : 0)
+                   : (gk < x.depth ? x.rows - gr : 0);
+    if (valid <= 0) {            // wholly outside: zeros without a copy
+#pragma unroll
+      for (int q = 0; q < V; ++q) dst[q] = 0.f;
+      continue;
+    }
+    copy_async<V>(dst, static_cast<const float*>(x.base) + gr * x.s_r +
+                           gk * x.s_k,
+                  valid > V ? V : valid);
   }
 }
 
-template <typename TA, typename TB, typename TC>
-__global__ void __launch_bounds__(kThreads)
-gcn_stack_streamed_product(const Product p) {
-  __shared__ __align__(16) float as[kStages][kChunk][kStride];
-  __shared__ __align__(16) float bs[kStages][kChunk][kStride];
-  const int m_tiles = (p.m + kTile - 1) / kTile;
-  const int n_tiles = (p.n + kTile - 1) / kTile;
+template <int R, bool XK>
+__device__ __forceinline__ void stage(float* xs, const Operand& x, int r0,
+                                      int k0, int tid, int nthreads) {
+  if (x.vec == 4) {
+    stage_vectors<R, XK, 4>(xs, x, r0, k0, tid, nthreads);
+  } else if (x.vec == 2) {
+    stage_vectors<R, XK, 2>(xs, x, r0, k0, tid, nthreads);
+  } else {
+    stage_vectors<R, XK, 1>(xs, x, r0, k0, tid, nthreads);
+  }
+}
+
+// W_{l+1} (rows x cols, row stride cols in memory) into ws (row stride ld)
+__device__ __forceinline__ void stage_weight(float* ws, int ld,
+                                             const void* base, int type,
+                                             int rows, int cols, int vec,
+                                             int tid, int nthreads) {
+  const int per = (cols + vec - 1) / vec;
+  for (int e = tid; e < rows * per; e += nthreads) {
+    const int r = e / per, c = e % per * vec;
+    float* dst = ws + r * ld + c;
+    const long long at = static_cast<long long>(r) * cols + c;
+    const int valid = cols - c < vec ? cols - c : vec;
+    if (type == kBf16 || vec == 1) {
+      for (int q = 0; q < valid; ++q) dst[q] = load_value(base, type, at + q);
+    } else if (vec == 4) {
+      copy_async<4>(dst, static_cast<const float*>(base) + at, valid);
+    } else {
+      copy_async<2>(dst, static_cast<const float*>(base) + at, valid);
+    }
+  }
+}
+
+template <int BM, int BN, bool AK, bool BK>
+struct Tile {
+  static constexpr int kAStage =
+      AK ? BM * (kChunk + kPad) : kChunk * (BM + kPad);
+  static constexpr int kBStage =
+      BK ? BN * (kChunk + kPad) : kChunk * (BN + kPad);
+  static constexpr int kRing = kStages * (kAStage + kBStage);
+  static constexpr int kGroup = BM / 4 * (BN / 4);   // threads of a K group
+  static constexpr int kWarpX = BN / 4 < 8 ? BN / 4 : 8;  // lanes along n
+  static constexpr int kWarpY = 32 / kWarpX;
+  static constexpr int kWarpsX = BN / 4 / kWarpX;
+};
+
+// floats of dynamic shared memory one launch of the tile takes: the ring,
+// reused after the main loop for each K group's sums (row stride BN + 1)
+// and h_{l+1}'s rows (transposed), then W_{l+1}
+template <int BM, int BN, bool AK, bool BK>
+__host__ __device__ inline int smem_floats(const Product& p) {
+  const int ring = Tile<BM, BN, AK, BK>::kRing;
+  const int sums = p.ksplit * BM * (BN + 1) +
+                   (p.w2 != nullptr ? BN * (BM + kPad) : 0);
+  return (ring > sums ? ring : sums) +
+         (p.w2 != nullptr ? p.n * ((p.n2 + 3) / 4 * 4) : 0);
+}
+
+// (a minimum of 1 CTA an SM: with the maximum alone, ptxas held the
+// instantiations with both operands staged along m / n to 64 registers,
+// with spills)
+template <int BM, int BN, bool AK, bool BK>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+gcn_stack_streamed_product(const Product p, int step) {
+  phase(step, 0);
+  using T = Tile<BM, BN, AK, BK>;
+  extern __shared__ __align__(16) float smem[];
+  const int m_tiles = (p.m + BM - 1) / BM;
+  const int n_tiles = (p.n + BN - 1) / BN;
   const int block = static_cast<int>(blockIdx.x);
-  const int m0 = block % m_tiles * kTile;
-  const int n0 = block / m_tiles % n_tiles * kTile;
+  const int m0 = block % m_tiles * BM;
+  const int n0 = block / m_tiles % n_tiles * BN;
   const int s = block / m_tiles / n_tiles;
-  const TA* a = static_cast<const TA*>(p.a) + (s / p.a_div) * p.a_bs;
-  const TB* b = static_cast<const TB*>(p.b) + (s / p.b_div) * p.b_bs;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int group = tid / T::kGroup, t = tid % T::kGroup;
+  const int lane = t % 32, warp = t / 32;
+  const int tx = warp % T::kWarpsX * T::kWarpX + lane % T::kWarpX;
+  const int ty = warp / T::kWarpsX * T::kWarpY + lane / T::kWarpX;
+  const int sub = kChunk / p.ksplit;            // K per group per chunk
+
+  const Operand a{static_cast<const char*>(p.a) +
+                      static_cast<long long>(s / p.a_div) * p.a_bs *
+                          (p.a_type == kBf16 ? 2 : 4),
+                  p.a_s0, p.a_s1, p.a_rows, p.k, p.ones ? p.a_rows : -1,
+                  p.a_type, p.a_vec};
+  const Operand b{static_cast<const char*>(p.b) +
+                      static_cast<long long>(s / p.b_div) * p.b_bs *
+                          (p.b_type == kBf16 ? 2 : 4),
+                  p.b_s1, p.b_s0, p.n, p.k, -1, p.b_type, p.b_vec};
+  const int w2_ld = (p.n2 + 3) / 4 * 4;
+  float* w2s = smem + smem_floats<BM, BN, AK, BK>(p) -
+               (p.w2 != nullptr ? p.n * w2_ld : 0);
 
   float acc[4][4] = {};
   const int chunks = (p.k + kChunk - 1) / kChunk;
+  if (p.w2 != nullptr) {
+    stage_weight(w2s, w2_ld,
+                 static_cast<const char*>(p.w2) +
+                     static_cast<long long>(s / p.w2_div) * p.w2_bs *
+                         (p.w2_type == kBf16 ? 2 : 4),
+                 p.w2_type, p.n, p.n2, p.w2_vec, tid, nthreads);
+  }
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
-    if (c < chunks) load_chunk(p, a, b, m0, n0, c, as[c], bs[c]);
+    if (c < chunks) {
+      float* st = smem + c * (T::kAStage + T::kBStage);
+      stage<BM, AK>(st, a, m0, c * kChunk, tid, nthreads);
+      stage<BN, BK>(st + T::kAStage, b, n0, c * kChunk, tid, nthreads);
+    }
     commit();
   }
+  phase(step, 1);
   for (int c = 0; c < chunks; ++c) {
     wait_pending<kStages - 2>();   // chunk c is in (this thread's copies)
     __syncthreads();               // everyone's; and chunk c - 1 is done
     const int next = c + kStages - 1;
     if (next < chunks) {
-      load_chunk(p, a, b, m0, n0, next, as[next % kStages], bs[next % kStages]);
+      float* st = smem + next % kStages * (T::kAStage + T::kBStage);
+      stage<BM, AK>(st, a, m0, next * kChunk, tid, nthreads);
+      stage<BN, BK>(st + T::kAStage, b, n0, next * kChunk, tid, nthreads);
     }
     commit();
-    const int st = c % kStages;
+    const float* as = smem + c % kStages * (T::kAStage + T::kBStage);
+    const float* bs = as + T::kAStage;
+    const int k_lo = group * sub;
+    const int k_hi = min(k_lo + sub, p.k - c * kChunk);
+    if constexpr (!AK && !BK) {   // both staged along m / n: a k at a time
+#pragma unroll 4
+      for (int k = k_lo; k < k_hi; ++k) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(&as[k * (BM + kPad) + ty * 4]);
+        const float4 y =
+            *reinterpret_cast<const float4*>(&bs[k * (BN + kPad) + tx * 4]);
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+        const float ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[st][kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[st][kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
+          }
+        }
+      }
+      continue;
+    }
+#pragma unroll 2
+    for (int k = k_lo; k < k_hi; k += 4) {
+      float av[4][4], bv[4][4];     // av[i][q] = A(i, k + q), bv[q][j]
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      for (int u = 0; u < 4; ++u) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            AK ? &as[(ty + u * (BM / 4)) * (kChunk + kPad) + k]
+               : &as[(k + u) * (BM + kPad) + ty * 4]);
+        const float4 y = *reinterpret_cast<const float4*>(
+            BK ? &bs[(tx + u * (BN / 4)) * (kChunk + kPad) + k]
+               : &bs[(k + u) * (BN + kPad) + tx * 4]);
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+        const float ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (AK) {
+            av[u][v] = xs[v];
+          } else {
+            av[v][u] = xs[v];
+          }
+          if (BK) {
+            bv[v][u] = ys[v];
+          } else {
+            bv[u][v] = ys[v];
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = fmaf(av[i][q], bv[q][j], acc[i][j]);
+          }
+        }
       }
     }
   }
   wait_pending<0>();
+  __syncthreads();               // the ring is free
+  phase(step, 2);
 
-  const long long ss = s;
+  // Each group's sums into shared memory, sums[group][row][col] (row
+  // stride BN + 1); then every thread takes elements of C in turn, rows
+  // fastest where C's rows are contiguous, else columns, adds the groups'
+  // sums in group order and applies the epilogue.
+  constexpr int kLd = BN + 1;
+  float* sums = smem + group * BM * kLd;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= p.m) break;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col >= p.n) break;
-      const float v = acc[i][j];
-      float* c = p.c + ss * p.c_bs + row * p.c_s0 + col * p.c_s1;
-      if (p.epi == kRelu) {
-        const TC* bias = static_cast<const TC*>(p.bias) +
-                         (s / p.bias_div) * p.bias_bs;
-        const float z = v + widen(bias[col]);
-        *c = z > 0.f ? z : 0.f;
-        if (p.d != nullptr) {
-          const float gv = p.g[ss * p.g_bs + row * p.g_s0 + col];
-          p.d[ss * p.d_bs + row * p.d_s0 + col] = gv * (z > 0.f ? 1.f : 0.f);
+      sums[(AK ? ty + i * (BM / 4) : ty * 4 + i) * kLd +
+           (BK ? tx + j * (BN / 4) : tx * 4 + j)] = acc[i][j];
+    }
+  }
+  float* hs = smem + p.ksplit * BM * kLd;   // with w2: hs[col][row]
+  const long long ss = s;
+  const int bias_at = s / p.bias_div;
+  __syncthreads();
+  const bool rows_fast = p.c_s0 == 1 && p.c_s1 != 1;
+  for (int e = tid; e < BM * BN; e += nthreads) {
+    const int r = rows_fast ? e % BM : e / BN;
+    const int cl = rows_fast ? e / BM : e % BN;
+    float v = smem[r * kLd + cl];
+    for (int g = 1; g < p.ksplit; ++g) v += smem[(g * BM + r) * kLd + cl];
+    const int row = m0 + r, col = n0 + cl;
+    if (p.epi == kRelu) {
+      float h = 0.f;
+      if (col < p.n) {
+        const float z = v + load_value(p.bias, p.bias_type,
+                                       bias_at * p.bias_bs + col);
+        h = z > 0.f ? z : 0.f;
+        if (row < p.m) {
+          p.c[ss * p.c_bs + row * p.c_s0 + col * p.c_s1] = h;
+          if (p.d != nullptr) {
+            p.d[ss * p.d_bs + row * p.d_s0 + col] =
+                p.g[ss * p.g_bs + row * p.g_s0 + col] * (z > 0.f ? 1.f : 0.f);
+          }
         }
-      } else if (p.epi == kDa) {
-        if (row < p.a_rows) {
-          *c = v;
-        } else {
-          p.d[ss * p.d_bs + col] = v;
-        }
-      } else if (p.epi == kGradMask) {
-        const float gv = p.g[ss * p.g_bs + row * p.g_s0 + col];
-        const float h = p.mask[ss * p.mask_bs + row * p.mask_s0 + col];
-        *c = (gv + v) * (h > 0.f ? 1.f : 0.f);
-      } else {
+      }
+      if (p.w2 != nullptr) hs[cl * (BM + kPad) + r] = h;
+      continue;
+    }
+    if (row >= p.m || col >= p.n) continue;
+    float* c = p.c + ss * p.c_bs + row * p.c_s0 + col * p.c_s1;
+    if (p.epi == kDa) {
+      if (row < p.a_rows) {
         *c = v;
+      } else {
+        p.d[ss * p.d_bs + col] = v;
+      }
+    } else if (p.epi == kGradMask) {
+      const float gv = p.g[ss * p.g_bs + row * p.g_s0 + col];
+      const float hm = p.mask[ss * p.mask_bs + row * p.mask_s0 + col];
+      *c = (gv + v) * (hm > 0.f ? 1.f : 0.f);
+    } else {
+      *c = v;
+    }
+  }
+  if (p.w2 != nullptr) {
+    // a_{l+1} = h_{l+1} W_{l+1} for the tile's rows, in 4 x 4 tiles over
+    // every thread, summed over H_{l+1} in order
+    __syncthreads();
+    const int row_tiles = BM / 4, tiles = row_tiles * ((p.n2 + 3) / 4);
+    for (int u = tid; u < tiles; u += nthreads) {
+      const int tr = u % row_tiles * 4, tc = u / row_tiles * 4;
+      float out[4][4] = {};
+      for (int k = 0; k < p.n; ++k) {
+        const float4 hv =
+            *reinterpret_cast<const float4*>(&hs[k * (BM + kPad) + tr]);
+        const float4 wv =
+            *reinterpret_cast<const float4*>(&w2s[k * w2_ld + tc]);
+        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+        const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            out[i][j] = fmaf(hr[i], wr[j], out[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + tr + i;
+        if (row >= p.m) break;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (tc + j < p.n2) {
+            p.c2[ss * p.c2_bs + row * p.c2_s0 + tc + j] = out[i][j];
+          }
+        }
       }
     }
   }
+  phase(step, 3);
 }
 
 // out[s][e] = sum over the `slots` slots of set s (in order) of ws[.][e]
@@ -259,22 +555,109 @@ sum_streamed_slots(const float* __restrict__ ws, float* __restrict__ out,
   out[static_cast<long long>(blockIdx.y) * wsz + e] = s;
 }
 
-template <typename TA, typename TB, typename TC>
-cudaError_t launch(const Product& p, unsigned blocks, cudaStream_t stream) {
-  gcn_stack_streamed_product<TA, TB, TC><<<blocks, kThreads, 0, stream>>>(p);
+template <int BM, int BN, bool AK, bool BK>
+cudaError_t launch_tile(const Product& p, int step, unsigned blocks,
+                        int device, cudaStream_t stream) {
+  auto kernel = gcn_stack_streamed_product<BM, BN, AK, BK>;
+  static unsigned long long ready = 0;   // devices whose limit is raised
+  if (device >= 64 || !(ready >> device & 1ULL)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+    if (err != cudaSuccess) return err;
+    if (device < 64) ready |= 1ULL << device;
+  }
+  kernel<<<blocks, BM / 4 * (BN / 4) * p.ksplit,
+           4 * smem_floats<BM, BN, AK, BK>(p), stream>>>(p, step);
   return cudaGetLastError();
 }
 
-template <typename TA, typename TB>
-cudaError_t launch_c(const Product& p, unsigned blocks, cudaStream_t stream) {
-  return p.bias_type == kBf16 ? launch<TA, TB, __nv_bfloat16>(p, blocks, stream)
-                              : launch<TA, TB, float>(p, blocks, stream);
+template <int BM, int BN>
+cudaError_t launch_layout(const Product& p, int step, unsigned blocks,
+                          int device, cudaStream_t stream) {
+  if (p.a_k) {
+    return p.b_k ? launch_tile<BM, BN, true, true>(p, step, blocks, device,
+                                                   stream)
+                 : launch_tile<BM, BN, true, false>(p, step, blocks, device,
+                                                    stream);
+  }
+  return p.b_k ? launch_tile<BM, BN, false, true>(p, step, blocks, device,
+                                                  stream)
+               : launch_tile<BM, BN, false, false>(p, step, blocks, device,
+                                                   stream);
 }
 
-template <typename TA>
-cudaError_t launch_b(const Product& p, unsigned blocks, cudaStream_t stream) {
-  return p.b_type == kBf16 ? launch_c<TA, __nv_bfloat16>(p, blocks, stream)
-                           : launch_c<TA, float>(p, blocks, stream);
+cudaError_t launch(const Product& p, int step, unsigned blocks, int device,
+                   cudaStream_t stream) {
+#define GCN_STACK_TILE(T)                                                 \
+  case T:                                                                 \
+    return launch_layout<kTileM[T], kTileN[T]>(p, step, blocks, device,   \
+                                               stream);
+  switch (p.tile) {
+    GCN_STACK_TILE(0) GCN_STACK_TILE(1) GCN_STACK_TILE(2) GCN_STACK_TILE(3)
+    default: return cudaErrorInvalidValue;
+  }
+#undef GCN_STACK_TILE
+}
+
+int smem_bytes(const Product& p) {
+#define GCN_STACK_SMEM(T)                                                     \
+  case 4 * T: return 4 * smem_floats<kTileM[T], kTileN[T], false, false>(p);  \
+  case 4 * T + 1: return 4 * smem_floats<kTileM[T], kTileN[T], false, true>(p); \
+  case 4 * T + 2: return 4 * smem_floats<kTileM[T], kTileN[T], true, false>(p); \
+  case 4 * T + 3: return 4 * smem_floats<kTileM[T], kTileN[T], true, true>(p);
+  switch (p.tile * 4 + (p.a_k ? 2 : 0) + (p.b_k ? 1 : 0)) {
+    GCN_STACK_SMEM(0) GCN_STACK_SMEM(1) GCN_STACK_SMEM(2) GCN_STACK_SMEM(3)
+    default: return kMaxSmemBytes + 1;
+  }
+#undef GCN_STACK_SMEM
+}
+
+// A copy of `vec` floats along the staged dimension needs a stride of 1
+// there and the base, the other stride and the batch stride aligned to it.
+bool copies_fit(const void* base, int type, int vec, long long contiguous,
+                long long other, long long batch) {
+  if (vec == 1) return true;
+  if ((vec != 2 && vec != 4) || type != kF32 || contiguous != 1) return false;
+  return reinterpret_cast<unsigned long long>(base) % (4 * vec) == 0 &&
+         other % vec == 0 && batch % vec == 0;
+}
+
+// CTAs of one launch over `batch` samples; -1 for a tile that does not
+// exist or a grid past the launch limit
+long long product_blocks(const Product& p, int batch) {
+  if (p.tile < 0 || p.tile >= kTiles || p.m < 1 || p.n < 1) return -1;
+  const long long blocks =
+      static_cast<long long>((p.m + kTileM[p.tile] - 1) / kTileM[p.tile]) *
+      ((p.n + kTileN[p.tile] - 1) / kTileN[p.tile]) * batch;
+  return blocks < (1LL << 31) ? blocks : -1;
+}
+
+bool product_valid(const Product& p, int batch) {
+  const int ks = p.ksplit;
+  if (product_blocks(p, batch) < 0 ||
+      (ks != 1 && ks != 2 && ks != 4 && ks != 8) ||
+      kTileM[p.tile] / 4 * (kTileN[p.tile] / 4) * ks > kMaxThreads) {
+    return false;
+  }
+  const bool fused = p.w2 != nullptr;
+  return p.k >= 1 && p.a_rows >= 0 && p.a_rows <= p.m &&
+         (!p.ones || p.a_rows + 1 == p.m) && p.a_div >= 1 && p.b_div >= 1 &&
+         p.bias_div >= 1 && p.w2_div >= 1 && p.a != nullptr &&
+         p.b != nullptr && p.c != nullptr &&
+         (p.epi == kRelu || p.epi == kStore || p.epi == kDa ||
+          p.epi == kGradMask) &&
+         (p.epi != kRelu || p.bias != nullptr) &&
+         (p.epi != kDa || !p.ones || p.d != nullptr) &&
+         (p.epi != kGradMask || (p.g != nullptr && p.mask != nullptr)) &&
+         (!fused || (p.epi == kRelu && p.n <= kTileN[p.tile] &&
+                     p.c2 != nullptr && p.n2 >= 1 &&
+                     copies_fit(p.w2, p.w2_type, p.w2_vec, 1, p.n2,
+                                p.w2_bs))) &&
+         copies_fit(p.a, p.a_type, p.a_vec, p.a_k ? p.a_s1 : p.a_s0,
+                    p.a_k ? p.a_s0 : p.a_s1, p.a_bs) &&
+         copies_fit(p.b, p.b_type, p.b_vec, p.b_k ? p.b_s0 : p.b_s1,
+                    p.b_k ? p.b_s1 : p.b_s0, p.b_bs) &&
+         smem_bytes(p) <= kMaxSmemBytes;
 }
 
 }  // namespace
@@ -294,16 +677,7 @@ int gcn_stack_streamed(const Product* steps, int count, int batch,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int i = 0; i < count; ++i) {
-    const Product& p = steps[i];
-    const long long blocks = static_cast<long long>((p.m + kTile - 1) / kTile) *
-                             ((p.n + kTile - 1) / kTile) * batch;
-    if (p.m < 1 || p.n < 1 || p.k < 1 || p.a_rows < 0 || p.a_rows > p.m ||
-        (p.ones && p.a_rows + 1 != p.m) || p.a_div < 1 || p.b_div < 1 ||
-        p.bias_div < 1 || p.a == nullptr || p.b == nullptr ||
-        p.c == nullptr || (p.epi == kRelu && p.bias == nullptr) ||
-        (p.epi == kDa && p.ones && p.d == nullptr) ||
-        (p.epi == kGradMask && (p.g == nullptr || p.mask == nullptr)) ||
-        blocks >= (1LL << 31)) {
+    if (!product_valid(steps[i], batch)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -311,11 +685,9 @@ int gcn_stack_streamed(const Product* steps, int count, int batch,
   cudaError_t err = cudaSetDevice(device);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int i = 0; i < count && err == cudaSuccess; ++i) {
-    const Product& p = steps[i];
-    const unsigned blocks = static_cast<unsigned>(
-        ((p.m + kTile - 1) / kTile) * ((p.n + kTile - 1) / kTile) * batch);
-    err = p.a_type == kBf16 ? launch_b<__nv_bfloat16>(p, blocks, s)
-                            : launch_b<float>(p, blocks, s);
+    err = launch(steps[i], i,
+                 static_cast<unsigned>(product_blocks(steps[i], batch)),
+                 device, s);
   }
   if (err == cudaSuccess && ws != nullptr) {
     const dim3 grid((wsz + kReduceThreads - 1) / kReduceThreads, sets);
@@ -329,5 +701,20 @@ int gcn_stack_streamed(const Product* steps, int count, int batch,
 const char* gcn_stack_streamed_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef GCN_STACK_PHASES
+// Copies the phase stamps of the last list's first `launches` launches:
+// ns and clk hold launches * kPhaseCtas * kPhaseSlots values each (launch,
+// then CTA, then slot); returns the cudaError_t.
+int gcn_stack_streamed_phase_stamps(unsigned long long* ns, long long* clk,
+                                    int launches) {
+  const size_t count = sizeof(long long) * kPhaseCtas * kPhaseSlots *
+                       static_cast<size_t>(launches < kPhaseLaunches
+                                               ? launches : kPhaseLaunches);
+  cudaError_t err = cudaMemcpyFromSymbol(ns, g_phase_ns, count);
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(clk, g_phase_clk, count);
+  return static_cast<int>(err);
+}
+#endif
 
 }  // extern "C"

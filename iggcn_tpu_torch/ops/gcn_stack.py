@@ -425,33 +425,106 @@ def _ctas_per_sample(plan) -> int:
 
 
 # The streamed form (csrc/gcn_stack_streamed.cu): one batched tiled product
-# C = A B per sample, a CTA per TILE x TILE block of C, K streamed through a
-# ring of STREAM_STAGES chunks of STREAM_CHUNK in shared memory (tiles
-# padded by 4 floats a row), STREAM_THREADS threads of 4 x 4 register tiles
-STREAM_TILE = 64
-STREAM_CHUNK = 16
+# C = A B per sample, a CTA per BM x BN tile of C (one of STREAM_TILES, as
+# `choose_tile` picks; each thread a 4 x 4 register tile), K streamed
+# through a ring of STREAM_STAGES chunks of STREAM_CHUNK in shared memory
+# (staged rows padded by STREAM_PAD floats), split over `ksplit` groups of
+# warps where a CTA would have fewer than STREAM_MIN_THREADS threads or the
+# batch fewer than STREAM_MIN_CTAS CTAs
+STREAM_TILES = ((64, 16), (32, 32), (32, 64), (32, 128))
+STREAM_CHUNK = 32
 STREAM_STAGES = 3
-STREAM_THREADS = 256
 STREAM_PAD = 4
+STREAM_MAX_THREADS = 512
+STREAM_MIN_THREADS = 128         # four warps a CTA
+STREAM_KSPLITS = (1, 2, 4, 8)
+STREAM_MIN_CTAS = 264            # two CTAs per SM on an H100's 132 SMs
+STREAM_MAX_SMEM = 227 * 1024     # dynamic shared memory a CTA may take
+STREAM_W2_FLOATS = 128 * 128     # W_{l+1} beside the ring: 64 KB at most
+
+
+def choose_tile(m: int, n: int, batch: int) -> Tuple[int, int]:
+    """(index into STREAM_TILES, ksplit) of a product C (m x n) over
+    `batch` samples: BN the smallest of 16, 32, 64, 128 that covers n (64
+    above 128) and the one BM compiled with it, the narrowest that gives
+    four warps (32 rows; 64 at BN = 16), so that the grid has as many CTAs
+    as it can; then K split over the fewest groups of warps (up to 8 and
+    STREAM_MAX_THREADS threads) that make STREAM_MIN_THREADS threads a CTA
+    and, where the grid has fewer than STREAM_MIN_CTAS CTAs, bring their
+    warps (2 at least)."""
+    bn = next((w for w in (16, 32, 64, 128) if w >= n), 64)
+    tile = next(i for i, (_, w) in enumerate(STREAM_TILES) if w == bn)
+    bm = STREAM_TILES[tile][0]
+    threads = bm * bn // 16
+    ctas = -(-m // bm) * -(-n // bn) * batch
+    want = (1 if ctas >= STREAM_MIN_CTAS
+            else max(2, -(-STREAM_MIN_CTAS // max(ctas, 1))))
+    ks = 1
+    while (ks < STREAM_KSPLITS[-1] and 2 * ks * threads <= STREAM_MAX_THREADS
+           and (ks * threads < STREAM_MIN_THREADS or ks < want)):
+        ks *= 2
+    return tile, ks
+
+
+def streamed_smem(tile: int, ksplit: int, a_k: bool, b_k: bool,
+                  fused: Tuple[int, int] | None = None) -> int:
+    """Bytes of dynamic shared memory one launch takes (the kernel's
+    `smem_floats`): the ring of A and B, each staged along K (`a_k`, `b_k`)
+    or along m / n, reused after the main loop for each K group's sums (row
+    stride BN + 1) and, with `fused` = (H_{l+1}, H_{l+2}), h_{l+1}'s rows;
+    then W_{l+1}."""
+    bm, bn = STREAM_TILES[tile]
+    row = STREAM_CHUNK + STREAM_PAD
+    a = bm * row if a_k else STREAM_CHUNK * (bm + STREAM_PAD)
+    b = bn * row if b_k else STREAM_CHUNK * (bn + STREAM_PAD)
+    sums = ksplit * bm * (bn + 1) + (bn * (bm + STREAM_PAD) if fused else 0)
+    return 4 * (max(STREAM_STAGES * (a + b), sums)
+                + (fused[0] * _ceil(fused[1], 4) if fused else 0))
+
+
+def streamed_fuses(h: int, h_next: int) -> bool:
+    """Whether layer l's P-product (width h = H_{l+1}) computes a_{l+1} =
+    h_{l+1} W_{l+1} (W_{l+1}: h x h_next) in its epilogue: one tile covers
+    the width and W_{l+1} fits in shared memory beside the ring."""
+    return h <= 128 and h * _ceil(h_next, 4) <= STREAM_W2_FLOATS
+
+
+def copy_vec(addr: int, elem_bytes: int, contiguous: int, other: int,
+             batch: int) -> int:
+    """Floats per cp.async of an operand staged along its contiguous
+    dimension: 4 (16 bytes) where that stride is 1 and the address, the
+    other stride and the batch stride (in values) are 16-byte aligned, 2
+    where they are 8-byte aligned, else 1; bf16 operands 1 (plain loads)."""
+    if elem_bytes != 4 or contiguous != 1:
+        return 1
+    return next((v for v in (4, 2) if addr % (4 * v) == 0 and other % v == 0
+                 and batch % v == 0), 1)
+
+
+def staged_along_k(s_r: int, s_k: int, rows: int, depth: int) -> bool:
+    """Whether an operand X(r, k) = r * s_r + k * s_k is staged along K:
+    where K is its contiguous dimension (both, where both strides are 1 and
+    K is the longer)."""
+    if s_k == 1 and s_r != 1:
+        return True
+    return s_k == 1 and s_r == 1 and depth >= rows
 
 
 @dataclasses.dataclass(frozen=True)
 class StreamedPlan:
     """The streamed form's plan, for shapes the resident kernels cannot
     hold (P and the operands past a cluster's shared memory, or more than
-    `MAX_LAYERS` layers). Nothing stays resident: every layer is two
-    launches of one tiled product (a_l = h_l W_l, then relu(P a_l + b_l)
-    into the JK output), and the backward one launch per product of the
-    JAX VJP, through scratch in device memory that the wrapper allocates.
-    Sizes of the scratch in floats per sample; `tiles` is the most CTAs
-    one sample takes in any of the launches (the grid is one dimension,
-    CTAs x samples)."""
-    tile_m: int
-    tile_n: int
-    kchunk: int
-    stages: int
-    threads: int
-    smem_bytes: int           # static shared memory: the ring of A and B
+    `MAX_LAYERS` layers). Nothing stays resident: the forward is a_0 =
+    x W_0, then per layer relu(P a_l + b_l) into the JK output, whose
+    epilogue computes a_{l+1} = h_{l+1} W_{l+1} where `fused` says so (else
+    a launch of its own); the backward one launch per product of the JAX
+    VJP, through scratch in device memory that the wrapper allocates.
+    `launches` holds the (m, n, k) of each launch in list order (for the
+    backward: every gradient taken), each run on the tile `choose_tile`
+    gives it at the call's batch. Sizes of the scratch in floats per
+    sample; `tiles` is the most CTAs one sample can take in any of the
+    launches (the grid is one dimension, CTAs x samples)."""
+    smem_bytes: int           # the most dynamic shared memory a launch takes
     a_floats: int             # every layer's a_l (N x sum H)
     h_floats: int             # backward: the recompute's JK output
     dz_floats: int            # backward: every layer's dz_l (N x sum H)
@@ -459,12 +532,10 @@ class StreamedPlan:
     wsz: int                  # backward: one sample's dW / db slot
     ws_off: Tuple[int, ...]   # dW_l in a slot (F_l x H_l), then db_l
     tiles: int
+    launches: Tuple[Tuple[int, int, int], ...]
+    fused: Tuple[bool, ...]   # per layer but the last
     backward: bool
     elem_bytes: int = 4
-
-
-def _tiles(m: int, n: int) -> int:
-    return -(-m // STREAM_TILE) * -(-n // STREAM_TILE)
 
 
 def streamed_plan(n: int, dims: Sequence[int], elem_bytes: int = 4,
@@ -475,20 +546,37 @@ def streamed_plan(n: int, dims: Sequence[int], elem_bytes: int = 4,
     dims = tuple(int(d) for d in dims)
     _check_shape(n, dims)
     total, hmax = sum(dims[1:]), max(dims[1:])
-    shapes = [(n, h) for h in dims[1:]]                   # a_l and z_l
+    layers = len(dims) - 1
+    fused = tuple(streamed_fuses(dims[l + 1], dims[l + 2])
+                  for l in range(layers - 1))
+    launches, w2 = [], []           # w2: (H_{l+1}, H_{l+2}) where fused
+    for l in range(layers):
+        if l == 0 or not fused[l - 1]:
+            launches.append((n, dims[l + 1], dims[l]))          # a_l
+            w2.append(None)
+        launches.append((n, dims[l + 1], n))                    # z_l
+        w2.append(dims[l + 1:l + 3] if l < layers - 1 and fused[l] else None)
     sizes = [fin * fout + fout for fin, fout in zip(dims[:-1], dims[1:])]
     if backward:
-        shapes += [(n + 1, h) for h in dims[1:]]          # da_l and db_l
-        shapes += list(zip(dims[:-1], dims[1:]))          # dW_l
-        shapes += [(n, f) for f in dims[:-1]] + [(n, n)]  # e_l, dP
-    smem = 4 * STREAM_STAGES * STREAM_CHUNK * (2 * STREAM_TILE + 2 * STREAM_PAD)
+        for l in reversed(range(layers)):
+            launches += [(n + 1, dims[l + 1], n),               # da_l, db_l
+                         (dims[l], dims[l + 1], n),             # dW_l
+                         (n, dims[l], dims[l + 1])]             # e_l or dx
+        launches.append((n, n, total))                          # dP
+        w2 += [None] * (3 * layers + 1)
+    # at a batch of 1 each launch takes its widest K split (the most sums)
+    tiles = [choose_tile(m, c, 1) for m, c, _ in launches]
+    smem = max(streamed_smem(tile, ks, a_k, b_k, fused_w)
+               for (tile, ks), fused_w in zip(tiles, w2)
+               for a_k in (False, True) for b_k in (False, True))
     return StreamedPlan(
-        STREAM_TILE, STREAM_TILE, STREAM_CHUNK, STREAM_STAGES, STREAM_THREADS,
-        smem, n * total, n * total if backward else 0,
-        n * total if backward else 0, n * hmax if backward else 0,
-        sum(sizes) if backward else 0,
+        smem, n * total,
+        n * total if backward else 0, n * total if backward else 0,
+        n * hmax if backward else 0, sum(sizes) if backward else 0,
         tuple(sum(sizes[:i]) for i in range(len(sizes))),
-        max(_tiles(m, c) for m, c in shapes), backward, elem_bytes)
+        max(-(-m // STREAM_TILES[tile][0]) * -(-c // STREAM_TILES[tile][1])
+            for (m, c, _), (tile, _) in zip(launches, tiles)),
+        tuple(launches), fused, backward, elem_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -825,30 +913,58 @@ class _CProduct(ctypes.Structure):
     j * x_s1 values in (`x_type`: F32 or BF16); rows of A from `a_rows` on
     read 0, except the row `a_rows` itself, which reads 1 where `ones` (so
     that row of C sums B's rows). Epilogues on each C(s, i, j) = v:
-    EPI_STORE c = v; EPI_RELU z = v + bias(s, j), c = relu(z), and where
-    `d` is set d(s, i, j) = g(s, i, j) * [z > 0]; EPI_DA c = v for i <
-    a_rows, d(s, j) = v in the ones row; EPI_GRAD_MASK c = (g(s, i, j) +
-    v) * [mask(s, i, j) > 0]. c's element is c + s * c_bs + i * c_s0 + j *
-    c_s1; d's, g's and mask's the same with a column stride of 1 (and
-    bias(s, j) = bias + (s // bias_div) * bias_bs + j)."""
+    EPI_STORE c = v; EPI_RELU z = v + bias(s, j), c = relu(z), where `d`
+    is set d(s, i, j) = g(s, i, j) * [z > 0], and where `w2` is set
+    c2(s, i, :) = relu(z)(s, i, :) W2(s) over the n columns in order
+    (W2: n x n2, rows contiguous; one tile covers the n columns); EPI_DA
+    c = v for i < a_rows, d(s, j) = v in the ones row; EPI_GRAD_MASK c =
+    (g(s, i, j) + v) * [mask(s, i, j) > 0]. c's element is c + s * c_bs +
+    i * c_s0 + j * c_s1; d's, g's, mask's and c2's the same with a column
+    stride of 1 (and bias(s, j) = bias + (s // bias_div) * bias_bs + j).
+    The launch: `tile` (STREAM_TILES) and `ksplit` from `choose_tile`,
+    each operand staged along K where `a_k` / `b_k` (`staged_along_k`) in
+    copies of `a_vec` / `b_vec` / `w2_vec` floats (`copy_vec`)."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "a", "b", "bias", "g", "mask", "c", "d")]
+        "a", "b", "bias", "w2", "g", "mask", "c", "d", "c2")]
         + [(name, ctypes.c_longlong) for name in (
             "a_bs", "a_s0", "a_s1", "b_bs", "b_s0", "b_s1", "bias_bs",
-            "g_bs", "g_s0", "mask_bs", "mask_s0", "c_bs", "c_s0", "c_s1",
-            "d_bs", "d_s0")]
+            "w2_bs", "g_bs", "g_s0", "mask_bs", "mask_s0", "c_bs", "c_s0",
+            "c_s1", "d_bs", "d_s0", "c2_bs", "c2_s0")]
         + [(name, ctypes.c_int) for name in (
-            "m", "n", "k", "a_rows", "ones", "epi", "a_div", "b_div",
-            "bias_div", "a_type", "b_type", "bias_type")])
+            "m", "n", "k", "a_rows", "ones", "epi", "n2", "a_div", "b_div",
+            "bias_div", "w2_div", "a_type", "b_type", "bias_type", "w2_type",
+            "tile", "ksplit", "a_k", "b_k", "a_vec", "b_vec", "w2_vec")])
 
 
-def _product(m: int, n: int, k: int, **fields) -> _CProduct:
-    """A `_CProduct` with A's rows `a_rows` = m and every divisor 1 unless
-    `fields` says otherwise."""
+def _product(batch: int, m: int, n: int, k: int, **fields) -> _CProduct:
+    """A `_CProduct` over `batch` samples with A's rows `a_rows` = m and
+    every divisor 1 unless `fields` says otherwise, its tile, K split,
+    staging and copy widths chosen from its shape, strides and addresses."""
     fields.setdefault("a_rows", m)
-    for div in ("a_div", "b_div", "bias_div"):
+    for div in ("a_div", "b_div", "bias_div", "w2_div"):
         fields.setdefault(div, 1)
+    tile, ksplit = choose_tile(m, n, batch)
+    a_k = staged_along_k(fields["a_s0"], fields["a_s1"], m, k)
+    b_k = staged_along_k(fields["b_s1"], fields["b_s0"], n, k)
+
+    def vec(x, s_r, s_k, along_k):
+        contiguous, other = (s_k, s_r) if along_k else (s_r, s_k)
+        return copy_vec(fields[x], 2 if fields.get(f"{x}_type") == BF16
+                        else 4, contiguous, other, fields.get(f"{x}_bs", 0))
+    fields.update(
+        tile=tile, ksplit=ksplit, a_k=int(a_k), b_k=int(b_k),
+        a_vec=vec("a", fields["a_s0"], fields["a_s1"], a_k),
+        b_vec=vec("b", fields["b_s1"], fields["b_s0"], b_k))
+    if fields.get("w2"):
+        fields["w2_vec"] = vec("w2", 1, fields["n2"], False)
     return _CProduct(m=m, n=n, k=k, **fields)
+
+
+def launch_blocks(p: _CProduct, batch: int) -> int:
+    """CTAs of one launch of the streamed product over `batch` samples (the
+    kernel's `product_blocks`)."""
+    bm, bn = STREAM_TILES[p.tile]
+    return -(-p.m // bm) * -(-p.n // bn) * batch
 
 
 def _elem(t: torch.Tensor) -> int:
@@ -862,40 +978,55 @@ def _at(t: torch.Tensor, offset: int = 0) -> int:
 
 def _layer_products(prop, x, weights, biases, out, acts, group: int,
                     grad_out=None, dz=None) -> List[_CProduct]:
-    """The streamed forward's launches, two per layer: a_l = h_l W_l into
-    `acts` (B, N x sum H), then relu(P a_l + b_l) into layer l's slice of
-    the JK output `out` (B, N, sum H, fp32), which is h_{l+1}. With
+    """The streamed forward's launches: a_0 = x W_0 into `acts` (B, N x
+    sum H), then per layer relu(P a_l + b_l) into layer l's slice of the
+    JK output `out` (B, N, sum H, fp32), which is h_{l+1}; its epilogue
+    also writes a_{l+1} = h_{l+1} W_{l+1} into `acts` where
+    `streamed_fuses` says so, else a_{l+1} is a launch of its own. With
     `grad_out` and `dz` (the backward's recompute) the last layer's
     epilogue also writes dz_{L-1} = g_{L-1} * [z > 0] into `dz`."""
     b, n, _ = prop.shape
     dims = [int(x.shape[2])] + [int(w.shape[-1]) for w in weights]
-    total = sum(dims[1:])
-    offs = [sum(dims[1:1 + i]) for i in range(len(weights))]
+    total, layers = sum(dims[1:]), len(weights)
+    offs = [sum(dims[1:1 + i]) for i in range(layers)]
     grouped = _weight_sets(weights) > 0
+    fused = [streamed_fuses(dims[l + 1], dims[l + 2])
+             for l in range(layers - 1)] + [False]
+    jk = dict(c_bs=n * total, c_s0=total, c_s1=1)
+
+    def weight(w):
+        return dict(bs=w.stride(0) if grouped else 0, div=group,
+                    type=_elem(w))
     steps = []
     for l, (w, bias) in enumerate(zip(weights, biases)):
         fin, h, off = dims[l], dims[l + 1], offs[l]
-        h_in = (dict(a=_at(x), a_bs=n * fin, a_s0=fin, a_s1=1,
-                     a_type=_elem(x)) if l == 0 else
-                dict(a=_at(out, offs[l - 1]), a_bs=n * total, a_s0=total,
-                     a_s1=1, a_type=F32))
+        if l == 0 or not fused[l - 1]:
+            h_in = (dict(a=_at(x), a_bs=n * fin, a_s0=fin, a_s1=1,
+                         a_type=_elem(x)) if l == 0 else
+                    dict(a=_at(out, offs[l - 1]), a_bs=n * total, a_s0=total,
+                         a_s1=1, a_type=F32))
+            wl = weight(w)
+            steps.append(_product(
+                b, n, h, fin, **h_in, b=_at(w), b_bs=wl["bs"], b_s0=h,
+                b_s1=1, b_div=wl["div"], b_type=wl["type"], c=_at(acts, off),
+                **jk, epi=EPI_STORE))
+        extra = {}
+        if fused[l]:
+            wn = weight(weights[l + 1])
+            extra.update(w2=_at(weights[l + 1]), w2_bs=wn["bs"],
+                         w2_div=wn["div"], w2_type=wn["type"],
+                         n2=dims[l + 2], c2=_at(acts, offs[l + 1]),
+                         c2_bs=n * total, c2_s0=total)
+        if l == layers - 1 and dz is not None:
+            extra.update(d=_at(dz, off), d_bs=n * total, d_s0=total,
+                         g=_at(grad_out, off), g_bs=n * total, g_s0=total)
         steps.append(_product(
-            n, h, fin, **h_in, b=_at(w), b_bs=w.stride(0) if grouped else 0,
-            b_s0=h, b_s1=1, b_div=group, b_type=_elem(w),
-            c=_at(acts, off), c_bs=n * total, c_s0=total, c_s1=1,
-            epi=EPI_STORE))
-        last = dz if l == len(weights) - 1 and dz is not None else None
-        steps.append(_product(
-            n, h, n, a=_at(prop), a_bs=prop.stride(0), a_s0=prop.stride(1),
+            b, n, h, n, a=_at(prop), a_bs=prop.stride(0), a_s0=prop.stride(1),
             a_s1=prop.stride(2), a_type=_elem(prop),
             b=_at(acts, off), b_bs=n * total, b_s0=total, b_s1=1, b_type=F32,
             bias=_at(bias), bias_bs=bias.stride(0) if grouped else 0,
-            bias_div=group, bias_type=_elem(bias),
-            c=_at(out, off), c_bs=n * total, c_s0=total, c_s1=1,
-            epi=EPI_RELU,
-            **(dict(d=_at(last, off), d_bs=n * total, d_s0=total,
-                    g=_at(grad_out, off), g_bs=n * total, g_s0=total)
-               if last is not None else {})))
+            bias_div=group, bias_type=_elem(bias), c=_at(out, off), **jk,
+            epi=EPI_RELU, **extra))
     return steps
 
 
@@ -925,7 +1056,7 @@ def _backward_products(prop, x, weights, biases, grad_out, needs, plan,
             continue
         w, fin, h, off = weights[l], dims[l], dims[l + 1], offs[l]
         steps.append(_product(
-            n + int(need_w), h, n, a_rows=n, ones=int(need_w),
+            b, n + int(need_w), h, n, a_rows=n, ones=int(need_w),
             a=_at(prop), a_bs=prop.stride(0), a_s0=prop.stride(2),
             a_s1=prop.stride(1), b=_at(dz, off), b_bs=n * total, b_s0=total,
             b_s1=1, c=_at(da), c_bs=n * hmax, c_s0=hmax, c_s1=1, epi=EPI_DA,
@@ -936,7 +1067,7 @@ def _backward_products(prop, x, weights, biases, grad_out, needs, plan,
                    else dict(a=_at(hb, offs[l - 1]), a_bs=n * total, a_s0=1,
                              a_s1=total))
             steps.append(_product(
-                fin, h, n, **h_l, b=_at(da), b_bs=n * hmax, b_s0=hmax,
+                b, fin, h, n, **h_l, b=_at(da), b_bs=n * hmax, b_s0=hmax,
                 b_s1=1, c=_at(ws, plan.ws_off[l]), c_bs=plan.wsz, c_s0=h,
                 c_s1=1, epi=EPI_STORE))
         e_l = dict(a=_at(da), a_bs=n * hmax, a_s0=hmax, a_s1=1, b=_at(w),
@@ -945,17 +1076,17 @@ def _backward_products(prop, x, weights, biases, grad_out, needs, plan,
         if l > 0:
             prev = offs[l - 1]
             steps.append(_product(
-                n, fin, h, **e_l, c=_at(dz, prev), **jk,
+                b, n, fin, h, **e_l, c=_at(dz, prev), **jk,
                 g=_at(grad_out, prev), g_bs=n * total, g_s0=total,
                 mask=_at(hb, prev), mask_bs=n * total, mask_s0=total,
                 epi=EPI_GRAD_MASK))
         elif need_x:
-            steps.append(_product(n, fin, h, **e_l, c=_at(dx), c_bs=n * fin,
+            steps.append(_product(b, n, fin, h, **e_l, c=_at(dx), c_bs=n * fin,
                                   c_s0=fin, c_s1=1, epi=EPI_STORE))
     if need_p:
         transposed = _prop_transposed(prop)
         steps.append(_product(
-            n, n, total, a=_at(dz), a_bs=n * total, a_s0=total, a_s1=1,
+            b, n, n, total, a=_at(dz), a_bs=n * total, a_s0=total, a_s1=1,
             b=_at(acts), b_bs=n * total, b_s0=1, b_s1=total,
             c=_at(dprop), c_bs=n * n, c_s0=1 if transposed else n,
             c_s1=n if transposed else 1, epi=EPI_STORE))

@@ -21,6 +21,28 @@ per SM clock (`run_backward_phases`). Needs a CUDA card:
     python -m iggcn_tpu_torch.tools.gcn_stack_phases
     python -m iggcn_tpu_torch.tools.gcn_stack_phases --backward
     python -m iggcn_tpu_torch.tools.gcn_stack_phases --backward-turns DIR
+    python -m iggcn_tpu_torch.tools.gcn_stack_phases --streamed
+    python -m iggcn_tpu_torch.tools.gcn_stack_phases --streamed-turns DIR
+
+`--streamed` stamps the streamed form (`csrc/gcn_stack_streamed.cu`,
+built with -DGCN_STACK_PHASES) instead, at `STREAMED_SHAPES` (chip_smoke.py's
+timed shapes: the flagship at three layers of 128, N=90, and the zoo's GCN
+at 620 nodes at 3 x 32, 3 x 16 and 2 x 10), forward and backward at B=32:
+for every launch of the list its tile (BM x BN, K split, copy widths of A
+and B), CTAs, the mean over its CTAs of
+the prologue (copies issued), the main loop and the epilogue, the
+launch's span, how far apart its CTAs started, the gap to the next
+launch, and for the P-products (z, da, dP) their FMAs per SM clock.
+`--streamed-turns DIR` first times the streamed wrappers of the checkout
+at DIR (e.g. the parent commit, `git archive` into the git-ignored
+`results/`) beside this one's in fresh processes in turns (DIR, this,
+this, DIR; warm and cold), then stamps this one as `--streamed` does.
+`--streamed-variants NAME=CONST:VALUE,...` then builds the streamed
+source with its pipeline constants set otherwise, checks each variant and
+times them in turns (`streamed_variants`), e.g.
+
+    python -m iggcn_tpu_torch.tools.gcn_stack_phases --streamed-variants \
+        as-is= stages4=kStages:4 chunk64=kChunk:64
 
 `--backward` stamps the backward kernel only. `--backward-turns DIR`
 first times the backward wrapper of the checkout unpacked at DIR (an
@@ -541,6 +563,269 @@ def backward_turns(other):
     print(f"stamps of {other}:\n{stamps.stdout}{stamps.stderr}")
 
 
+# the streamed form's stamps (csrc/gcn_stack_streamed.cu's kPhaseSlots,
+# kPhaseCtas, kPhaseLaunches): four per CTA and launch of a list; its
+# shapes, (name, B, N, F0, widths): chip_smoke.py's STREAMED_TIMED and two
+# points of the zoo's search grid at PROTEINS' 620 nodes
+STREAMED_SLOTS, STREAMED_CTAS, STREAMED_LAUNCHES = 4, 8192, 32
+STREAMED_SHAPES = [("flagship training --layers 3 --hiddens 128", 32, 90, 3,
+                    (128, 128, 128)),
+                   ("zoo GCN training, 620 nodes", 32, 620, 3, (32, 32, 32)),
+                   ("zoo grid (3, 16), 620 nodes", 32, 620, 3, (16, 16, 16)),
+                   ("zoo grid (2, 10), 620 nodes", 32, 620, 3, (10, 10))]
+
+
+def streamed_labels(steps, layers):
+    """A name for each product of a streamed list that takes every
+    gradient, in the wrapper's order (`_layer_products`, then
+    `_backward_products`)."""
+    names, l, back = [], 0, None
+    for p in steps:
+        if p.epi == gcn_stack.EPI_RELU:
+            fused = bool(getattr(p, "w2", None))
+            names.append(f"z{l} = P a{l} + b, relu" + (
+                f"; a{l + 1} = h{l + 1} W{l + 1}" if fused else ""))
+            l += 1
+            back = layers if l == layers else None
+        elif back is None:
+            names.append(f"a{l} = h{l} W{l}")
+        elif p.epi == gcn_stack.EPI_DA:
+            back -= 1
+            names.append(f"da{back} = P^T dz{back} (+ db)")
+        elif p.epi == gcn_stack.EPI_GRAD_MASK:
+            names.append(f"e{back} = da W^T, dz{back - 1}")
+        elif names[-1].startswith("da"):
+            names.append(f"dW{back} = h^T da")
+        elif back == 0 and names[-1].startswith("dW"):
+            names.append("dx = da W^T")
+        else:
+            names.append("dP = DZ A^T")
+    return names
+
+
+def _tile(p):
+    bm, bn = gcn_stack.STREAM_TILES[p.tile]
+    return f"{bm}x{bn} ks{p.ksplit} v{p.a_vec}{p.b_vec}"
+
+
+def report_streamed(what, b, steps, ns, clk, sms):
+    """Per launch of one streamed list: each phase's mean over the CTAs
+    (prologue, main loop, epilogue), the launch's span, how far apart its
+    CTAs started, the gap to the next launch's first CTA, and for the
+    P-products (z, da, dP) their FMAs (m n k B) per SM clock over the
+    launch's span."""
+    labels = streamed_labels(steps, sum(p.epi == gcn_stack.EPI_RELU
+                                        for p in steps))
+    count = min(len(steps), STREAMED_LAUNCHES)
+    blocks = [min(gcn_stack.launch_blocks(p, b), STREAMED_CTAS)
+              for p in steps[:count]]
+    first = ns[0, :blocks[0], 0].min()
+    last = max(ns[i, :blocks[i], 3].max() for i in range(count))
+    print(f"{what}: {len(steps)} launches, list span "
+          f"{(last - first) / 1e3:.2f} us (first CTA start to last CTA end)")
+    print(f"  {'launch':<36s} {'tile':>13s} {'CTAs':>5s} {'prologue':>8s} "
+          f"{'loop':>8s} {'epilogue':>8s} {'per CTA':>8s} {'span':>8s} "
+          f"{'starts':>8s} {'gap':>7s}  FMA/clk/SM")
+    for i in range(count):
+        t, c, p = ns[i, :blocks[i]], clk[i, :blocks[i]], steps[i]
+        span = t[:, 3].max() - t[:, 0].min()
+        gap = ns[i + 1, :blocks[i + 1], 0].min() - t[:, 3].max() \
+            if i + 1 < count else None
+        gap = "      -" if gap is None else f"{gap / 1e3:7.2f}"
+        ghz = float(np.median((c[:, 3] - c[:, 0]) / (t[:, 3] - t[:, 0])))
+        rate = ""
+        if labels[i].startswith(("z", "da", "dP")):
+            rate = f"  {p.m * p.n * p.k * b / (sms * span * ghz):6.1f}"
+        print(f"  {labels[i]:<36s} {_tile(p):>13s} {blocks[i]:5d} "
+              + " ".join(f"{(t[:, k + 1] - t[:, k]).mean() / 1e3:8.3f}"
+                         for k in range(3))
+              + f" {(t[:, 3] - t[:, 0]).mean() / 1e3:8.3f} {span / 1e3:8.3f} "
+              f"{(t[:, 0].max() - t[:, 0].min()) / 1e3:8.3f} {gap}{rate}")
+
+
+def run_streamed_phases(dev):
+    """The stamped streamed form at `STREAMED_SHAPES`, forward and
+    backward, launch by launch (`report_streamed`)."""
+    source = gcn_stack.STREAMED_SOURCE
+    lib = _stamped(source, gcn_stack.declare_streamed,
+                   "gcn_stack_streamed_phase_stamps")
+    print(f"ptxas, {source}:")
+    for line in cuda_build.BUILD_LOGS.get(source, "").splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            print("  " + line.strip())
+    gcn_stack._streamed_lib = lib
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    captured, run = [], gcn_stack._run_streamed
+
+    def capture(steps, *args, **kwargs):
+        captured.append(list(steps))
+        return run(steps, *args, **kwargs)
+
+    gcn_stack._run_streamed = capture
+    rng = np.random.default_rng(5)
+    try:
+        for name, b, n, f0, widths in STREAMED_SHAPES:
+            args = _inputs(rng, b, n, f0, widths, dev)
+            cot = torch.randn(b, n, sum(widths), device=dev)
+            dims = (f0, *widths)
+            for direction, plan, fn in (
+                    ("forward", gcn_stack.plan_launch(b, n, dims, 4, sms),
+                     lambda: gcn_stack._launch(*args)),
+                    ("backward", gcn_stack.plan_backward(b, n, dims),
+                     lambda: gcn_stack._launch_backward(
+                         *args, cot, (True, True, True)))):
+                what = (f"streamed {direction} {name}: B={b} N={n} F0={f0} "
+                        f"H={widths}")
+                if not isinstance(plan, gcn_stack.StreamedPlan):
+                    print(f"{what}: resident here, not stamped")
+                    continue
+                for _ in range(4):
+                    fn()
+                torch.cuda.synchronize()
+                steps = captured[-1]
+                count = min(len(steps), STREAMED_LAUNCHES)
+                size = count * STREAMED_CTAS * STREAMED_SLOTS
+                ns, clk = np.zeros(size, np.uint64), np.zeros(size, np.int64)
+                code = lib.gcn_stack_streamed_phase_stamps(
+                    ns.ctypes.data, clk.ctypes.data, count)
+                if code:
+                    raise RuntimeError(
+                        lib.gcn_stack_streamed_error_string(code).decode())
+                shape = (count, STREAMED_CTAS, STREAMED_SLOTS)
+                report_streamed(what, b, steps,
+                                ns.reshape(shape).astype(np.int64),
+                                clk.reshape(shape), sms)
+    finally:
+        gcn_stack._run_streamed = run
+
+
+def time_streamed(dev):
+    """One JSON line per `STREAMED_SHAPES` shape and direction: the
+    streamed wrapper's warm and cold device ms, for the package this
+    process imports."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(6)
+    for name, b, n, f0, widths in STREAMED_SHAPES:
+        args = _inputs(rng, b, n, f0, widths, dev)
+        cot = torch.randn(b, n, sum(widths), device=dev)
+        for direction, fn in (
+                ("forward", lambda: gcn_stack._launch(*args)),
+                ("backward", lambda: gcn_stack._launch_backward(
+                    *args, cot, (True, True, True)))):
+            print(json.dumps({"shape": name, "direction": direction, "B": b,
+                              "N": n, "warm_ms": _device_ms(fn),
+                              "cold_ms": _cold_ms(fn, flush)}), flush=True)
+
+
+def streamed_turns(other):
+    """The streamed wrappers (forward and backward) of the checkout at
+    `other` (its own sources, built there) and of this one, timed in turns
+    in fresh processes: other, this, this, other. Prints each process's
+    times and each side's mean; the caller then stamps this one."""
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    other = os.path.abspath(other)
+    results = {}
+    for root in (other, here, here, other):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--time-streamed"], cwd=root,
+                             env=dict(os.environ, PYTHONPATH=root),
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode:
+            raise RuntimeError(f"timing in {root} failed:\n{out.stderr}")
+        side = "this" if root == here else "other"
+        for line in out.stdout.splitlines():
+            row = json.loads(line)
+            print(f"{side} ({root}): streamed {row['direction']} "
+                  f"{row['shape']} B={row['B']} N={row['N']}: "
+                  f"{row['warm_ms']:.5f} ms warm, {row['cold_ms']:.5f} cold")
+            results.setdefault((row["shape"], row["direction"], side),
+                               []).append(row)
+    for (shape, direction, side), rows in results.items():
+        print(f"mean of {len(rows)}, {side}: streamed {direction} {shape}: "
+              f"{np.mean([r['warm_ms'] for r in rows]):.5f} ms warm, "
+              f"{np.mean([r['cold_ms'] for r in rows]):.5f} cold")
+
+
+def streamed_variants(specs, dev):
+    """Variants of the streamed form, each `NAME=CONST:VALUE,...`: the
+    integer constants CONST of csrc/gcn_stack_streamed.cu set to VALUE
+    (none: the source as it is; `kStages`, or `kChunk` of 32 and more, so
+    that every K split the plan picks keeps 4 of K per group). Each is
+    built (into iggcn_tpu_torch/_build/variants; ptxas's spills printed),
+    held against the plain versions at the zoo's 620-node 3 x 32 (forward
+    rtol 1e-4 / atol 1e-5, backward rtol / atol 1e-4, each call bit-equal
+    to its repeat) and timed warm at `STREAMED_SHAPES`, forward and
+    backward, in turns (every variant, then in reverse order; the mean of
+    the two)."""
+    text = open(os.path.join(cuda_build.CSRC_DIR,
+                             gcn_stack.STREAMED_SOURCE)).read()
+    out = os.path.join(cuda_build.BUILD_DIR, "variants")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for spec in specs:
+        name, _, sets = spec.partition("=")
+        src = text
+        for item in filter(None, sets.split(",")):
+            const, value = item.split(":")
+            src, hits = re.subn(rf"constexpr int {const} = \d+;",
+                                f"constexpr int {const} = {int(value)};", src)
+            if hits != 1:
+                raise ValueError(f"{name}: no constant {const} in the source")
+        path = os.path.join(out, f"streamed-{name}.cu")
+        with open(path, "w") as fh:
+            fh.write(src)
+        lib = os.path.join(out, f"streamed-{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        spills = sum(int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+        print(f"variant {name}: {spills} bytes of spills")
+        libs[name] = gcn_stack.declare_streamed(ctypes.CDLL(path))
+    rng = np.random.default_rng(7)
+    runs = []
+    for shape, b, n, f0, widths in STREAMED_SHAPES:
+        args = _inputs(rng, b, n, f0, widths, dev)
+        cot = torch.randn(b, n, sum(widths), device=dev)
+        runs += [(f"forward {shape}", lambda a=args: gcn_stack._launch(*a)),
+                 (f"backward {shape}",
+                  lambda a=args, g=cot: gcn_stack._launch_backward(
+                      *a, g, (True, True, True)))]
+        if widths == (32, 32, 32):
+            check = args, cot
+    names = list(libs)
+    times = {}
+    for name in names + names[::-1]:
+        gcn_stack._streamed_lib = libs[name]
+        if name not in times:
+            args, cot = check
+            got, again = gcn_stack._launch(*args), gcn_stack._launch(*args)
+            grads = _flat(gcn_stack._launch_backward(*args, cot,
+                                                     (True, True, True)))
+            twice = _flat(gcn_stack._launch_backward(*args, cot,
+                                                     (True, True, True)))
+            want = _flat(gcn_stack.gcn_stack_backward_reference(*args, cot))
+            right = (torch.allclose(got, gcn_stack.gcn_stack_reference(*args),
+                                    rtol=1e-4, atol=1e-5)
+                     and torch.equal(got, again)
+                     and all(torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+                             and torch.equal(g, r)
+                             for g, r, w in zip(grads, twice, want)))
+            if not right:
+                raise AssertionError(f"variant {name} is wrong")
+        times.setdefault(name, []).append([_device_ms(fn) for _, fn in runs])
+    for k, (what, _) in enumerate(runs):
+        print(f"variants, streamed {what}: warm ms (mean of 2 in turns): "
+              + ", ".join(f"{name} {np.mean([t[k] for t in times[name]]):.5f}"
+                          for name in names))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--backward", action="store_true",
@@ -552,7 +837,18 @@ def main(argv=None) -> int:
                         help="variants of the backward kernel's constants "
                              "(or NAME=@DIR: DIR's backward source), "
                              "checked, timed in turns and stamped")
+    parser.add_argument("--streamed", action="store_true",
+                        help="only the streamed form's stamps, per launch")
+    parser.add_argument("--streamed-turns", metavar="CHECKOUT",
+                        help="time the streamed form beside CHECKOUT's, in "
+                             "turns, then stamp this one")
+    parser.add_argument("--streamed-variants", nargs="+",
+                        metavar="NAME=CONST:VALUE,...",
+                        help="variants of the streamed form's constants, "
+                             "checked and timed in turns")
     parser.add_argument("--time-backward", action="store_true",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--time-streamed", action="store_true",
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -562,9 +858,19 @@ def main(argv=None) -> int:
     if args.time_backward:
         time_backward(dev)
         return 0
+    if args.time_streamed:
+        time_streamed(dev)
+        return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
+    if args.streamed or args.streamed_turns or args.streamed_variants:
+        if args.streamed_turns:
+            streamed_turns(args.streamed_turns)
+        run_streamed_phases(dev)
+        if args.streamed_variants:
+            streamed_variants(args.streamed_variants, dev)
+        return 0
     if args.backward_turns:
         backward_turns(args.backward_turns)
     if args.backward_variants:

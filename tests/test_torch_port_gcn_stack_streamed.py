@@ -10,20 +10,25 @@ where chip_smoke.py holds it against the plain versions.
       search grids, the timed shapes and a sweep of N x L x H, taken from
       the tree before the streamed form);
   (c) a NumPy replay of the product the kernel runs, launch by launch
-      (64 x 64 tiles of C, K in chunks of 16 taken in order, values past
-      an operand's edge read as 0, the ones row, the four epilogues),
-      over the launches the wrapper lists, on scratch and outputs filled
-      with NaN, held against `gcn_stack_reference`,
-      `gcn_stack_reference_grouped` and `gcn_stack_backward_reference`;
+      (the tile and K split `choose_tile` gives it, K in chunks of 32,
+      each chunk cut among the K split's groups, each group's sum taken
+      in order and the groups' sums added in group order, values past an
+      operand's edge read as 0, the ones row, the four epilogues and the
+      fused a_{l+1} = h_{l+1} W_{l+1}; the copy widths and staging checked
+      against the addresses), over the launches the wrapper lists, on
+      scratch and outputs filled with NaN, held against
+      `gcn_stack_reference`, `gcn_stack_reference_grouped` and
+      `gcn_stack_backward_reference`; the tile and copy-width choosers at
+      the shapes the card times;
   (d) the wrappers `_launch` and `_launch_backward` driven on CPU tensors
       through a fake library that replays what it is given: the launch
       list, the scratch sizes, the count and the error path;
   (e) the port against the JAX package at streamed shapes: the stack at
-      9 layers and at N=90 with three layers of 128 against the Pallas
-      kernel in interpret mode (forward and VJP, on the CPU path and
-      through the replayed streamed form), the flagship at `--layers 3
-      --hiddens 128` against the JAX model on transferred weights (loss
-      and gradients), and `GCNFlat` at N=620.
+      9 layers, at N=90 with three layers of 128 and at N=620 with two of
+      16 against the Pallas kernel in interpret mode (forward and VJP, on
+      the CPU path and through the replayed streamed form), the flagship
+      at `--layers 3 --hiddens 128` against the JAX model on transferred
+      weights (loss and gradients), and `GCNFlat` at N=620.
 
 Tolerances: the replay and the CPU path against the plain versions and
 JAX, forward rtol 1e-5 with atol 1e-5 of the output's largest magnitude,
@@ -58,7 +63,7 @@ from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
 from iggcn_tpu_torch.tools.convert import _leaves, load_flax_variables
 from tests import test_torch_port_train_layers as train_layers
 
-T, CHUNK = gcn_stack.STREAM_TILE, gcn_stack.STREAM_CHUNK
+CHUNK = gcn_stack.STREAM_CHUNK
 # the search grids' (N, F0, widths) (main.py:combos)
 GRID = ([(90, 3, (h,) * n) for n, h in zip([2, 3, 2, 3, 4],
                                             [16, 16, 10, 10, 5])]
@@ -122,7 +127,7 @@ def test_every_shape_gets_a_plan(n):
                  gcn_stack.plan_backward(5 * 32, n, dims)]
         for plan in plans:
             if isinstance(plan, gcn_stack.StreamedPlan):
-                assert plan.smem_bytes <= 48 * 1024   # static shared memory
+                assert plan.smem_bytes <= gcn_stack.STREAM_MAX_SMEM
                 assert plan.a_floats == n * width * layers
                 assert 1 <= plan.tiles and 160 * plan.tiles < 2 ** 31
         if layers > gcn_stack.MAX_LAYERS:
@@ -232,13 +237,38 @@ def _write(ptr, idx, values):
     _view(ptr, int(idx.max()) + 1, gcn_stack.F32)[idx] = values
 
 
+def _copies_fit(ptr, typ, vec, contiguous, other, batch_stride):
+    """What the kernel's `copies_fit` asks of a copy of `vec` floats."""
+    return vec == 1 or (vec in (2, 4) and typ == gcn_stack.F32
+                        and contiguous == 1 and ptr % (4 * vec) == 0
+                        and other % vec == 0 and batch_stride % vec == 0)
+
+
 def replay_product(p, batch):
     """One launch of `gcn_stack_streamed_product` for `batch` samples, as
-    its CTAs compute it: A and B staged chunk by chunk into T x CHUNK
-    tiles, a value outside the operand staged as 0 (the ones row as 1 up
-    to K), the chunks summed in order, then the epilogue on C's values
-    only."""
-    mp, np_, kp = _ceil(p.m, T), _ceil(p.n, T), _ceil(p.k, CHUNK)
+    its CTAs compute it: A and B staged chunk by chunk into BM x CHUNK and
+    CHUNK x BN tiles of its `tile`, a value outside the operand staged as
+    0 (the ones row as 1 up to K); each chunk's K cut into `ksplit` equal
+    parts, one per group of warps, each group summing its parts chunk
+    after chunk in order and the groups' sums added in group order; then
+    the epilogue on C's values only, and where `w2` is set a_{l+1} =
+    relu(z) W2, summed over the n columns in order. Asserts what the
+    kernel's launch check asserts (the copies' alignment, the split, the
+    shared memory, a fused tile covering the width)."""
+    bm, bn = gcn_stack.STREAM_TILES[p.tile]
+    ks = p.ksplit
+    assert ks in gcn_stack.STREAM_KSPLITS
+    assert bm * bn // 16 * ks <= gcn_stack.STREAM_MAX_THREADS
+    assert gcn_stack.streamed_smem(
+        p.tile, ks, bool(p.a_k), bool(p.b_k),
+        (p.n, p.n2) if p.w2 else None) <= gcn_stack.STREAM_MAX_SMEM
+    assert _copies_fit(p.a, p.a_type, p.a_vec,
+                       *((p.a_s1, p.a_s0) if p.a_k else (p.a_s0, p.a_s1)),
+                       p.a_bs)
+    assert _copies_fit(p.b, p.b_type, p.b_vec,
+                       *((p.b_s0, p.b_s1) if p.b_k else (p.b_s1, p.b_s0)),
+                       p.b_bs)
+    mp, np_, kp = _ceil(p.m, bm), _ceil(p.n, bn), _ceil(p.k, CHUNK)
     a = np.zeros((batch, mp, kp), np.float32)
     if p.a_rows:
         a[:, :p.a_rows, :p.k] = _read(p.a, p.a_type, _index(
@@ -248,10 +278,16 @@ def replay_product(p, batch):
     b = np.zeros((batch, kp, np_), np.float32)
     b[:, :p.k, :p.n] = _read(p.b, p.b_type, _index(
         batch, p.b_div, p.b_bs, p.k, p.b_s0, p.n, p.b_s1))
-    acc = np.zeros((batch, mp, np_), np.float32)
+    parts = np.zeros((ks, batch, mp, np_), np.float32)
+    sub = CHUNK // ks
     for chunk in range(kp // CHUNK):
-        for k in range(chunk * CHUNK, (chunk + 1) * CHUNK):
-            acc += a[:, :, k, None] * b[:, None, k, :]
+        for g in range(ks):
+            for k in range(chunk * CHUNK + g * sub,
+                           chunk * CHUNK + (g + 1) * sub):
+                parts[g] += a[:, :, k, None] * b[:, None, k, :]
+    acc = parts[0]
+    for g in range(1, ks):
+        acc = acc + parts[g]
     v = acc[:, :p.m, :p.n]
     c_idx = _index(batch, 1, p.c_bs, p.m, p.c_s0, p.n, p.c_s1)
     if p.epi == gcn_stack.EPI_STORE:
@@ -260,12 +296,23 @@ def replay_product(p, batch):
         bias = _read(p.bias, p.bias_type,
                      _index(batch, p.bias_div, p.bias_bs, 1, 0, p.n, 1))
         z = v + bias
-        _write(p.c, c_idx, np.where(z > 0, z, np.float32(0)))
+        h = np.where(z > 0, z, np.float32(0))
+        _write(p.c, c_idx, h)
         if p.d:
             g = _read(p.g, gcn_stack.F32,
                       _index(batch, 1, p.g_bs, p.m, p.g_s0, p.n, 1))
             _write(p.d, _index(batch, 1, p.d_bs, p.m, p.d_s0, p.n, 1),
                    g * (z > 0))
+        if p.w2:
+            assert p.n <= bn and _copies_fit(p.w2, p.w2_type, p.w2_vec, 1,
+                                             p.n2, p.w2_bs)
+            w2 = _read(p.w2, p.w2_type, _index(batch, p.w2_div, p.w2_bs, p.n,
+                                               p.n2, p.n2, 1))
+            out = np.zeros((batch, p.m, p.n2), np.float32)
+            for k in range(p.n):
+                out += h[:, :, k, None] * w2[:, None, k, :]
+            _write(p.c2, _index(batch, 1, p.c2_bs, p.m, p.c2_s0, p.n2, 1),
+                   out)
     elif p.epi == gcn_stack.EPI_DA:
         rows = p.a_rows
         _write(p.c, c_idx[:, :rows], v[:, :rows])
@@ -439,17 +486,23 @@ def test_replayed_bf16_forward_gives_the_plain_version_on_the_upcasts(
     assert got.dtype == torch.float32
     _close(got, want, 1e-5)
     steps = fake.calls[-1]["steps"]
-    assert [(s["a_type"], s["b_type"]) for s in steps] == [
-        (gcn_stack.BF16, gcn_stack.BF16), (gcn_stack.BF16, gcn_stack.F32),
-        (gcn_stack.F32, gcn_stack.BF16), (gcn_stack.BF16, gcn_stack.F32)]
+    # a_0 = x W_0, then z_0 with a_1 = h_1 W_1 (bf16 W_1) in its epilogue,
+    # then z_1
+    assert [(s["a_type"], s["b_type"], s["w2_type"] if s["w2"] else None)
+            for s in steps] == [
+        (gcn_stack.BF16, gcn_stack.BF16, None),
+        (gcn_stack.BF16, gcn_stack.F32, gcn_stack.BF16),
+        (gcn_stack.BF16, gcn_stack.F32, None)]
 
 
 # ---- (d) the wrapper through a fake library -------------------------------
 
 def test_forward_wrapper_lists_two_launches_a_layer(fake):
     """At N=90 with three layers of 128 (the forward cannot hold it): one
-    call of the library, 2L products over the batch (a_l, then relu(P a_l
-    + b_l) into the JK output), one scratch of every layer's a, one count."""
+    call of the library, L + 1 products over the batch (a_0 = x W_0, then
+    relu(P a_l + b_l) into the JK output, whose epilogue computes a_{l+1}
+    = h_{l+1} W_{l+1} but in the last layer), as the plan lists them, one
+    scratch of every layer's a, one count."""
     prop, x, ws, bs, _ = _inputs(2, 90, 3, (128, 128, 128))
     out = _streamed_forward(prop, x, ws, bs)
     _close(out, gcn_stack.gcn_stack_reference(prop, x, ws, bs), 1e-5)
@@ -457,20 +510,29 @@ def test_forward_wrapper_lists_two_launches_a_layer(fake):
     (call,) = fake.calls
     assert call["batch"] == 2 and call["slots"] == 0
     assert fake.shapes == [(2, 90 * 384)]
-    epis = [s["epi"] for s in call["steps"]]
-    assert epis == [gcn_stack.EPI_STORE, gcn_stack.EPI_RELU] * 3
-    z0 = call["steps"][1]
+    steps = call["steps"]
+    assert [s["epi"] for s in steps] == [gcn_stack.EPI_STORE] + [
+        gcn_stack.EPI_RELU] * 3
+    assert [bool(s["w2"]) for s in steps] == [False, True, True, False]
+    assert [s["n2"] for s in steps[1:3]] == [128, 128]
+    plan = gcn_stack.plan_launch(2, 90, (3, 128, 128, 128))
+    assert plan.fused == (True, True)
+    assert [(s["m"], s["n"], s["k"]) for s in steps] == list(plan.launches)
+    z0 = steps[1]
     # P as gcn_propagation_matrix lays it out: P[i, j] at i + j * N
     assert (z0["m"], z0["n"], z0["k"]) == (90, 128, 90)
     assert (z0["a_s0"], z0["a_s1"], z0["a_bs"]) == (1, 90, 90 * 90)
+    # the 32 x 128 tile covers the width; 6 CTAs, so K is split
+    assert gcn_stack.STREAM_TILES[z0["tile"]] == (32, 128)
+    assert z0["ksplit"] == 2 and not z0["a_k"] and z0["a_vec"] == 2
 
 
 def test_backward_wrapper_lists_the_vjp_chain(fake):
-    """The backward at the same shape: the recompute (2L), per layer from
-    the last da (+ db in the ones row), dW into the sample's slot and e
-    (dz of the layer below; dx at layer 0), dP once over the concatenated
-    dz and a; then the per-set sum of B slots; scratch h, a, dz (N x sum H)
-    and da (N x max H) and the outputs."""
+    """The backward at the same shape: the recompute (L + 1, as the
+    forward), per layer from the last da (+ db in the ones row), dW into
+    the sample's slot and e (dz of the layer below; dx at layer 0), dP
+    once over the concatenated dz and a; then the per-set sum of B slots;
+    scratch h, a, dz (N x sum H) and da (N x max H) and the outputs."""
     prop, x, ws, bs, g = _inputs(2, 90, 3, (128, 128, 128))
     got = _streamed_backward(prop, x, ws, bs, g)
     _held(got, gcn_stack.gcn_stack_backward_reference(prop, x, ws, bs, g))
@@ -484,14 +546,19 @@ def test_backward_wrapper_lists_the_vjp_chain(fake):
                            (2, 90 * 128)]
     S, R, D, G = (gcn_stack.EPI_STORE, gcn_stack.EPI_RELU, gcn_stack.EPI_DA,
                   gcn_stack.EPI_GRAD_MASK)
-    assert [s["epi"] for s in call["steps"]] == (
-        [S, R] * 3 + [D, S, G, D, S, G, D, S, S] + [S])
-    assert call["steps"][5]["d"] and not call["steps"][3]["d"]  # dz_{L-1}
-    da = call["steps"][6]
+    steps = call["steps"]
+    assert [s["epi"] for s in steps] == (
+        [S, R, R, R] + [D, S, G, D, S, G, D, S, S] + [S])
+    assert [(s["m"], s["n"], s["k"]) for s in steps] == list(plan.launches)
+    assert steps[3]["d"] and not steps[1]["d"]              # dz_{L-1}
+    da = steps[4]
     assert (da["m"], da["a_rows"], da["ones"]) == (91, 90, 1)
-    dp = call["steps"][-1]
+    # P^T in gcn_propagation_matrix's layout: K contiguous, 8-byte copies
+    assert da["a_k"] and da["a_vec"] == 2
+    dp = steps[-1]
     assert (dp["m"], dp["n"], dp["k"], dp["c_s0"], dp["c_s1"]) == (
         90, 90, 384, 1, 90)
+    assert dp["a_k"] and dp["b_k"]          # dz and a^T: both along K
 
 
 def test_grouped_wrapper_reads_weight_set_s_over_group(fake):
@@ -531,11 +598,92 @@ def test_c_product_mirrors_the_kernel_struct():
             kind, ctypes.c_void_p)
         fields += [(name.strip(), ctype) for name in names.split(",")]
     assert fields == list(gcn_stack._CProduct._fields_)
+    tiles = gcn_stack.STREAM_TILES
     for name in ("kStore = 0", "kRelu = 1", "kDa = 2", "kGradMask = 3",
-                 f"kTile = {T};", f"kChunk = {CHUNK};",
+                 f"kChunk = {CHUNK};",
                  f"kStages = {gcn_stack.STREAM_STAGES};",
-                 f"kThreads = {gcn_stack.STREAM_THREADS};"):
+                 f"kPad = {gcn_stack.STREAM_PAD};",
+                 f"kMaxThreads = {gcn_stack.STREAM_MAX_THREADS};",
+                 f"kTiles = {len(tiles)};",
+                 "kTileM[kTiles] = {" + ", ".join(str(m) for m, _ in tiles)
+                 + "};",
+                 "kTileN[kTiles] = {" + ", ".join(str(n) for _, n in tiles)
+                 + "};",
+                 f"kMaxSmemBytes = {gcn_stack.STREAM_MAX_SMEM // 1024} "
+                 "* 1024;"):
         assert name in src
+
+
+# the shapes the card times (chip_smoke.py's STREAMED_TIMED, B=32): the
+# flagship at --layers 3 --hiddens 128 and the zoo's GCN at 620 nodes at
+# three of its search grid's points
+TIMED = [(32, 90, 3, (128, 128, 128)), (32, 620, 3, (32, 32, 32)),
+         (32, 620, 3, (16, 16, 16)), (32, 620, 3, (10, 10))]
+
+
+@pytest.mark.parametrize("width,idle", [(16, 0.25), (32, 0.25), (128, 0.25),
+                                        (10, 0.375)])
+def test_tiles_fit_the_layer_widths(width, idle):
+    """A product of a layer's width takes a tile whose idle columns are a
+    quarter of it at most (3/8 at width 10, in a tile of 16), at N=90 and
+    620 and batches from 1 to 256."""
+    for m, batch in itertools.product((90, 620), (1, 32, 256)):
+        tile, _ = gcn_stack.choose_tile(m, width, batch)
+        bn = gcn_stack.STREAM_TILES[tile][1]
+        assert width <= bn and (bn - width) / bn <= idle
+
+
+@pytest.mark.parametrize("b,n,f0,widths", TIMED)
+def test_every_timed_product_fills_the_card_or_splits_k(b, n, f0, widths):
+    """Every launch of the forward and the backward at the timed shapes
+    has two CTAs per SM of an H100 (264) or splits K over groups of
+    warps, within the thread and shared-memory limits."""
+    dims = (f0, *widths)
+    for plan in (gcn_stack.streamed_plan(n, dims),
+                 gcn_stack.streamed_plan(n, dims, backward=True)):
+        assert plan.smem_bytes <= gcn_stack.STREAM_MAX_SMEM
+        for m, c, _ in plan.launches:
+            tile, ks = gcn_stack.choose_tile(m, c, b)
+            bm, bn = gcn_stack.STREAM_TILES[tile]
+            ctas = -(-m // bm) * -(-c // bn) * b
+            assert ctas >= gcn_stack.STREAM_MIN_CTAS or ks > 1
+            assert bm * bn // 16 * ks <= gcn_stack.STREAM_MAX_THREADS
+            assert ctas <= b * plan.tiles
+
+
+@pytest.mark.parametrize("what,addr,elem,contiguous,other,batch,vec", [
+    ("P at N=620: rows of 2,480 bytes", 0, 4, 1, 620, 620 * 620, 4),
+    ("P at N=90: rows of 360 bytes", 0, 4, 1, 90, 90 * 90, 2),
+    ("P at N=270: rows of 1,080 bytes", 0, 4, 1, 270, 270 * 270, 2),
+    ("x at F0=3: rows of 12 bytes", 0, 4, 1, 3, 620 * 3, 1),
+    ("JK slice of (10, 10) at 40 bytes", 40, 4, 1, 20, 620 * 20, 2),
+    ("a misaligned base", 4, 4, 1, 620, 620 * 620, 1),
+    ("a stride of 2 along the staged dimension", 0, 4, 2, 620, 0, 1),
+    ("bf16: plain loads", 0, 2, 1, 620, 620 * 620, 1)])
+def test_copy_widths_follow_the_alignment(what, addr, elem, contiguous, other,
+                                          batch, vec):
+    assert gcn_stack.copy_vec(addr, elem, contiguous, other, batch) == vec
+
+
+@pytest.mark.parametrize("n,f0,widths,checks", [
+    (620, 3, (10, 10), {("z0", "a_vec"): 4, ("a0", "a_vec"): 1,
+                        ("z1", "b_vec"): 2}),
+    (90, 3, (128, 128, 128), {("z0", "a_vec"): 2, ("a0", "a_vec"): 1,
+                              ("z1", "b_vec"): 4}),
+    (270, 1, (64,), {("z0", "a_vec"): 2, ("z0", "b_vec"): 4})])
+def test_listed_copies_take_the_widest_aligned_vector(fake, n, f0, widths,
+                                                      checks):
+    """Through the wrapper, on the tensors the port allocates: P's copies
+    are 16 bytes at N=620 and 8 at N=90 and 270, x's at F0=3 4 bytes, the
+    (10, 10) stack's second JK slice (40 bytes in) 8 bytes."""
+    prop, x, ws, bs, _ = _inputs(1, n, f0, widths)
+    _streamed_forward(prop, x, ws, bs)
+    names = {}
+    for p in fake.calls[-1]["steps"]:
+        kind = "z" if p["epi"] == gcn_stack.EPI_RELU else "a"
+        names[f"{kind}{sum(k.startswith(kind) for k in names)}"] = p
+    for (name, field), vec in checks.items():
+        assert names[name][field] == vec, (name, field)
 
 
 # ---- (e) the port against JAX at streamed shapes -------------------------
@@ -571,7 +719,8 @@ def _held_np(got, want, rel):
 
 
 @pytest.mark.parametrize("b,n,f0,widths", [(2, 20, 3, (8,) * 9),
-                                           (2, 90, 3, (128, 128, 128))])
+                                           (2, 90, 3, (128, 128, 128)),
+                                           (2, 620, 3, (16, 16))])
 def test_stack_matches_jax_at_streamed_shapes(fake, b, n, f0, widths):
     prop, x, ws, bs, g = _inputs(b, n, f0, widths, seed=4)
     assert isinstance(gcn_stack.plan_backward(b, n, (f0, *widths)),
