@@ -222,14 +222,35 @@ failure propagates and the script exits non-zero:
      at 3 of 32, 3 of 16 and 2 of 10); the grouped form at 5 x 32 x (90,
      3, 3 x 128); the bf16 form at `STREAMED_BF16`. Warm and cold times of
      the forward and the backward at the flagship's (32, 90, 3, 3 x 128)
-     and the zoo's (32, 620, 3, 3 x 32, 3 x 16 and 2 x 10) beside the
-     plain versions, the library yardsticks and the bounds. Then three
+     and the zoo's (32, 620, 3, 3 x 32, 3 x 16 and 2 x 10) and
+     multi-fusion's (32, 270, 1, 3 x 32: the forward resident, the
+     backward streamed) beside the plain versions, the library yardsticks
+     and the bounds. Then three
      CLI routes, 1 epoch each, with the loop's launches split over the
      forms and six card steps against the CPU under phase 7's rules: the
      flagship `--layers 3 --hiddens 128`, `--isMultiFusion --layers 3
      --hiddens 32`, and the zoo's `--model GCN` over a PROTEINS-shaped TU
      layout the script writes (`write_tu_layout`: 400 graphs, the largest
      of 620 nodes).
+ 18. long training runs, the card against the CPU, through the port half
+     of `scripts/convergence_ab_torch.py`: the flagship at full width
+     (default ModelConfig, N=90, the real-scale GO DAG) on a planted-signal
+     cohort of `LONG_SUBJECTS`, full batch, dropout 0, from one set of
+     seeded random weights, learning rate `LONG_LR`, `LONG_EPOCHS` epochs
+     with StepLR every `LONG_DECAY` (three boundaries); then `--layers 3
+     --hiddens 128`
+     (both directions streamed) for `LONG_STREAMED_EPOCHS`. Each on the
+     card, where every step must launch the forward and backward kernels
+     (the counters over the training equal epochs x one step's: 2 + 2
+     resident, or 4 streamed calls), and on the CPU from the same weights;
+     held to the harness's bounds, the CPU as the reference: the first
+     three epochs' losses within rtol 2e-4, the last within 0.05, both
+     learn (the loss halves), the held-out predictions equal but for
+     near-ties (class margin below 0.1 on either side, each printed);
+     and to the same bounds with a float64 run on the CPU as the
+     reference. It prints the loss checkpoints, the worst relative
+     difference per StepLR window, how far each fp32 run departs from
+     the float64 run and the phase's seconds.
 
 Every route's launches are counted for both kernels of the fp32 stack,
 the forward and its backward: the loop's count is the forward's per
@@ -292,6 +313,9 @@ from iggcn_tpu_torch.train.cv import init_fold_model, prepare_fold, to_device
 from iggcn_tpu_torch.utils import cuda_build
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# phase 18 trains through the port half of the convergence harness
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+import convergence_ab_torch  # noqa: E402
 OUT_DIR = os.path.join(REPO, "results", "chip_smoke")
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs plain, fp32
 BWD_TOL = 1e-4                   # gradients, rtol and atol (phase 2's)
@@ -3616,15 +3640,19 @@ STREAMED_GROUPED = [(5, 32, 90, 3, (128, 128, 128))]
 # --hiddens 128 served at batch 256, and N=620 at three layers of 32 (at
 # 620 x (16, 16) the bf16 form stays on the resident cluster design)
 STREAMED_BF16 = [(256, 90, 3, (128, 128, 128)), (256, 620, 3, (32, 32, 32))]
-# timed: the flagship's widest training shape and the zoo's at 3 x 32 and
-# at two points of its search grid (name, B, N, F0, widths)
+# timed: the flagship's widest training shape, the zoo's at 3 x 32 and at
+# two points of its search grid, and multi-fusion's at 3 x 32, whose
+# forward stays resident and whose backward streams (name, B, N, F0,
+# widths)
 STREAMED_TIMED = [("flagship training --layers 3 --hiddens 128", 32, 90, 3,
                    (128, 128, 128)),
                   ("zoo GCN training, 620 nodes", 32, 620, 3, (32, 32, 32)),
                   ("zoo GCN grid --layers 3 --hiddens 16, 620 nodes", 32, 620,
                    3, (16, 16, 16)),
                   ("zoo GCN grid --layers 2 --hiddens 10, 620 nodes", 32, 620,
-                   3, (10, 10))]
+                   3, (10, 10)),
+                  ("--isMultiFusion training --layers 3 --hiddens 32", 32,
+                   270, 1, (32, 32, 32))]
 # the routes: one epoch each; the TU layout's graphs leave fold 0 the six
 # train batches of 32 that the card-vs-CPU steps take
 STREAMED_EPOCHS = 1
@@ -3977,6 +4005,147 @@ def phase_streamed(dev, card_name):
             "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: long training runs, the card against the CPU
+
+# the flagship at full width (default ModelConfig, N=90, the real-scale GO
+# DAG), a planted-signal cohort of LONG_SUBJECTS trained full batch from
+# one set of random weights, dropout 0, at the CLI's default learning rate
+# (at the harness's 5e-3 this DAG makes the CPU's own fp32 part from
+# float64 by as much as the bounds allow); StepLR every LONG_DECAY epochs
+# (three boundaries in LONG_EPOCHS); then at --layers 3 --hiddens 128,
+# where both directions stream, for LONG_STREAMED_EPOCHS
+LONG_SUBJECTS, LONG_EPOCHS, LONG_DECAY, LONG_LR = 120, 100, 30, 1e-3
+LONG_STREAMED_EPOCHS, LONG_STREAMED_DECAY = 30, 10
+LONG_RUNS = [("flagship L=2 H=16", {}, LONG_EPOCHS, LONG_DECAY),
+             ("flagship --layers 3 --hiddens 128",
+              {"num_layers": 3, "hidden": 128}, LONG_STREAMED_EPOCHS,
+              LONG_STREAMED_DECAY)]
+
+
+def window_rels(rels, decay_every):
+    """The largest relative loss difference in the first
+    `EARLY_WINDOW` epochs and in each StepLR window."""
+    early = convergence_ab_torch.EARLY_WINDOW
+    out = {f"epochs 0-{early - 1}": float(np.max(rels[:early]))}
+    for start in range(0, len(rels), decay_every):
+        end = min(start + decay_every, len(rels))
+        out[f"epochs {start}-{end - 1}"] = float(np.max(rels[start:end]))
+    return out
+
+
+def long_run(dev, problem, what, overrides, epochs, decay_every):
+    """One long run of the flagship on the card and on the CPU from the
+    same random weights (`convergence_ab_torch.train_port`): the card's
+    launches over its training against epochs x one train step's (2
+    forward, 2 backward, split over the forms this shape takes), then
+    `convergence_ab_torch.verdict`'s bounds, the CPU as the reference,
+    and the same bounds with a float64 run on the CPU as the reference
+    (the CPU's fp32 run parts from float64 further than the card's on
+    this GO DAG: `scripts/fp32_drift_torch.py`); beside them how far each
+    fp32 run departs from float64 (`against_exact`)."""
+    ab = convergence_ab_torch
+    fields = ab.model_fields("fused", problem.arrays["x"].shape[1],
+                             **overrides)
+    model = ab.new_port_model("fused", problem, fields,
+                              torch.Generator().manual_seed(18))
+    variables = to_flax_variables(model)
+    sched = ab.Schedule(epochs=epochs, lr=LONG_LR, decay_every=decay_every)
+    n_train = len(problem.train_idx)
+    mcfg = ModelConfig(**fields)
+    forms = streamed_forms(n_train, mcfg.rois,
+                           (mcfg.feat_dim,) + (mcfg.hidden,) * mcfg.num_layers)
+    per_step = split_counts(step_launches(STACK_CALLS["SGCN_GCN_IMGSNP"])[0],
+                            forms)
+    t0 = time.perf_counter()
+    reset_all()
+    card = ab.train_port("fused", problem, variables, dev, sched, fields)
+    torch.cuda.synchronize()
+    launches = all_counts()
+    card_s = time.perf_counter() - t0
+    want = {k: epochs * v for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: {epochs} train steps launched "
+                             f"{launches}; epochs x one step's is {want}")
+    lp_card = ab.predict_port(card, problem, dev)
+    t0 = time.perf_counter()
+    cpu_dev = torch.device("cpu")
+    cpu = ab.train_port("fused", problem, variables, cpu_dev, sched, fields)
+    lp_cpu = ab.predict_port(cpu, problem, cpu_dev)
+    cpu_s = time.perf_counter() - t0
+    exact = ab.train_port("fused", problem, variables, cpu_dev, sched, fields,
+                          torch.float64)
+    lp_exact = ab.predict_port(exact, problem, cpu_dev)
+    losses = {"cpu": cpu.losses, "card": card.losses}
+    log_probs = {"cpu": lp_cpu, "card": lp_card}
+    labels = ab.held_out_labels("fused", problem)
+    verdict = ab.verdict("fused", losses, log_probs, labels)
+    exact_verdict = ab.verdict(
+        "fused", {"float64": exact.losses, "card": card.losses},
+        {"float64": lp_exact, "card": lp_card}, labels)
+    yardstick = ab.against_exact(
+        {**losses, "float64": exact.losses},
+        {**log_probs, "float64": lp_exact}, "float64",
+        sorted({*verdict["disagreements"], *exact_verdict["disagreements"],
+                *(t["subject"] for t in verdict["near_ties"]
+                  + exact_verdict["near_ties"])}))
+    rels = np.abs(card.losses - cpu.losses) / np.abs(cpu.losses)
+    windows = window_rels(rels, decay_every)
+    for e, vc, vk, rel in ab.checkpoint_rows(losses):
+        log(f"{what} epoch {e}: loss cpu {vc:.6f} card {vk:.6f} rel "
+            f"{rel:.2e}")
+    for t in verdict["near_ties"]:
+        log(f"{what} near-tie: subject {t['subject']}, margin cpu "
+            f"{t['margin_cpu']:.4f} (pred {t['pred_cpu']}), card "
+            f"{t['margin_card']:.4f} (pred {t['pred_card']})")
+    log(f"{what}: worst rel per window {windows}; early "
+        f"{verdict['early_rel']:.3e} (rtol {verdict['early_rtol']}), final "
+        f"{verdict['final_rel']:.3e} "
+        f"(rel {verdict['final_rtol']}), acc card {verdict['acc_card']} / cpu "
+        f"{verdict['acc_cpu']}, learned card {verdict['learned_card']} / cpu "
+        f"{verdict['learned_cpu']}, launches {launches} (= {epochs} x "
+        f"{per_step}), card {card_s:.3f} s, CPU {cpu_s:.3f} s")
+    log(f"{what} against float64 on the CPU: early rel "
+        f"{yardstick['early_rel']}, worst {yardstick['worst_rel']}, final "
+        f"{yardstick['final_rel']}, log p1 - log p0 of the subjects in "
+        f"question {yardstick['log_p1_minus_log_p0']}; the card under the "
+        f"same bounds: early {exact_verdict['early_rel']:.3e}, final "
+        f"{exact_verdict['final_rel']:.3e}, acc {exact_verdict['acc_card']} "
+        f"/ float64 {exact_verdict['acc_float64']}, near-ties "
+        f"{exact_verdict['near_ties']}")
+    for reference, v in (("CPU", verdict), ("float64", exact_verdict)):
+        if not v["ok"]:
+            raise AssertionError(f"{what}: card against {reference} out of "
+                                 f"bounds: {v}")
+    return {"epochs": epochs, "decay_every": decay_every, "B": n_train,
+            "widths": [mcfg.hidden] * mcfg.num_layers,
+            "forms": {"forward": "streamed" if forms[0] else "resident",
+                      "backward": "streamed" if forms[1] else "resident"},
+            "launches": launches, "launches_per_step": per_step,
+            "worst_rel_per_window": windows, "card_s": card_s,
+            "cpu_s": cpu_s, "against_float64": yardstick,
+            "card_against_float64": {k: exact_verdict[k] for k in (
+                "early_rel", "final_rel", "near_ties", "disagreements",
+                "ok")},
+            "losses_card": card.losses.tolist(),
+            "losses_cpu": cpu.losses.tolist(), **verdict}
+
+
+def phase_long_runs(dev):
+    log("== phase 18: long training runs, the card against the CPU")
+    t0 = time.perf_counter()
+    problem = convergence_ab_torch.port_problem(
+        subjects=LONG_SUBJECTS, rois=90, go_levels=REAL_GO_LEVELS)
+    log(f"long runs: {LONG_SUBJECTS} planted-signal subjects (train "
+        f"{len(problem.train_idx)}, held out {len(problem.test_idx)}), GO "
+        f"topology n={problem.topo.n}")
+    runs = {what: long_run(dev, problem, what, overrides, epochs, decay)
+            for what, overrides, epochs, decay in LONG_RUNS}
+    phase_s = time.perf_counter() - t0
+    log(f"phase 18: {phase_s:.3f} s")
+    return {"runs": runs, "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -4008,6 +4177,7 @@ def main() -> int:
         bf16 = phase_bf16(dev, torch.cuda.get_device_name(0), model, served,
                           cohort, artifacts, layout)
     streamed = phase_streamed(dev, torch.cuda.get_device_name(0))
+    long_runs = phase_long_runs(dev)
 
     serving, *others = times["shapes"]
     fp_row = times["grouped"][0]
@@ -4254,6 +4424,12 @@ def main() -> int:
                  "card_vs_cpu_loss_max_rel_diff":
                      run["card_vs_cpu"]["loss_max_rel_diff"]}
                  for name, run in streamed["routes"].items()},
+             "long_runs": {what: {k: run[k] for k in (
+                 "epochs", "launches", "early_rel", "final_rel", "acc_card",
+                 "acc_cpu", "near_ties", "worst_rel_per_window",
+                 "against_float64", "card_against_float64", "card_s",
+                 "cpu_s")}
+                 for what, run in long_runs["runs"].items()},
              "snps_only": {model: {
                  "experiment_wall_s": run["experiment_wall_s"],
                  "result_line": run["result_line"],
@@ -4272,7 +4448,8 @@ def main() -> int:
                    "artifacts": artifacts, "snps_only": snps,
                    "real_cohort": real, "other_routes": other, "zoo": zoo,
                    "batched": batched, "bf16": bf16, "streamed": streamed,
-                   "device": device}, fh, indent=1, default=float)
+                   "long_runs": long_runs, "device": device}, fh, indent=1,
+                  default=float)
     log(card)
     log(json.dumps(serve))
     log(json.dumps(kernels))

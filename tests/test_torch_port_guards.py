@@ -73,6 +73,26 @@ def test_importing_the_serving_tool_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_convergence_harness_port_half_and_chip_smoke_load_no_jax():
+    """`chip_smoke.py` runs the port half of
+    `scripts/convergence_ab_torch.py` on a machine without JAX: importing
+    both (and the mutation registry and `scripts/fp32_drift_torch.py`,
+    which runs on that machine too) loads nothing of JAX or of the JAX
+    package."""
+    code = ("import sys\n"
+            f"sys.path.insert(0, {os.path.join(REPO, 'scripts')!r})\n"
+            "import convergence_ab_torch, chip_smoke, torch_mutations\n"
+            "import fp32_drift_torch\n"
+            "assert chip_smoke.convergence_ab_torch is convergence_ab_torch\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{tuple(sorted(FORBIDDEN_ROOTS))!r})\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
