@@ -114,9 +114,9 @@ failure propagates and the script exits non-zero:
      with `--export_bundle` (2 epochs) writes every fold's checkpoint,
      record and bundle, launching the kernel the loop's count; the fold
      records of folds 3-4 are deleted and the run repeated with
-     `--resume`: folds 0-2 restored (their score rows bit-equal to the
-     first run's), 3-4 retrained with the loop's launches for those folds
-     alone and per-epoch test losses within rtol 2e-4 of the first run's;
+     `--resume`: folds 0-2 restored, 3-4 retrained with the loop's
+     launches for those folds alone, their per-epoch test losses and the
+     whole score matrix bit-equal to the first run's;
      the fold-0 bundles of the flagship (N=90), of phase 8 (N=270) and of
      phase 9's CLUSTERLABEL and GUIDE runs each serve an 874-subject cohort
      at batch 256 on the card, held against the CPU's plain path under
@@ -238,11 +238,19 @@ failure propagates and the script exits non-zero:
      cohort of `LONG_SUBJECTS`, full batch, dropout 0, from one set of
      seeded random weights, learning rate `LONG_LR`, `LONG_EPOCHS` epochs
      with StepLR every `LONG_DECAY` (three boundaries); then `--layers 3
-     --hiddens 128`
-     (both directions streamed) for `LONG_STREAMED_EPOCHS`. Each on the
-     card, where every step must launch the forward and backward kernels
+     --hiddens 128` (both directions streamed) for `LONG_STREAMED_EPOCHS`;
+     the multi-fusion shape (270 ROIs, F0=1, `--layers 3 --hiddens 10`:
+     the resident kernels' 2-CTA clusters both ways) for
+     `LONG_MULTI_EPOCHS`; and the grouped form, `LONG_SETS` weight sets
+     from as many seeded inits in one fold-parallel program
+     (`batched_train_step`, the per-set sums of `sum_weight_slots`), for
+     `LONG_GROUPED_EPOCHS`. Each on the card twice, the two runs bit-equal
+     (per-epoch losses, held-out log-probabilities, final weights), where
+     every step must launch the forward and backward kernels
      (the counters over the training equal epochs x one step's: 2 + 2
-     resident, or 4 streamed calls), and on the CPU from the same weights;
+     resident, or 4 streamed calls), and on the CPU from the same weights
+     (each weight set its own run; the CPU runs train in worker processes
+     while the card trains);
      held to the harness's bounds, the CPU as the reference: the first
      three epochs' losses within rtol 2e-4, the last within 0.05, both
      learn (the loss halves), the held-out predictions equal but for
@@ -251,6 +259,18 @@ failure propagates and the script exits non-zero:
      reference. It prints the loss checkpoints, the worst relative
      difference per StepLR window, how far each fp32 run departs from
      the float64 run and the phase's seconds.
+ 19. the card's results repeat run to run in PyTorch's default mode (no
+     deterministic switch, no `CUBLAS_WORKSPACE_CONFIG`: asserted, and at
+     the start of the script too): each route twice, the two results
+     compared bit for bit, the first differing value printed on failure:
+     every bundle class of phases 10-11 served to the 874-subject cohort
+     at batch 256 in fp32 and bf16; phase 18's full-batch flagship; the
+     2-epoch 5-fold flagship CLI, sequential and `--fold_parallel`, and
+     `--fold_parallel --isMultiFusion --layers 3 --hiddens 10`, 1 epoch
+     (phase 15's runs against a run of each now: every npy, fold record,
+     checkpoint and bundle, the printed per-epoch losses and the `Result
+     -` line); the SNP-only `Gene_ontology_network`, 1 epoch, twice. One
+     line per route with the values compared, then the phase's seconds.
 
 Every route's launches are counted for both kernels of the fp32 stack,
 the forward and its backward: the loop's count is the forward's per
@@ -265,6 +285,7 @@ written to results/chip_smoke/result.json (git-ignored).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -273,6 +294,7 @@ import http.client
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import shlex
@@ -399,11 +421,12 @@ OTHER_FAMILIES = ("GCN_IMGSNP", "SGCN_GCN", "SGCN_GAT", "SGCN_Ori",
 # phase 9 families whose runs export serving bundles (phase 10 serves them)
 BUNDLE_FAMILIES = ("GUIDE_IMGSNP", "SGCN_GCN_CLUSTERLABEL")
 # phase 10: the flagship's artifacts (2 epochs, --export_bundle), then a
-# resume after the records of RESUME_FOLDS are deleted; retrained folds'
-# per-epoch test losses within RESUME_RTOL of the first run's (the card is
-# not bit-deterministic run to run: atomics in index_select's backward and
-# split-K GEMMs)
-ARTIFACT_EPOCHS, RESUME_FOLDS, RESUME_RTOL = 2, (3, 4), 2e-4
+# resume after the records of RESUME_FOLDS are deleted; the retrained
+# folds' per-epoch test losses and the whole score matrix equal the first
+# run's bit for bit: the port's runs repeat on the card (no trained or
+# served path accumulates with atomics, tests/test_torch_port_determinism.py;
+# phase 19), as the JAX package's resume repeats its uninterrupted run
+ARTIFACT_EPOCHS, RESUME_FOLDS = 2, (3, 4)
 ARTIFACT_ARGV = cli_argv(ARTIFACT_EPOCHS, "_chip_smoke_artifacts",
                          "--export_bundle")
 # the kernel's launches per served forward of each bundle class
@@ -436,14 +459,16 @@ BWD_TIMED = [("training", 0, 32, 90, 3, (16, 16)),
 # sequential run of as many epochs, the others at 1 epoch; FP_STEPS
 # fold-parallel steps against sequential ones; the seeds of the batches
 FP_EPOCHS, FP_STEPS, FP_SEEDS = 2, 6, "1:3"
+FP_MULTI_ARGV = cli_argv(1, "_chip_smoke_fp_multi", "--fold_parallel",
+                         "--isMultiFusion", "--layers", "3", "--hiddens", "10")
 
 
-def snps_argv(appendix):
+def snps_argv(appendix, epochs=SNP_EPOCHS):
     """The SNP-only CLI route on the card (`--model` comes first): phase
     7's cohort and topology, batch and folds, binary, with bundles."""
     return ["--device", "cuda", "--synthetic", "--synthetic_subjects",
             str(COHORT), "--synthetic_go_levels", GO_LEVELS, "--epochs",
-            str(SNP_EPOCHS), "--fold", str(TRAIN_FOLDS), "--batch_size",
+            str(epochs), "--fold", str(TRAIN_FOLDS), "--batch_size",
             str(TRAIN_BATCH), "--disease_id", "0", "--save_appendix",
             appendix, "--export_bundle", "--cohort_cache_dir", ""]
 EPOCH_LINE = re.compile(r"^Fold: (\d+), epoch:(\d+), train_loss: ([^,]+), "
@@ -455,7 +480,13 @@ CARD_SPECS = [("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
               ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12)]
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header also gets the script's seconds."""
+    if msg.startswith("== phase"):
+        msg += f" (at {time.perf_counter() - START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -639,6 +670,41 @@ def compare_snps_predictions(got, want, what):
     if not np.array_equal(got["pred"][decided], want["pred"][decided]):
         raise AssertionError(f"{what}: pred differs on decided subjects")
     return err
+
+
+def assert_bit_equal(got, want, what):
+    """The number of values in `got`, which must equal `want` bit for bit
+    (shape, dtype and every value's bits); else an AssertionError that
+    names the first value that differs."""
+    got, want = np.ascontiguousarray(got), np.ascontiguousarray(want)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{got.shape} against "
+                             f"{want.dtype}{want.shape}")
+    if got.size == 0:
+        return 0
+    a = got.reshape(-1).view(np.uint8).reshape(got.size, -1)
+    b = want.reshape(-1).view(np.uint8).reshape(want.size, -1)
+    differ = np.flatnonzero((a != b).any(axis=1))
+    if differ.size:
+        i = np.unravel_index(differ[0], got.shape)
+        raise AssertionError(f"{what}: {differ.size} of {got.size} values "
+                             f"differ; the first at {tuple(map(int, i))}: "
+                             f"{got[i]!r} against {want[i]!r}")
+    return int(got.size)
+
+
+def assert_default_mode():
+    """Nothing switches PyTorch to its deterministic variants: the runs
+    must repeat by the port's own formulation."""
+    switched = {"torch.are_deterministic_algorithms_enabled()":
+                torch.are_deterministic_algorithms_enabled(),
+                "torch.backends.cudnn.deterministic":
+                torch.backends.cudnn.deterministic,
+                "CUBLAS_WORKSPACE_CONFIG":
+                os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
+    if any(v not in (False, None) for v in switched.values()):
+        raise AssertionError(f"not PyTorch's default mode: {switched}")
+    return switched
 
 
 def phase_build():
@@ -2173,22 +2239,19 @@ def phase_artifacts(dev, train, cohort):
     if not np.array_equal(scores[kept], scores_first[kept]):
         raise AssertionError("restored folds' score rows differ from the "
                              "first run's")
-    gaps = {}
+    compared = 0
     for k in RESUME_FOLDS:
         with np.load(fold_file("fold_result", k, "npz")) as zf:
-            again = zf["test_losses"]
-        gaps[k] = float(np.max(np.abs(again - losses_first[k])
-                               / np.abs(losses_first[k])))
-        if gaps[k] > RESUME_RTOL:
-            raise AssertionError(f"retrained fold {k}: per-epoch test losses "
-                                 f"{again.tolist()} vs the first run's "
-                                 f"{losses_first[k].tolist()} (rel {gaps[k]})")
-    same_scores = bool(np.array_equal(scores, scores_first))
+            compared += assert_bit_equal(
+                zf["test_losses"], losses_first[k],
+                f"retrained fold {k}'s per-epoch test losses vs the first "
+                "run's")
+    compared += assert_bit_equal(scores, scores_first, "the resumed run's "
+                                 "score matrix vs the first run's")
     log(f"resume: folds {kept} restored, {list(RESUME_FOLDS)} retrained in "
         f"{wall_s:.3f} s with {launches} kernel launches (= {want} implied); "
-        f"restored score rows bit-equal; retrained folds' test losses vs the "
-        f"first run max rel diff {max(gaps.values()):.3e} (tolerance "
-        f"{RESUME_RTOL}); whole score matrix bit-equal: {same_scores}")
+        f"the retrained folds' per-epoch test losses and the whole score "
+        f"matrix bit-equal to the first run's ({compared} values)")
 
     multi_cohort = make_cohort(np.random.default_rng(4), COHORT, rois=270,
                                feat=1)
@@ -2221,9 +2284,16 @@ def phase_artifacts(dev, train, cohort):
     return {"run": first, "resume": {
         "launches": launches, "expected_launches": want, "wall_s": wall_s,
         "restored_folds": kept, "retrained_folds": list(RESUME_FOLDS),
-        "retrained_test_loss_max_rel_diff": gaps,
-        "score_matrix_bit_equal": same_scores},
+        "values_bit_equal": compared},
         "serving": served, "explain": explained}
+
+
+def snps_inputs(argv):
+    """(snps, labels, topo) that the SNP-only CLI route `argv` trains on."""
+    args = port_main.build_parser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return port_main.snps_inputs(args, None, port_main.build_dcfg(args),
+                                     np.random.default_rng(args.seed))
 
 
 def phase_snps(dev):
@@ -2233,10 +2303,7 @@ def phase_snps(dev):
     shutil.rmtree(res_dir, ignore_errors=True)
     argv = snps_argv(appendix)
     args = port_main.build_parser().parse_args(argv)
-    with contextlib.redirect_stdout(io.StringIO()):
-        snps, labels, topo = port_main.snps_inputs(
-            args, None, port_main.build_dcfg(args),
-            np.random.default_rng(args.seed))
+    snps, labels, topo = snps_inputs(argv)
     out, total_launches = {}, 0
     for model in SNP_MODELS:
         kind = "mlp" if model == "MLP_Model" else "go"
@@ -3043,14 +3110,18 @@ def phase_fold_parallel(dev, train):
     out["flagship"] = {**{k: v for k, v in fp.items() if k != "text"},
                        "sequential_wall_s": seq_wall,
                        "sequential_launches": launches,
-                       "printed_loss_max_rel_diff": worst}
+                       "printed_loss_max_rel_diff": worst,
+                       # what phase 19 holds its repeats of both runs to
+                       "epoch_lines": EPOCH_LINE.findall(fp["text"]),
+                       "sequential_epoch_lines": EPOCH_LINE.findall(text),
+                       "sequential_result_line": re.search(
+                           r"^Result - .*$", text, re.M).group(0)}
     out["steps"] = fold_parallel_vs_sequential_steps(dev, train)
 
-    multi = fp_run(cli_argv(1, "_chip_smoke_fp_multi", "--fold_parallel",
-                            "--isMultiFusion", "--layers", "3", "--hiddens",
-                            "10"), [splits], tcfg,
+    multi = fp_run(FP_MULTI_ARGV, [splits], tcfg,
                    "--fold_parallel --isMultiFusion 1 epoch")
     out["multi_fusion"] = {k: v for k, v in multi.items() if k != "text"}
+    out["multi_fusion"]["epoch_lines"] = EPOCH_LINE.findall(multi["text"])
 
     seeds = port_main.parse_permut_seeds(FP_SEEDS, None)
     seed_splits = [k_fold(train["cohort"].y, tcfg.folds, s) for s in seeds]
@@ -4014,13 +4085,37 @@ def phase_streamed(dev, card_name):
 # (at the harness's 5e-3 this DAG makes the CPU's own fp32 part from
 # float64 by as much as the bounds allow); StepLR every LONG_DECAY epochs
 # (three boundaries in LONG_EPOCHS); then at --layers 3 --hiddens 128,
-# where both directions stream, for LONG_STREAMED_EPOCHS
+# where both directions stream, for LONG_STREAMED_EPOCHS; the multi-fusion
+# shape (270 ROIs, F0 = 1, --layers 3 --hiddens 10: the resident kernels'
+# 2-CTA clusters in both directions) for LONG_MULTI_EPOCHS; and the
+# kernels' grouped form, LONG_SETS weight sets from as many seeded inits
+# trained as one fold-parallel program (`steps.batched_train_step`), each
+# set held to its own CPU run, for LONG_GROUPED_EPOCHS with no StepLR
+# boundary (at this learning rate two of the five inits need 27 and 33
+# epochs to halve their loss; with a decay every 10 they do not in 30)
 LONG_SUBJECTS, LONG_EPOCHS, LONG_DECAY, LONG_LR = 120, 100, 30, 1e-3
 LONG_STREAMED_EPOCHS, LONG_STREAMED_DECAY = 30, 10
-LONG_RUNS = [("flagship L=2 H=16", {}, LONG_EPOCHS, LONG_DECAY),
-             ("flagship --layers 3 --hiddens 128",
+LONG_MULTI_EPOCHS, LONG_MULTI_DECAY = 30, 10
+LONG_SETS, LONG_GROUPED_EPOCHS = 5, 40
+LONG_GROUPED_DECAY = LONG_GROUPED_EPOCHS
+# the CPU reference runs (fp32 and float64, each weight set its own) train
+# in LONG_CPU_WORKERS processes of LONG_CPU_THREADS torch threads, started
+# with the phase, while the card trains in this one (one core of the card
+# host's 8 left to it); the longest runs are submitted first
+LONG_CPU_WORKERS, LONG_CPU_THREADS = 7, 1
+MULTI_FIELDS = {"num_layers": 3, "hidden": 10, "feat_dim": 1,
+                "is_multi_fusion": True,
+                "hidden_linear": ModelConfig().hidden_linear}
+# (what, problem: ROIs, ModelConfig overrides, epochs, StepLR step, weight
+# sets: 1 trains through `train_port`, more through the grouped form)
+LONG_RUNS = [("flagship L=2 H=16", 90, {}, LONG_EPOCHS, LONG_DECAY, 1),
+             ("flagship --layers 3 --hiddens 128", 90,
               {"num_layers": 3, "hidden": 128}, LONG_STREAMED_EPOCHS,
-              LONG_STREAMED_DECAY)]
+              LONG_STREAMED_DECAY, 1),
+             ("--isMultiFusion --layers 3 --hiddens 10 (N=270)", 270,
+              MULTI_FIELDS, LONG_MULTI_EPOCHS, LONG_MULTI_DECAY, 1),
+             (f"grouped form, {LONG_SETS} weight sets", 90, {},
+              LONG_GROUPED_EPOCHS, LONG_GROUPED_DECAY, LONG_SETS)]
 
 
 def window_rels(rels, decay_every):
@@ -4034,78 +4129,179 @@ def window_rels(rels, decay_every):
     return out
 
 
-def long_run(dev, problem, what, overrides, epochs, decay_every):
-    """One long run of the flagship on the card and on the CPU from the
-    same random weights (`convergence_ab_torch.train_port`): the card's
-    launches over its training against epochs x one train step's (2
-    forward, 2 backward, split over the forms this shape takes), then
-    `convergence_ab_torch.verdict`'s bounds, the CPU as the reference,
-    and the same bounds with a float64 run on the CPU as the reference
-    (the CPU's fp32 run parts from float64 further than the card's on
-    this GO DAG: `scripts/fp32_drift_torch.py`); beside them how far each
-    fp32 run departs from float64 (`against_exact`)."""
+def repeated_runs(first, second, what):
+    """Two card runs of the same training, held equal bit for bit: each
+    weight set's per-epoch losses, held-out log-probabilities and every
+    tensor of its final state_dict (params and running statistics).
+    Returns the number of values compared."""
+    n = 0
+    for f, ((a, lp_a), (b, lp_b)) in enumerate(zip(first, second)):
+        tag = f"{what}, set {f}" if len(first) > 1 else what
+        n += assert_bit_equal(b.losses, a.losses,
+                              f"{tag}: the second card run's losses")
+        n += assert_bit_equal(lp_b, lp_a, f"{tag}: the second card run's "
+                              "held-out log-probabilities")
+        sa, sb = a.model.state_dict(), b.model.state_dict()
+        for k in sa:
+            n += assert_bit_equal(sb[k].cpu().numpy(), sa[k].cpu().numpy(),
+                                  f"{tag}: the second card run's {k}")
+    return n
+
+
+def long_plan(pool, problem, what, overrides, epochs, decay_every, sets):
+    """One long run's inputs (`sets` seeded weight sets, the schedule, the
+    launches one step must make at this shape) with its CPU references
+    submitted to `pool`: each set's fp32 and float64 CPU run
+    (`convergence_ab_torch.cpu_reference`), float64 first."""
     ab = convergence_ab_torch
     fields = ab.model_fields("fused", problem.arrays["x"].shape[1],
                              **overrides)
-    model = ab.new_port_model("fused", problem, fields,
-                              torch.Generator().manual_seed(18))
-    variables = to_flax_variables(model)
+    variables = [to_flax_variables(ab.new_port_model(
+        "fused", problem, fields, torch.Generator().manual_seed(18 + f)))
+        for f in range(sets)]
     sched = ab.Schedule(epochs=epochs, lr=LONG_LR, decay_every=decay_every)
-    n_train = len(problem.train_idx)
     mcfg = ModelConfig(**fields)
-    forms = streamed_forms(n_train, mcfg.rois,
+    forms = streamed_forms(len(problem.train_idx), mcfg.rois,
                            (mcfg.feat_dim,) + (mcfg.hidden,) * mcfg.num_layers)
-    per_step = split_counts(step_launches(STACK_CALLS["SGCN_GCN_IMGSNP"])[0],
-                            forms)
+    refs = {dtype: [pool.submit(ab.cpu_reference, "fused", problem, v, sched,
+                                fields, dtype, LONG_CPU_THREADS)
+                    for v in variables]
+            for dtype in (torch.float64, torch.float32)}
+    return {"what": what, "problem": problem, "fields": fields,
+            "variables": variables, "sched": sched, "mcfg": mcfg,
+            "forms": forms, "sets": sets, "refs": refs,
+            "per_step": split_counts(step_launches(
+                STACK_CALLS["SGCN_GCN_IMGSNP"])[0], forms)}
+
+
+def long_card(dev, plan):
+    """The plan's training on the card, twice: the first run's launches
+    against epochs x one train step's (2 forward, 2 backward, split over
+    the forms this shape takes), and the second run bit-equal to the
+    first. One weight set trains through `convergence_ab_torch.
+    train_port`, more through the grouped form (`train_port_grouped`)."""
+    ab = convergence_ab_torch
+    what, problem, sched = plan["what"], plan["problem"], plan["sched"]
+
+    def card_run():
+        if plan["sets"] == 1:
+            runs = [ab.train_port("fused", problem, plan["variables"][0], dev,
+                                  sched, plan["fields"])]
+        else:
+            runs = ab.train_port_grouped("fused", problem, plan["variables"],
+                                         dev, sched, plan["fields"])
+        torch.cuda.synchronize()
+        return runs
+
     t0 = time.perf_counter()
     reset_all()
-    card = ab.train_port("fused", problem, variables, dev, sched, fields)
-    torch.cuda.synchronize()
+    card = card_run()
     launches = all_counts()
     card_s = time.perf_counter() - t0
-    want = {k: epochs * v for k, v in per_step.items()}
+    want = {k: sched.epochs * v for k, v in plan["per_step"].items()}
     if launches != want:
-        raise AssertionError(f"{what}: {epochs} train steps launched "
+        raise AssertionError(f"{what}: {sched.epochs} train steps launched "
                              f"{launches}; epochs x one step's is {want}")
-    lp_card = ab.predict_port(card, problem, dev)
-    t0 = time.perf_counter()
-    cpu_dev = torch.device("cpu")
-    cpu = ab.train_port("fused", problem, variables, cpu_dev, sched, fields)
-    lp_cpu = ab.predict_port(cpu, problem, cpu_dev)
-    cpu_s = time.perf_counter() - t0
-    exact = ab.train_port("fused", problem, variables, cpu_dev, sched, fields,
-                          torch.float64)
-    lp_exact = ab.predict_port(exact, problem, cpu_dev)
-    losses = {"cpu": cpu.losses, "card": card.losses}
-    log_probs = {"cpu": lp_cpu, "card": lp_card}
+    lp_card = [ab.predict_port(r, problem, dev) for r in card]
+    repeated = repeated_runs(
+        list(zip(card, lp_card)),
+        [(r, ab.predict_port(r, problem, dev)) for r in card_run()], what)
+    log(f"{what}: the second card run bit-equal to the first ({repeated} "
+        "values: per-epoch losses, held-out log-probabilities, final "
+        f"weights); launches {launches} (= {sched.epochs} x "
+        f"{plan['per_step']}), {card_s:.3f} s (first run)")
+    return {"losses": [r.losses for r in card], "log_probs": lp_card,
+            "launches": launches, "card_s": card_s, "repeated": repeated}
+
+
+def long_run(plan, card):
+    """The card's runs against the CPU references of the plan (each
+    weight set its own): `convergence_ab_torch.verdict`'s bounds, the CPU
+    as the reference, and the same bounds with the float64 CPU run as the
+    reference (the CPU's fp32 run parts from float64 further than the
+    card's on this GO DAG: `scripts/fp32_drift_torch.py`); beside them how
+    far each fp32 run departs from float64 (`against_exact`)."""
+    what, sets, mcfg = plan["what"], plan["sets"], plan["mcfg"]
+    decay_every = plan["sched"].decay_every
+    results, cpu_s = [], 0.0
+    for f in range(sets):
+        tag = f"{what}, set {f}" if sets > 1 else what
+        cpu = plan["refs"][torch.float32][f].result()
+        exact = plan["refs"][torch.float64][f].result()
+        cpu_s += cpu["seconds"]
+        results.append(long_verdict(tag, card["losses"][f],
+                                    card["log_probs"][f], cpu, exact,
+                                    plan["problem"], decay_every))
+    log(f"{what}: CPU {cpu_s:.3f} s (fp32, {sets} set(s), "
+        f"{LONG_CPU_THREADS} threads each)")
+    for tag, v in results:
+        for reference, verdict in (("CPU", v), ("float64",
+                                                v["card_against_float64"])):
+            if not verdict["ok"]:
+                raise AssertionError(f"{tag}: card against {reference} out "
+                                     f"of bounds: {verdict}")
+    forms = plan["forms"]
+    out = {"epochs": plan["sched"].epochs, "decay_every": decay_every,
+           "B": len(plan["problem"].train_idx), "N": mcfg.rois,
+           "F0": mcfg.feat_dim, "sets": sets,
+           "widths": [mcfg.hidden] * mcfg.num_layers,
+           "forms": {"forward": "streamed" if forms[0] else "resident",
+                     "backward": "streamed" if forms[1] else "resident"},
+           "launches": card["launches"], "launches_per_step": plan["per_step"],
+           "card_s": card["card_s"], "cpu_s": cpu_s,
+           "repeat_values_bit_equal": card["repeated"]}
+    if sets == 1:
+        return {**out, **results[0][1]}
+    return {**out, "per_set": {tag: v for tag, v in results},
+            **{k: max(v[k] for _, v in results)
+               for k in ("early_rel", "final_rel")},
+            "acc_card": min(v["acc_card"] for _, v in results),
+            "acc_cpu": min(v["acc_cpu"] for _, v in results),
+            "near_ties": [t for _, v in results for t in v["near_ties"]],
+            "worst_rel_per_window": {
+                k: max(v["worst_rel_per_window"][k] for _, v in results)
+                for k in results[0][1]["worst_rel_per_window"]},
+            "against_float64": [v["against_float64"] for _, v in results],
+            "card_against_float64": {
+                k: max(v["card_against_float64"][k] for _, v in results)
+                for k in ("early_rel", "final_rel")}}
+
+
+def long_verdict(tag, card_losses, lp_card, cpu, exact, problem,
+                 decay_every):
+    """(tag, readings) of one weight set's card run against its CPU run
+    and its float64 CPU run (`convergence_ab_torch.cpu_reference`'s) under
+    `convergence_ab_torch.verdict`'s bounds, the loss checkpoints,
+    near-ties and windows logged."""
+    ab = convergence_ab_torch
+    losses = {"cpu": cpu["losses"], "card": card_losses}
+    log_probs = {"cpu": cpu["log_probs"], "card": lp_card}
     labels = ab.held_out_labels("fused", problem)
     verdict = ab.verdict("fused", losses, log_probs, labels)
     exact_verdict = ab.verdict(
-        "fused", {"float64": exact.losses, "card": card.losses},
-        {"float64": lp_exact, "card": lp_card}, labels)
+        "fused", {"float64": exact["losses"], "card": card_losses},
+        {"float64": exact["log_probs"], "card": lp_card}, labels)
     yardstick = ab.against_exact(
-        {**losses, "float64": exact.losses},
-        {**log_probs, "float64": lp_exact}, "float64",
+        {**losses, "float64": exact["losses"]},
+        {**log_probs, "float64": exact["log_probs"]}, "float64",
         sorted({*verdict["disagreements"], *exact_verdict["disagreements"],
                 *(t["subject"] for t in verdict["near_ties"]
                   + exact_verdict["near_ties"])}))
-    rels = np.abs(card.losses - cpu.losses) / np.abs(cpu.losses)
+    rels = np.abs(card_losses - cpu["losses"]) / np.abs(cpu["losses"])
     windows = window_rels(rels, decay_every)
     for e, vc, vk, rel in ab.checkpoint_rows(losses):
-        log(f"{what} epoch {e}: loss cpu {vc:.6f} card {vk:.6f} rel "
+        log(f"{tag} epoch {e}: loss cpu {vc:.6f} card {vk:.6f} rel "
             f"{rel:.2e}")
     for t in verdict["near_ties"]:
-        log(f"{what} near-tie: subject {t['subject']}, margin cpu "
+        log(f"{tag} near-tie: subject {t['subject']}, margin cpu "
             f"{t['margin_cpu']:.4f} (pred {t['pred_cpu']}), card "
             f"{t['margin_card']:.4f} (pred {t['pred_card']})")
-    log(f"{what}: worst rel per window {windows}; early "
+    log(f"{tag}: worst rel per window {windows}; early "
         f"{verdict['early_rel']:.3e} (rtol {verdict['early_rtol']}), final "
-        f"{verdict['final_rel']:.3e} "
-        f"(rel {verdict['final_rtol']}), acc card {verdict['acc_card']} / cpu "
-        f"{verdict['acc_cpu']}, learned card {verdict['learned_card']} / cpu "
-        f"{verdict['learned_cpu']}, launches {launches} (= {epochs} x "
-        f"{per_step}), card {card_s:.3f} s, CPU {cpu_s:.3f} s")
-    log(f"{what} against float64 on the CPU: early rel "
+        f"{verdict['final_rel']:.3e} (rel {verdict['final_rtol']}), acc card "
+        f"{verdict['acc_card']} / cpu {verdict['acc_cpu']}, learned card "
+        f"{verdict['learned_card']} / cpu {verdict['learned_cpu']}")
+    log(f"{tag} against float64 on the CPU: early rel "
         f"{yardstick['early_rel']}, worst {yardstick['worst_rel']}, final "
         f"{yardstick['final_rel']}, log p1 - log p0 of the subjects in "
         f"question {yardstick['log_p1_minus_log_p0']}; the card under the "
@@ -4113,37 +4309,208 @@ def long_run(dev, problem, what, overrides, epochs, decay_every):
         f"{exact_verdict['final_rel']:.3e}, acc {exact_verdict['acc_card']} "
         f"/ float64 {exact_verdict['acc_float64']}, near-ties "
         f"{exact_verdict['near_ties']}")
-    for reference, v in (("CPU", verdict), ("float64", exact_verdict)):
-        if not v["ok"]:
-            raise AssertionError(f"{what}: card against {reference} out of "
-                                 f"bounds: {v}")
-    return {"epochs": epochs, "decay_every": decay_every, "B": n_train,
-            "widths": [mcfg.hidden] * mcfg.num_layers,
-            "forms": {"forward": "streamed" if forms[0] else "resident",
-                      "backward": "streamed" if forms[1] else "resident"},
-            "launches": launches, "launches_per_step": per_step,
-            "worst_rel_per_window": windows, "card_s": card_s,
-            "cpu_s": cpu_s, "against_float64": yardstick,
-            "card_against_float64": {k: exact_verdict[k] for k in (
-                "early_rel", "final_rel", "near_ties", "disagreements",
-                "ok")},
-            "losses_card": card.losses.tolist(),
-            "losses_cpu": cpu.losses.tolist(), **verdict}
+    return tag, {"worst_rel_per_window": windows,
+                 "against_float64": yardstick,
+                 "card_against_float64": {k: exact_verdict[k] for k in (
+                     "early_rel", "final_rel", "near_ties", "disagreements",
+                     "ok")},
+                 "losses_card": card_losses.tolist(),
+                 "losses_cpu": cpu["losses"].tolist(), **verdict}
 
 
 def phase_long_runs(dev):
-    log("== phase 18: long training runs, the card against the CPU")
+    log("== phase 18: long training runs, the card against the CPU and "
+        "against itself")
     t0 = time.perf_counter()
-    problem = convergence_ab_torch.port_problem(
-        subjects=LONG_SUBJECTS, rois=90, go_levels=REAL_GO_LEVELS)
-    log(f"long runs: {LONG_SUBJECTS} planted-signal subjects (train "
-        f"{len(problem.train_idx)}, held out {len(problem.test_idx)}), GO "
-        f"topology n={problem.topo.n}")
-    runs = {what: long_run(dev, problem, what, overrides, epochs, decay)
-            for what, overrides, epochs, decay in LONG_RUNS}
+    problems = {rois: convergence_ab_torch.port_problem(
+        subjects=LONG_SUBJECTS, rois=rois, go_levels=REAL_GO_LEVELS,
+        feat_dim=3 if rois == 90 else 1) for rois in (90, 270)}
+    for rois, problem in problems.items():
+        log(f"long runs at {rois} ROIs: {LONG_SUBJECTS} planted-signal "
+            f"subjects (train {len(problem.train_idx)}, held out "
+            f"{len(problem.test_idx)}), GO topology n={problem.topo.n}")
+    # the CPU references train in worker processes while the card trains
+    with concurrent.futures.ProcessPoolExecutor(
+            LONG_CPU_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        # the references of the longest runs first: epochs x width / 16
+        order = sorted(LONG_RUNS, key=lambda r: -r[3] * max(
+            1, r[2].get("hidden", 16) // 16))
+        plans = {what: long_plan(pool, problems[rois], what, overrides,
+                                 epochs, decay, sets)
+                 for what, rois, overrides, epochs, decay, sets in order}
+        plans = [plans[run[0]] for run in LONG_RUNS]
+        cards = [long_card(dev, plan) for plan in plans]
+        card_s = time.perf_counter() - t0
+        runs = {plan["what"]: long_run(plan, card)
+                for plan, card in zip(plans, cards)}
     phase_s = time.perf_counter() - t0
+    log(f"phase 18: the card's runs done at {card_s:.3f} s; the CPU "
+        f"references in {LONG_CPU_WORKERS} processes of {LONG_CPU_THREADS} "
+        "threads")
     log(f"phase 18: {phase_s:.3f} s")
     return {"runs": runs, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the card's results repeat run to run, in PyTorch's default mode
+
+# the route phase 19 runs twice itself: the SNP-only GO network, 1 epoch
+# (the others repeat a run of an earlier phase)
+REPEAT_EPOCHS = 1
+REPEAT_SNPS_ARGV = ["--model", "Gene_ontology_network",
+                    *snps_argv("_chip_smoke_repeat_snps", REPEAT_EPOCHS)]
+
+
+def snapshot(res_dir):
+    """{file: {key: array}} of every .npy, .npz (fold records, bundles) and
+    .msgpack (checkpoints, as bytes) a run wrote into `res_dir`."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(res_dir, "*"))):
+        name = os.path.basename(path)
+        if name.endswith(".npy"):
+            out[name] = {"": np.load(path)}
+        elif name.endswith(".npz"):
+            with np.load(path) as zf:
+                out[name] = {k: zf[k] for k in zf.files}
+        elif name.endswith(".msgpack"):
+            with open(path, "rb") as fh:
+                out[name] = {"": np.frombuffer(fh.read(), np.uint8)}
+    if not out:
+        raise AssertionError(f"{res_dir}: no artifacts to compare")
+    return out
+
+
+def same_snapshots(got, want, what):
+    """The number of values in two runs' artifacts, which must be the same
+    files holding the same arrays bit for bit."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: files {sorted(got)} against "
+                             f"{sorted(want)}")
+    n = 0
+    for name, arrays in want.items():
+        if sorted(arrays) != sorted(got[name]):
+            raise AssertionError(f"{what}: {name} holds {sorted(got[name])} "
+                                 f"against {sorted(arrays)}")
+        for k, v in arrays.items():
+            n += assert_bit_equal(got[name][k], v,
+                                  f"{what}: {name}{':' + k if k else ''}")
+    return n
+
+
+def same_printed(text, lines, result_line, what):
+    """The run's printed per-epoch losses and `Result -` line equal to the
+    first run's."""
+    got = EPOCH_LINE.findall(text)
+    if [list(g) for g in got] != [list(w) for w in lines]:
+        raise AssertionError(f"{what}: epoch lines {got} against {lines}")
+    again = re.search(r"^Result - .*$", text, re.M)
+    if again is None or again.group(0) != result_line:
+        raise AssertionError(f"{what}: {again and again.group(0)!r} against "
+                             f"{result_line!r}")
+    return 3 * len(lines)
+
+
+def repeat_cli(argv, appendix, first=None):
+    """A CLI route run again on the card (or twice, without `first`):
+    the artifacts, printed epoch losses and `Result -` line of the run
+    against those of the first. `first` = (snapshot, epoch lines, result
+    line) of an earlier phase's run of the same argv."""
+    res_dir = run_dir(appendix)
+    if first is None:
+        shutil.rmtree(res_dir, ignore_errors=True)
+        text, _, _, _ = cli_run(argv)
+        first = (snapshot(res_dir), EPOCH_LINE.findall(text),
+                 re.search(r"^Result - .*$", text, re.M).group(0))
+    files, lines, result_line = first
+    text, _, wall_s, _ = cli_run(argv)
+    n = same_snapshots(snapshot(res_dir), files, appendix)
+    n += same_printed(text, lines, result_line, appendix)
+    return n, wall_s
+
+
+def served_twice(dev, path, data, dtype, snps_only):
+    """The number of values in two served outputs of the bundle at `path`,
+    each from a fresh load on the card, which must be bit-equal."""
+    outs = []
+    for _ in range(2):
+        model = load_bundle(path, device=dev)
+        if snps_only:
+            outs.append(batched_forward_snps(model, data, batch_size=BATCH,
+                                             dtype=dtype))
+        else:
+            outs.append(batched_forward(model, *data, batch_size=BATCH,
+                                        dtype=dtype))
+    if sorted(outs[0]) != sorted(outs[1]):
+        raise AssertionError(f"{path}: outputs {sorted(outs[1])} against "
+                             f"{sorted(outs[0])}")
+    return sum(assert_bit_equal(outs[1][k], outs[0][k],
+                                f"{os.path.relpath(path)} {dtype} {k}")
+               for k in outs[0])
+
+
+def phase_repeat(dev, artifacts, batched, long_runs, cohort):
+    """Each route twice on the card in PyTorch's default mode, the two
+    results compared bit for bit (any difference fails the phase with the
+    first differing value): every bundle class served to the cohort at
+    batch 256, fp32 and bf16; phase 18's full-batch flagship (its two card
+    runs); the 2-epoch 5-fold flagship CLI, sequential and
+    `--fold_parallel`, and `--fold_parallel --isMultiFusion`, 1 epoch
+    (phase 15's runs, each run again); the SNP-only GO network, 1 epoch,
+    twice."""
+    log("== phase 19: results repeat run to run on the card")
+    t0 = time.perf_counter()
+    mode = assert_default_mode()
+    log(f"default mode: {mode}")
+    routes = {}
+
+    def report(route, n, note=""):
+        routes[route] = {"values_bit_equal": n, "note": note}
+        log(f"{route}: {n} values compared, bit-equal{note}")
+
+    multi = make_cohort(np.random.default_rng(4), COHORT, rois=270, feat=1)
+    snps_dir = run_dir("_chip_smoke_snps")
+    snps, _, _ = snps_inputs(snps_argv("_chip_smoke_snps"))
+    bundles = {**{what: (row["bundle"], multi if "N=270" in what else cohort,
+                         False)
+                  for what, row in artifacts["serving"].items()},
+               **{model: (os.path.join(
+                   snps_dir, f"serving_bundle_snps_{kind}_fold_0.npz"),
+                   snps, True) for model, kind in (
+                       ("Gene_ontology_network", "go"), ("MLP_Model", "mlp"))}}
+    for what, (path, data, snps_only) in bundles.items():
+        for dtype in (None, torch.bfloat16):
+            report(f"served {what}, {'bf16' if dtype else 'fp32'}, "
+                   f"{COHORT} subjects at {BATCH}",
+                   served_twice(dev, path, data, dtype, snps_only))
+
+    flagship = long_runs["runs"]["flagship L=2 H=16"]
+    report(f"full-batch flagship, {flagship['epochs']} epochs (phase 18)",
+           flagship["repeat_values_bit_equal"], " (phase 18's two card runs)")
+
+    fp, multi = batched["flagship"], batched["multi_fusion"]
+    flagship_cli = f"CLI flagship, {FP_EPOCHS} epochs, {TRAIN_FOLDS} folds"
+    for what, argv, appendix, lines, result_line in (
+            (f"{flagship_cli}, sequential",
+             cli_argv(FP_EPOCHS, "_chip_smoke_seq"), "_chip_smoke_seq",
+             fp["sequential_epoch_lines"], fp["sequential_result_line"]),
+            (f"{flagship_cli}, --fold_parallel",
+             cli_argv(FP_EPOCHS, "_chip_smoke_fp", "--fold_parallel"),
+             "_chip_smoke_fp", fp["epoch_lines"], fp["result_line"]),
+            ("CLI --fold_parallel --isMultiFusion --layers 3 --hiddens 10, "
+             "1 epoch", FP_MULTI_ARGV, "_chip_smoke_fp_multi",
+             multi["epoch_lines"], multi["result_line"])):
+        first = (snapshot(run_dir(appendix)), lines, result_line)
+        n, wall_s = repeat_cli(argv, appendix, first)
+        report(what, n, f" (phase 15's run against a {wall_s:.3f} s run "
+               "now)")
+    n, wall_s = repeat_cli(REPEAT_SNPS_ARGV, "_chip_smoke_repeat_snps")
+    report(f"CLI --model Gene_ontology_network, {REPEAT_EPOCHS} epoch", n,
+           f" (two runs; the second {wall_s:.3f} s)")
+    assert_default_mode()
+    phase_s = time.perf_counter() - t0
+    log(f"phase 19: {phase_s:.3f} s")
+    return {"default_mode": mode, "routes": routes, "phase_s": phase_s}
 
 
 def main() -> int:
@@ -4151,6 +4518,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script drives the "
               "port on an NVIDIA GPU", file=sys.stderr)
         return 1
+    assert_default_mode()
     dev = torch.device("cuda", 0)
     card, build_s = phase_build()
     max_err, train_grad_err, grouped_err = phase_kernel_vs_plain(dev)
@@ -4178,6 +4546,7 @@ def main() -> int:
                           cohort, artifacts, layout)
     streamed = phase_streamed(dev, torch.cuda.get_device_name(0))
     long_runs = phase_long_runs(dev)
+    repeat = phase_repeat(dev, artifacts, batched, long_runs, cohort)
 
     serving, *others = times["shapes"]
     fp_row = times["grouped"][0]
@@ -4382,9 +4751,8 @@ def main() -> int:
                  "subjects", "cohort_wall_s", "log_probs_max_abs_diff")}
                  for what, row in served_bundles.items()},
              "resume": {"wall_s": artifacts["resume"]["wall_s"],
-                        "retrained_test_loss_max_rel_diff": max(
-                            artifacts["resume"][
-                                "retrained_test_loss_max_rel_diff"].values())},
+                        "values_bit_equal":
+                            artifacts["resume"]["values_bit_equal"]},
              "zoo": {"phase_s": zoo["phase_s"], **{model: {
                  k: run[k] for k in (
                      "experiment_wall_s", "throughput_graphs_per_s",
@@ -4428,8 +4796,10 @@ def main() -> int:
                  "epochs", "launches", "early_rel", "final_rel", "acc_card",
                  "acc_cpu", "near_ties", "worst_rel_per_window",
                  "against_float64", "card_against_float64", "card_s",
-                 "cpu_s")}
+                 "cpu_s", "repeat_values_bit_equal")}
                  for what, run in long_runs["runs"].items()},
+             "repeat": {route: row["values_bit_equal"]
+                        for route, row in repeat["routes"].items()},
              "snps_only": {model: {
                  "experiment_wall_s": run["experiment_wall_s"],
                  "result_line": run["result_line"],
@@ -4448,8 +4818,12 @@ def main() -> int:
                    "artifacts": artifacts, "snps_only": snps,
                    "real_cohort": real, "other_routes": other, "zoo": zoo,
                    "batched": batched, "bf16": bf16, "streamed": streamed,
-                   "long_runs": long_runs, "device": device}, fh, indent=1,
+                   "long_runs": long_runs, "repeat": repeat,
+                   "script_s": time.perf_counter() - START,
+                   "device": device}, fh, indent=1,
                   default=float)
+    script_s = time.perf_counter() - START
+    log(f"chip_smoke: {script_s:.3f} s")
     log(card)
     log(json.dumps(serve))
     log(json.dumps(kernels))

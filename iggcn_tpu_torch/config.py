@@ -72,8 +72,10 @@ class ModelConfig:
     # CUDA device and runs the plain PyTorch version on the CPU.
     use_pallas_gcn: bool = False
     # GO-branch encoder attention: 'dense' (masked (B, n, n) matmuls),
-    # 'edge' ((B, E) gathers + index_add_ aggregation), or 'auto' ('edge'
-    # at batch >= 64, else 'dense'; identical math).
+    # 'edge' ((B, E) edge scores; gathers and row aggregation as products
+    # with static one-hot matrices, the JAX package's aggregation, with no
+    # atomics in either direction), or 'auto' ('edge' at batch >= 64,
+    # else 'dense'; the same function, equal to fp32 rounding).
     go_attention_impl: str = "auto"
     dropout_lin: float = 0.5
     dropout_regr: float = 0.3

@@ -4,17 +4,24 @@ it drops whole node rows after each encoder and decoder layer and entries
 of the readouts, at the JAX package's sites, and its batch norms take the
 padding weight of the batch.
 
-The GO topology is static, so its masks, edge lists and the decoder's
+The GO topology is static, so its masks, edge one-hots and the decoder's
 uniform un-pooling matrices are built once at construction and held as
 non-persistent buffers (they move with `.to(device)` and are not
-weights). The encoder's edge attention has two implementations with
-identical math:
+weights). The encoder's edge attention has two implementations of the
+same function, equal to fp32 rounding:
 
   * 'dense': masked (B, n, n) row-normalise and a batched matmul;
-  * 'edge': (B, E) gathered scores, row sums and messages aggregated with
-    `index_add_` over the static edge list; no (B, n, n) tensor exists.
+  * 'edge': (B, E) scores over the static edge list, with row sums and
+    messages aggregated by the static one-hot matrix `agg` (n, E), as the
+    JAX package aggregates; no (B, n, n) tensor exists.
 
-'auto' takes 'edge' at batch >= 64, as the JAX package does.
+'auto' takes 'edge' at batch >= 64, as the JAX package does. The edge
+form's gathers are products with one-hot matrices too (`agg` for the
+edge's row, `pick_{i}` for its column): exact in the forward (one
+non-zero term per output, fp32 products), and their backward is a
+matmul, so nothing accumulates with atomics and a CUDA run repeats bit
+for bit. A gather's backward (`index`, `index_select`) would sum into
+each node with float atomics in an order that changes between launches.
 `activation='prelu'` is the GUIDE family's variant (`guide_go_model`): a
 learned PReLU in place of every relu, and a latent that ends at `latent2`
 with no batch norm. `classifier=True` adds the standalone SNP classifier
@@ -113,10 +120,14 @@ class GeneOntologyNetwork(nn.Module):
             r, c = np.nonzero(m)
             self.register_buffer(f"enc_mask_{i}", torch.as_tensor(m, device=dev),
                                  persistent=False)
-            self.register_buffer(f"enc_rows_{i}", torch.as_tensor(r, device=dev),
-                                 persistent=False)
-            self.register_buffer(f"enc_cols_{i}", torch.as_tensor(c, device=dev),
-                                 persistent=False)
+            # (n_i, E_i) one-hots of each edge's row (the JAX package's
+            # `agg`, go_network.py setup) and of its column
+            edges = np.arange(len(r))
+            for name, idx in (("agg", r), ("pick", c)):
+                onehot = np.zeros((m.shape[0], len(r)), np.float32)
+                onehot[idx, edges] = 1.0
+                self.register_buffer(f"{name}_{i}", torch.as_tensor(
+                    onehot, device=dev), persistent=False)
         for jj, m in enumerate(topo.decoder_masks(n_l)):
             # uniform attention: 1/row-degree over the static mask
             mask = torch.as_tensor(m, device=dev)
@@ -208,12 +219,21 @@ class GeneOntologyNetwork(nn.Module):
             scores = torch.exp(torch.tanh(u[:, :, None] + v[:, None, :]))
             a_hat = masked_row_normalize(scores, getattr(self, f"enc_mask_{jj}"))
             return torch.matmul(*promoted(a_hat, x_in))
-        rows = getattr(self, f"enc_rows_{jj}")
-        cols = getattr(self, f"enc_cols_{jj}")
-        scores_e = torch.exp(torch.tanh(u[:, rows] + v[:, cols]))  # (B, E)
-        rowsum = torch.zeros_like(u).index_add_(1, rows, scores_e)
-        msg = (scores_e / rowsum[:, rows])[..., None] * x_in[:, cols, :]
-        return torch.zeros_like(x_in).index_add_(1, rows, msg)
+        agg = getattr(self, f"agg_{jj}")        # (n, E): edge e's row
+        pick = getattr(self, f"pick_{jj}")      # (n, E): edge e's column
+
+        def gather(t, onehot):
+            # t[:, idx] as t @ onehot: one term per output, exact; kept in
+            # t's type, as the JAX gather keeps it
+            return torch.matmul(*promoted(t, onehot)).to(t.dtype)
+
+        scores_e = torch.exp(torch.tanh(gather(u, agg) + gather(v, pick)))
+        # fp32 sums, as the JAX einsums' preferred_element_type
+        rowsum = torch.matmul(*promoted(scores_e, agg.T))       # (B, n)
+        vn = scores_e / torch.matmul(rowsum, agg)               # (B, E)
+        x_cols = torch.matmul(*promoted(pick.T, x_in)).to(x_in.dtype)
+        msg = vn[..., None] * x_cols                            # (B, E, f)
+        return torch.matmul(*promoted(agg, msg))                # (B, n, f)
 
     def forward(self, snps: torch.Tensor, *,
                 sample_weight: torch.Tensor | None = None,

@@ -110,7 +110,13 @@ class NestedGNN(ZooModel):
             if self.use_z:
                 zi = (torch.zeros(x.shape[:2], dtype=torch.long,
                                   device=x.device) if z is None else z)
-                ze = self.z_embedding[torch.clamp(zi.long(), 0, 999)]
+                # the labels' rows as a one-hot product: exact, and its
+                # backward a matmul, where indexing's backward would sum
+                # repeated labels with atomics on CUDA
+                table = self.z_embedding
+                rows = torch.arange(table.shape[0], device=x.device)
+                zc = torch.clamp(zi.long(), 0, table.shape[0] - 1)
+                ze = (zc[..., None] == rows).to(table.dtype) @ table
                 if ze.dim() == 4:      # multi-column labels (spd): summed
                     ze = ze.sum(dim=2)
                 emb = emb + ze

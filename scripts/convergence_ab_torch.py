@@ -67,6 +67,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -166,14 +167,17 @@ def planted_snps(go_snps: np.ndarray) -> list:
 
 
 def port_problem(*, subjects: int = 120, rois: int = 30, seed: int = 7,
-                 go_levels: Optional[Sequence[int]] = None) -> Problem:
+                 go_levels: Optional[Sequence[int]] = None,
+                 feat_dim: int = 3) -> Problem:
     """The port's cohort and topology, drawn in the harness's order from
     one generator: the topology first, then the cohort with class signal
-    in `PLANTED_ROIS` and the three best-connected SNPs."""
+    in `PLANTED_ROIS` and the three best-connected SNPs (`feat_dim` 1 with
+    270 ROIs: the multi-fusion shape)."""
     rng = np.random.default_rng(seed)
     topo = synthetic_topology(
         rng, level_sizes=list(go_levels) if go_levels else None)
     cohort = synthetic_cohort(rng, num_subjects=subjects, rois=rois,
+                              feat_dim=feat_dim,
                               planted_rois=list(PLANTED_ROIS),
                               planted_snps=planted_snps(topo.go_snps),
                               planted_strength=PLANTED_STRENGTH)
@@ -328,6 +332,60 @@ def _train_port(family, problem, variables, device, sched, fields, dtype):
     # one host read at the end: the steps queue on the device meanwhile
     losses = torch.stack(losses).double().cpu().numpy()
     return PortRun(family, model, losses, mcfg, tcfg, dtype)
+
+
+def train_port_grouped(family: str, problem: Problem,
+                       variables: Sequence[Dict[str, Any]],
+                       device: torch.device, sched: Schedule,
+                       fields: Optional[Dict[str, Any]] = None,
+                       dtype: torch.dtype = torch.float32
+                       ) -> Sequence[PortRun]:
+    """Train one fused `family` from each flax tree of `variables` at once,
+    full batch, through the fold-parallel trainer
+    (`steps.batched_train_step`: one program for every weight set, whose
+    GCN stack runs the kernel's grouped form); one PortRun per set, as
+    `train_port` would return it. Nothing but the steps runs between the
+    first and the last step."""
+    with default_dtype(dtype):
+        fields = fields if fields is not None else model_fields(
+            family, problem.arrays["x"].shape[1])
+        models = []
+        for v in variables:
+            model = new_port_model(family, problem, fields)
+            load_flax_variables(model, v["params"], v.get("batch_stats"))
+            models.append(model.to(device=device, dtype=dtype))
+        n_sets, n_train = len(models), len(problem.train_idx)
+        mcfg = ModelConfig(**fields)
+        tcfg = train_config(family, n_train, sched)
+        state = steps.StackedState(models, tcfg, [1] * n_sets, KINDS[family])
+        one = _subset(problem, problem.train_idx, device)
+        batch = {k: torch.stack([v] * n_sets) for k, v in one.items()}
+        real = np.ones(n_sets, bool)
+        losses = [steps.batched_train_step(state, batch, mcfg, tcfg, None,
+                                           real) / n_train
+                  for _ in range(sched.epochs)]
+        losses = torch.stack(losses).double().cpu().numpy()
+        for f, model in enumerate(models):
+            model.load_state_dict(state.fold_state_dict(f))
+        return [PortRun(family, model, np.ascontiguousarray(losses[:, f]),
+                        mcfg, tcfg, dtype)
+                for f, model in enumerate(models)]
+
+
+def cpu_reference(family: str, problem: Problem, variables: Dict[str, Any],
+                  sched: Schedule, fields: Optional[Dict[str, Any]] = None,
+                  dtype: torch.dtype = torch.float32, threads: int = 0
+                  ) -> Dict[str, Any]:
+    """A CPU run of `train_port` and its held-out log-probabilities, as
+    plain arrays (for a worker process): {"losses", "log_probs",
+    "seconds"}. `threads` > 0 sets torch's CPU threads first."""
+    if threads:
+        torch.set_num_threads(threads)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    run = train_port(family, problem, variables, cpu, sched, fields, dtype)
+    return {"losses": run.losses, "log_probs": predict_port(run, problem, cpu),
+            "seconds": time.perf_counter() - t0}
 
 
 def snps_log_probs(prob: np.ndarray) -> np.ndarray:

@@ -4,8 +4,9 @@ test-sensitivity audit (`scripts/mutation_audit_torch.py`).
 Each entry re-introduces, as a runtime patch of `iggcn_tpu_torch.*`, a
 semantic drift of the kind a porter writes: the counterparts of
 `tests/mutations.py`'s entries for which the port has code (all but the
-two mesh mutations: the port has no mesh), and two on the GCN stack's
-side. `TARGETS` pins each to the port test that must turn red under it.
+two mesh mutations: the port has no mesh), two on the GCN stack's
+side, and one that brings atomics back into the GO network's edge
+attention. `TARGETS` pins each to the port test that must turn red under it.
 
 Load this module as a pytest plugin with `scripts/` on `sys.path`:
 
@@ -274,6 +275,34 @@ def _stack_plan_tile():
     gcn_stack._choose_plan.cache_clear()
 
 
+def _go_index_add():
+    """Aggregate the GO encoder's edge attention with `index_add_` over
+    the edge list and gather by index (the port's form before it took the
+    JAX package's one-hot products): the same values, but on CUDA the
+    sums are float atomics in launch order, so runs do not repeat."""
+    import torch
+    from iggcn_tpu_torch.models import go_network
+    from iggcn_tpu_torch.models.nn_compat import promoted
+    orig = go_network.GeneOntologyNetwork._attend
+
+    def mutated(self, jj, x_in, use_edge):
+        if not use_edge:
+            return orig(self, jj, x_in, use_edge)
+        w_att = getattr(self, f"w_att_in_{jj}")
+        f = x_in.shape[-1]
+        x_in, w_att = promoted(x_in, w_att)
+        u = x_in @ w_att[:f, 0]
+        v = x_in @ w_att[f:, 0]
+        rows = getattr(self, f"agg_{jj}").argmax(dim=0)
+        cols = getattr(self, f"pick_{jj}").argmax(dim=0)
+        scores_e = torch.exp(torch.tanh(u[:, rows] + v[:, cols]))
+        rowsum = torch.zeros_like(u).index_add_(1, rows, scores_e)
+        msg = (scores_e / rowsum[:, rows])[..., None] * x_in[:, cols, :]
+        return torch.zeros_like(x_in).index_add_(1, rows, msg)
+
+    go_network.GeneOntologyNetwork._attend = mutated
+
+
 MUTATIONS = {
     "steplr_off_by_one": _steplr_off_by_one,
     "bn_biased_running_var": _bn_biased_running_var,
@@ -293,6 +322,7 @@ MUTATIONS = {
     "topk_per_row": _topk_per_row,
     "stack_backward_relu_tie": _stack_backward_relu_tie,
     "stack_plan_tile": _stack_plan_tile,
+    "go_index_add": _go_index_add,
 }
 
 
@@ -331,6 +361,8 @@ TARGETS = {
         "gradient_in_both_packages",
     "stack_plan_tile": _T + "gcn_stack_streamed.py::test_resident_plans_are"
         "_unchanged_field_for_field",
+    "go_index_add": _T + "determinism.py::test_fused_train_step_has_no_"
+        "atomics[SGCN_GCN_IMGSNP-64]",
 }
 
 

@@ -349,11 +349,13 @@ def test_cast_floating_leaves_topology_buffers_and_ints_alone():
     for name, buf in model.named_buffers():
         if "running_" in name:
             assert buf.dtype == BF16, name
-        else:       # gene_mask, enc_mask_*, enc_rows_*, dec_attn_*
+        else:       # gene_mask, enc_mask_*, agg_*, pick_*, dec_attn_*
             assert buf.dtype == kept[name].dtype, name
             assert torch.equal(buf, kept[name]), name
     assert model.go_network.gene_mask.dtype == torch.float32
-    assert model.go_network.enc_rows_0.dtype == torch.int64
+    assert model.go_network.enc_mask_0.dtype == torch.bool
+    # the edge attention's one-hots stay fp32: its sums accumulate in fp32
+    assert model.go_network.agg_0.dtype == torch.float32
     # the cast is the flax trees' cast: every leaf rounded to bf16
     jax.tree_util.tree_map(
         lambda got, w: np.testing.assert_array_equal(

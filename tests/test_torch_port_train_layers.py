@@ -58,10 +58,13 @@ def _close(got, want, what):
                                atol=MODEL_RTOL * scale, err_msg=what)
 
 
-def _compare_train_pass(jmod, variables, inputs, model, shapes, **kwargs):
+def _compare_train_pass(jmod, variables, inputs, model, shapes, w=W,
+                        **kwargs):
     """One train-mode pass on both sides from the same weights: the outputs
     on the real rows, the gradients of sum(out * cot) with cot 0 on the
-    padding rows, and the updated running statistics."""
+    padding rows, and the updated running statistics; `w` marks the real
+    rows."""
+    W = w
     rng = np.random.default_rng(3)
     cots = [(rng.normal(size=s) * W.reshape((-1,) + (1,) * (len(s) - 1))
              ).astype(np.float32) for s in shapes]
@@ -187,6 +190,30 @@ def test_go_network_train_forward_and_grads_match_jax(inputs, impl):
                                 dim_snps_atten=7, attention_impl=impl,
                                 dropout_gcn=0.0, dropout_readout=0.0)
     _compare_train_pass(jmod, variables, (snps,), model, shapes)
+
+
+def test_go_network_edge_form_in_train_mode_at_batch_64_matches_jax():
+    """'auto' at batch 64 takes the edge form, whose one-hot aggregation
+    and gathers must give the JAX package's train-mode pass and gradients
+    (60 real rows, 4 of padding)."""
+    c = synthetic_cohort(np.random.default_rng(4), num_subjects=64)
+    w = (np.arange(64) < 60).astype(np.float32)
+    snps = c.snps.astype(np.float32) * w[:, None]
+    jmod = JaxGO(topo=jax_topology(np.random.default_rng(5)), dim_snps_atten=7,
+                 dropout_gcn=0.0, dropout_readout=0.0)
+    variables = jax.device_get(jax.jit(jmod.init)(jax.random.PRNGKey(0),
+                                                  jnp.asarray(snps)))
+    shapes = [o.shape for o in jax.eval_shape(
+        lambda: jmod.apply(variables, jnp.asarray(snps)))]
+    model = GeneOntologyNetwork(synthetic_topology(np.random.default_rng(5)),
+                                dim_snps_atten=7, dropout_gcn=0.0,
+                                dropout_readout=0.0)
+    seen = []
+    orig = model._attend
+    model._attend = lambda jj, x, use_edge: seen.append(use_edge) or orig(
+        jj, x, use_edge)
+    _compare_train_pass(jmod, variables, (snps,), model, shapes, w=w)
+    assert seen and all(seen)
 
 
 @pytest.mark.parametrize("is_explain", [False, True])
