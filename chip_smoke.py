@@ -14,9 +14,9 @@ failure propagates and the script exits non-zero:
      register/shared-memory report, which must show no spills;
   2. kernel vs plain on the card: `fused_gcn_stack` against
      `gcn_stack_reference` at every imaging-stack shape of both search
-     grids (N=90, F0=3 and N=270, F0=1; B in {1, 7, 32, 256}), each with P
-     in both layouts the kernel takes (as `gcn_propagation_matrix` returns
-     it, and row-major), one P with isolated nodes, shapes beyond the
+     grids (N=90, F0=3 and N=270, F0=1; B in {1, 7, 32, 64, 256}), each
+     with P in both layouts the kernel takes (as `gcn_propagation_matrix`
+     returns it, and row-major), one P with isolated nodes, shapes beyond the
      grids at which `plan_launch` picks each other cluster size and K
      split, and transposed P that the bulk copy cannot take (odd N, a
      4-byte-offset view); rtol 1e-4 / atol 1e-5 (fp32, different summation
@@ -26,8 +26,9 @@ failure propagates and the script exits non-zero:
      passes), gradients into the adjacency included; rtol/atol 1e-4; and
      the grouped form (F weight sets of B samples in one launch, the
      fold-parallel trainer's) against `gcn_stack_reference_grouped` at
-     F in {1, 5} x B=32 at N=90, F=5 at N=270 (the 2-CTA path) and the
-     3-seed x 5-fold batch (F=15), P in both layouts, one launch per
+     F in {1, 5} x B=32 at N=90, F=5 at N=270 (the 2-CTA path), the
+     3-seed x 5-fold batch (F=15) and phase 20's rank-local 5 x 8 and
+     5 x 16, P in both layouts, one launch per
      call, each set's samples bit-equal to a launch of that set alone,
      and through `torch.func.vmap` over the fold axis as the model calls
      it, gradients included; then the stack's backward kernel (one
@@ -62,10 +63,10 @@ failure propagates and the script exits non-zero:
      steps), its span on the card (CUDA events) and its host wall, the
      kernel's forward at B=32, and graphs/s over one epoch;
      the grouped form likewise at the fold-parallel train batch (5 x 32,
-     N=90), the seed batch's (15 x 32) and multi-fusion's (5 x 32,
-     N=270), beside the library's batched-weight matmul + baddbmm; the
+     N=90), the seed batch's (15 x 32), multi-fusion's (5 x 32, N=270)
+     and phase 20's rank-local 5 x 8, 1 x 32 and 5 x 16, beside the library's batched-weight matmul + baddbmm; the
      backward kernel (its wrapper: the kernel and the per-set sum of dW,
-     db) at B=32 at N=90 and N=270 and at the three grouped shapes,
+     db) at B=32 at N=90 and N=270 and at the six grouped shapes,
      beside its plain version and the autograd recompute it replaced, in
      turns on the same inputs, warm and cold, with its bound;
   6. one torch.profiler pass over a warm serving forward of 256 subjects
@@ -75,7 +76,7 @@ failure propagates and the script exits non-zero:
      device ops; and one over `SINGLE_CALLS` back-to-back
      `fused_gcn_stack` calls, each of which must launch exactly one
      device kernel, its own (a session with fewer records than calls is
-     profiled again, up to three sessions);
+     profiled again after a second's pause, up to five sessions);
      the train step must launch the forward kernel twice and the backward
      kernel twice (profiled and counted), one eval batch the forward
      twice and the backward never (counted);
@@ -249,8 +250,8 @@ failure propagates and the script exits non-zero:
      every step must launch the forward and backward kernels
      (the counters over the training equal epochs x one step's: 2 + 2
      resident, or 4 streamed calls), and on the CPU from the same weights
-     (each weight set its own run; the CPU runs train in worker processes
-     while the card trains);
+     (each weight set its own run; the CPU runs train in worker processes,
+     started before phase 16, while the card runs phases 16-18);
      held to the harness's bounds, the CPU as the reference: the first
      three epochs' losses within rtol 2e-4, the last within 0.05, both
      learn (the loss halves), the held-out predictions equal but for
@@ -260,8 +261,10 @@ failure propagates and the script exits non-zero:
      difference per StepLR window, how far each fp32 run departs from
      the float64 run and the phase's seconds.
  19. the card's results repeat run to run in PyTorch's default mode (no
-     deterministic switch, no `CUBLAS_WORKSPACE_CONFIG`: asserted, and at
-     the start of the script too): each route twice, the two results
+     deterministic switch, no `CUBLAS_WORKSPACE_CONFIG`; cuDNN held to
+     its deterministic convolution algorithms by `utils/platform.py`:
+     asserted, and at the start of the script too): each route twice,
+     the two results
      compared bit for bit, the first differing value printed on failure:
      every bundle class of phases 10-11 served to the 874-subject cohort
      at batch 256 in fp32 and bf16; phase 18's full-batch flagship; the
@@ -269,8 +272,39 @@ failure propagates and the script exits non-zero:
      `--fold_parallel --isMultiFusion --layers 3 --hiddens 10`, 1 epoch
      (phase 15's runs against a run of each now: every npy, fold record,
      checkpoint and bundle, the printed per-epoch losses and the `Result
-     -` line); the SNP-only `Gene_ontology_network`, 1 epoch, twice. One
-     line per route with the values compared, then the phase's seconds.
+     -` line); the SNP-only `Gene_ontology_network`, 1 epoch, twice; the
+     zoo's `CNN_Model` and `SortPool` (cuDNN convolutions, held to
+     cuDNN's deterministic algorithms by `utils/platform.py`), 1 epoch,
+     twice each. One line per route with the values compared, then the
+     phase's seconds.
+ 20. the device mesh (`iggcn_tpu_torch/parallel/mesh.py`), one process
+     per position, at phase 15's width (`MESH_EPOCHS` epochs, dropout
+     on); it prints `torch.cuda.device_count()`: (a) the CLI's
+     `--fold_parallel` with one card spawns nothing and repeats phase
+     19's run bit for bit; (b) gloo meshes with cuda:0 listed once per
+     position, through `cv.fold_parallel_runs` in one world of
+     `MESH_WORLD` ranks: fold=5 x data=1, fold=1 x data=4 (what a 4-GPU
+     host takes for 5 folds) and 2 seeds x 5 folds on fold=2 x data=2
+     (`fold_mesh(10)` on 4 devices), each against the one-device run
+     (every entry's per-epoch train, val and test loss sums within rtol
+     2e-4; mean test loss rtol 1e-3 and score matrix rtol 1e-3 / atol
+     2e-3, `tests/test_parallel.py`'s),
+     stating whether every entry is bit-equal to it, and each made twice,
+     the two bit-equal; (c) `make_dp_train_step` on 4 ranks against the
+     single step (loss rtol 1e-5, params atol 1e-4); (d) mesh serving of
+     the cohort at batch 256 over 4 positions of cuda:0 against serving
+     on the card alone (fp32 atol 1e-4, bf16 atol 2e-3); (e) each rank's
+     forward and backward launches against the one-device run's (every
+     position steps through every batch; an idle rank launches none),
+     and the sample counts its plans were made for, its fold row's share
+     of each batch (5 x 8 at fold=1 x data=4, 1 x 32 at fold=5 x data=1,
+     5 x 16 at fold=2 x data=2; phase 2 holds each of these grouped
+     shapes, and a serving position's 64 samples in fp32 and bf16,
+     against the plain version);
+     (f) with two cards or more, fold=1 x data=N under NCCL across them
+     against the one-device run, else a line saying no second card was
+     there. The world of (b), (c) and (e) starts before phase 18 and
+     trains while phases 18 and 19 run; phase 20 joins it.
 
 Every route's launches are counted for both kernels of the fp32 stack,
 the forward and its backward: the loop's count is the forward's per
@@ -290,6 +324,7 @@ import contextlib
 import copy
 import dataclasses
 import glob
+import hashlib
 import http.client
 import io
 import json
@@ -320,6 +355,7 @@ from iggcn_tpu_torch.models.fused_sgcn import FusedSGCN
 from iggcn_tpu_torch.models.nn_compat import BatchNorm1d
 from iggcn_tpu_torch.ops import gcn_stack
 from iggcn_tpu_torch.ops.gcn import gcn_propagation_matrix
+from iggcn_tpu_torch.parallel import mesh as meshlib
 from iggcn_tpu_torch.data.sampler import (imbalanced_sample_indices,
                                           pad_epoch_indices)
 from iggcn_tpu_torch.predict import (batched_forward, batched_forward_snps,
@@ -349,7 +385,9 @@ STACK_SHAPES = ([(90, 3, (h,) * n) for n, h in
                  zip([2, 3, 2, 3, 4], [16, 16, 10, 10, 5])]
                 + [(270, 1, (h,) * n) for n, h in
                    zip([3, 2, 4, 2, 3], [2, 3, 3, 5, 10])])
-STACK_BATCHES = (1, 7, 32, 256)
+# batches of the checks: 64 is a position's slice of a serving batch of
+# 256 on phase 20's mesh of 4
+STACK_BATCHES = (1, 7, 32, 64, 256)
 # timed shapes, (name, B, N, F0, widths): serving first, then the training
 # batch (TrainConfig.batch_size) and the multi-fusion grid's widest entry
 TIMED_SHAPES = [("serving", BATCH, 90, 3, (16, 16)),
@@ -370,8 +408,9 @@ BF16_BRANCH_SHAPES = [(90, 3, (64, 64)), (300, 1, (8, 8, 8)),
                       (380, 1, (4, 4)), (500, 1, (10, 10)), (600, 1, (4, 4)),
                       (700, 1, (10, 10)), (800, 1, (4, 4)), (91, 3, (16, 16))]
 # batches of the bf16 form's checks: 106 the cohort's last serving batch,
-# 133 one more than an H100's SMs, 874 the whole cohort in one launch
-BF16_BATCHES = (1, 7, 106, 133, 256, 874)
+# 133 one more than an H100's SMs, 874 the whole cohort in one launch, 64
+# a position's slice of a serving batch on phase 20's mesh of 4
+BF16_BATCHES = (1, 7, 64, 106, 133, 256, 874)
 # (B, N, F0, widths) at which the persistent kernel's K split 2 (the
 # grids' shapes take 4) refills each CTA's stage: one CTA an SM, 6-7
 # samples each, so the barrier's parity flips 5-6 times
@@ -443,15 +482,24 @@ ZOO_EPOCHS, ZOO_CARD_CPU = 1, ("GCN", "GIN", "DiffPool", "TopK")
 # the kernel's grouped form (fold-parallel training: F weight sets of B
 # samples in one launch), (F, B, N, F0, widths) held against its plain
 # version in phase 2: one fold and five folds at N=90, five at N=270 (the
-# 2-CTA cluster path), and the 3-seed x 5-fold seed batch
+# 2-CTA cluster path), the 3-seed x 5-fold seed batch, and the ranks of
+# phase 20's meshes: fold=1 x data=4 (five folds, 8 samples each; what
+# fold=1 x data=4 gives 5 folds on 4 cards) and fold=2 x data=2 (five
+# entries, 16 samples each; also fold=1 x data=2 on 2 cards); fold=5 x
+# data=1's 1 x 32 is the first
 GROUPED_CHECKS = [(1, 32, 90, 3, (16, 16)), (5, 32, 90, 3, (16, 16)),
-                  (5, 32, 270, 1, (10, 10, 10)), (15, 32, 90, 3, (16, 16))]
+                  (5, 32, 270, 1, (10, 10, 10)), (15, 32, 90, 3, (16, 16)),
+                  (5, 8, 90, 3, (16, 16)), (5, 16, 90, 3, (16, 16))]
 # and timed in phase 5, (name, F, B, N, F0, widths): the fold-parallel
-# train batch, the seed batch's and the multi-fusion fold-parallel one
+# train batch, the seed batch's, the multi-fusion fold-parallel one, and
+# the rank-local batches of phase 20's meshes
 GROUPED_TIMED = [("fold-parallel training", 5, 32, 90, 3, (16, 16)),
                  ("seed batch training", 15, 32, 90, 3, (16, 16)),
                  ("multi-fusion fold-parallel training", 5, 32, 270, 1,
-                  (10, 10, 10))]
+                  (10, 10, 10)),
+                 ("a rank of fold=1 x data=4", 5, 8, 90, 3, (16, 16)),
+                 ("a rank of fold=5 x data=1", 1, 32, 90, 3, (16, 16)),
+                 ("a rank of fold=2 x data=2", 5, 16, 90, 3, (16, 16))]
 BWD_TIMED = [("training", 0, 32, 90, 3, (16, 16)),
              ("multi-fusion training", 0, 32, 270, 1, (10, 10, 10)),
              *GROUPED_TIMED]
@@ -694,17 +742,24 @@ def assert_bit_equal(got, want, what):
 
 
 def assert_default_mode():
-    """Nothing switches PyTorch to its deterministic variants: the runs
-    must repeat by the port's own formulation."""
+    """Nothing switches PyTorch to its deterministic variants (the runs
+    must repeat by the port's own formulation) but cuDNN's choice of
+    convolution algorithm, which `utils/platform.py` pins to its
+    deterministic ones, unbenchmarked, for the zoo's convolutions."""
     switched = {"torch.are_deterministic_algorithms_enabled()":
                 torch.are_deterministic_algorithms_enabled(),
-                "torch.backends.cudnn.deterministic":
-                torch.backends.cudnn.deterministic,
                 "CUBLAS_WORKSPACE_CONFIG":
                 os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
-    if any(v not in (False, None) for v in switched.values()):
-        raise AssertionError(f"not PyTorch's default mode: {switched}")
-    return switched
+    pinned = {"torch.backends.cudnn.deterministic":
+              torch.backends.cudnn.deterministic,
+              "torch.backends.cudnn.benchmark":
+              torch.backends.cudnn.benchmark}
+    if (any(v not in (False, None) for v in switched.values())
+            or pinned != {"torch.backends.cudnn.deterministic": True,
+                          "torch.backends.cudnn.benchmark": False}):
+        raise AssertionError(f"not PyTorch's default mode with the port's "
+                             f"cuDNN pins: {switched}, {pinned}")
+    return {**switched, **pinned}
 
 
 def phase_build():
@@ -1390,14 +1445,18 @@ def log_profile(what, out):
 SINGLE_CALLS = 10
 
 
-def profiled(fn, attempts=3, complete=bool):
+def profiled(fn, attempts=5, complete=bool):
     """(device events, host wall in us) of one call of `fn`. Each session
     first runs `fn` in a warm-up cycle, in which the tracer starts and its
     records are dropped, then records a second call. A session whose
     events do not satisfy `complete` (by default: no device activity at
-    all) is logged and `fn` is profiled again, up to `attempts` sessions."""
+    all) is logged and `fn` is profiled again after a second's pause, up
+    to `attempts` sessions (once, the tracer dropped 6 of 10 records and
+    then recorded nothing in the next two sessions run back to back)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     for attempt in range(1, attempts + 1):
+        if attempt > 1:
+            time.sleep(1.0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
@@ -4100,8 +4159,8 @@ LONG_SETS, LONG_GROUPED_EPOCHS = 5, 40
 LONG_GROUPED_DECAY = LONG_GROUPED_EPOCHS
 # the CPU reference runs (fp32 and float64, each weight set its own) train
 # in LONG_CPU_WORKERS processes of LONG_CPU_THREADS torch threads, started
-# with the phase, while the card trains in this one (one core of the card
-# host's 8 left to it); the longest runs are submitted first
+# before phase 16, while phases 16-18 run the card from this one (one core
+# of the card host's 8 left to it); the longest runs are submitted first
 LONG_CPU_WORKERS, LONG_CPU_THREADS = 7, 1
 MULTI_FIELDS = {"num_layers": 3, "hidden": 10, "feat_dim": 1,
                 "is_multi_fusion": True,
@@ -4318,36 +4377,44 @@ def long_verdict(tag, card_losses, lp_card, cpu, exact, problem,
                  "losses_cpu": cpu["losses"].tolist(), **verdict}
 
 
-def phase_long_runs(dev):
-    log("== phase 18: long training runs, the card against the CPU and "
-        "against itself")
-    t0 = time.perf_counter()
+def start_long_references():
+    """Phase 18's inputs, with every CPU reference run submitted to a pool
+    of LONG_CPU_WORKERS spawned processes: started before phase 16, so that
+    the references train while phases 16 and 17 run on the card. The
+    caller shuts the pool down (`long["pool"]`)."""
     problems = {rois: convergence_ab_torch.port_problem(
         subjects=LONG_SUBJECTS, rois=rois, go_levels=REAL_GO_LEVELS,
         feat_dim=3 if rois == 90 else 1) for rois in (90, 270)}
-    for rois, problem in problems.items():
+    pool = concurrent.futures.ProcessPoolExecutor(
+        LONG_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    # the references of the longest runs first: epochs x width / 16
+    order = sorted(LONG_RUNS, key=lambda r: -r[3] * max(
+        1, r[2].get("hidden", 16) // 16))
+    plans = {what: long_plan(pool, problems[rois], what, overrides, epochs,
+                             decay, sets)
+             for what, rois, overrides, epochs, decay, sets in order}
+    return {"pool": pool, "problems": problems, "t0": time.perf_counter(),
+            "plans": [plans[run[0]] for run in LONG_RUNS]}
+
+
+def phase_long_runs(dev, long):
+    log("== phase 18: long training runs, the card against the CPU and "
+        "against itself")
+    t0 = time.perf_counter()
+    for rois, problem in long["problems"].items():
         log(f"long runs at {rois} ROIs: {LONG_SUBJECTS} planted-signal "
             f"subjects (train {len(problem.train_idx)}, held out "
             f"{len(problem.test_idx)}), GO topology n={problem.topo.n}")
-    # the CPU references train in worker processes while the card trains
-    with concurrent.futures.ProcessPoolExecutor(
-            LONG_CPU_WORKERS,
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        # the references of the longest runs first: epochs x width / 16
-        order = sorted(LONG_RUNS, key=lambda r: -r[3] * max(
-            1, r[2].get("hidden", 16) // 16))
-        plans = {what: long_plan(pool, problems[rois], what, overrides,
-                                 epochs, decay, sets)
-                 for what, rois, overrides, epochs, decay, sets in order}
-        plans = [plans[run[0]] for run in LONG_RUNS]
-        cards = [long_card(dev, plan) for plan in plans]
-        card_s = time.perf_counter() - t0
-        runs = {plan["what"]: long_run(plan, card)
-                for plan, card in zip(plans, cards)}
+    plans = long["plans"]
+    cards = [long_card(dev, plan) for plan in plans]
+    card_s = time.perf_counter() - t0
+    runs = {plan["what"]: long_run(plan, card)
+            for plan, card in zip(plans, cards)}
+    long["pool"].shutdown()
     phase_s = time.perf_counter() - t0
     log(f"phase 18: the card's runs done at {card_s:.3f} s; the CPU "
         f"references in {LONG_CPU_WORKERS} processes of {LONG_CPU_THREADS} "
-        "threads")
+        f"threads, started {t0 - long['t0']:.3f} s before the phase")
     log(f"phase 18: {phase_s:.3f} s")
     return {"runs": runs, "phase_s": phase_s}
 
@@ -4358,6 +4425,8 @@ def phase_long_runs(dev):
 # the route phase 19 runs twice itself: the SNP-only GO network, 1 epoch
 # (the others repeat a run of an earlier phase)
 REPEAT_EPOCHS = 1
+# the zoo names whose convolutions run on cuDNN, run twice (zoo_argv)
+REPEAT_ZOO = ("CNN_Model", "SortPool")
 REPEAT_SNPS_ARGV = ["--model", "Gene_ontology_network",
                     *snps_argv("_chip_smoke_repeat_snps", REPEAT_EPOCHS)]
 
@@ -4457,7 +4526,7 @@ def phase_repeat(dev, artifacts, batched, long_runs, cohort):
     runs); the 2-epoch 5-fold flagship CLI, sequential and
     `--fold_parallel`, and `--fold_parallel --isMultiFusion`, 1 epoch
     (phase 15's runs, each run again); the SNP-only GO network, 1 epoch,
-    twice."""
+    twice; the zoo's cuDNN routes (`REPEAT_ZOO`), 1 epoch, twice."""
     log("== phase 19: results repeat run to run on the card")
     t0 = time.perf_counter()
     mode = assert_default_mode()
@@ -4507,10 +4576,457 @@ def phase_repeat(dev, artifacts, batched, long_runs, cohort):
     n, wall_s = repeat_cli(REPEAT_SNPS_ARGV, "_chip_smoke_repeat_snps")
     report(f"CLI --model Gene_ontology_network, {REPEAT_EPOCHS} epoch", n,
            f" (two runs; the second {wall_s:.3f} s)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repeat_") as cache:
+        for zoo in REPEAT_ZOO:
+            appendix = f"_chip_smoke_repeat_{zoo}"
+            n, wall_s = repeat_cli(zoo_argv(zoo, appendix, cache), appendix)
+            report(f"CLI --model {zoo} (cuDNN convolutions), {ZOO_EPOCHS} "
+                   "epoch", n, f" (two runs; the second {wall_s:.3f} s)")
     assert_default_mode()
     phase_s = time.perf_counter() - t0
     log(f"phase 19: {phase_s:.3f} s")
     return {"default_mode": mode, "routes": routes, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the device mesh, one process per position (`parallel/mesh.py`)
+
+# phase 15's flagship (default widths, the 436-node GO DAG, 874 subjects,
+# batch 32, 5 folds with val) at MESH_EPOCHS epochs, dropout on, through
+# `cv.fold_parallel_runs` on gloo meshes of cuda:0 listed once per
+# position, in one world of MESH_WORLD ranks: (what, (fold, data), seeds).
+# One epoch: every rank of a gloo mesh on one card shares its time (a
+# 2-epoch world took 113-197 s); the world starts before phase 18 and
+# trains while phases 18-19 run
+MESH_EPOCHS, MESH_WORLD, MESH_SEEDS = 1, 5, (1, 2)
+MESH_CASES = [("fold=5 x data=1", (5, 1), 1), ("fold=1 x data=4", (1, 4), 1),
+              (f"{len(MESH_SEEDS)} seeds x 5 folds, fold=2 x data=2", (2, 2),
+               len(MESH_SEEDS))]
+# every entry's per-epoch train, val and test loss sums against the
+# one-device run's at the six-step pin. Past the first epoch an entry's
+# sums may part further, as fp32 training parts from float64 (phase 18's
+# bound there is 0.05): the data axis reorders the sums and training
+# amplifies the rounding; in float64 the mesh and the one device agree
+# (`scripts/mesh_drift_torch.py --cpu`)
+MESH_RTOL = 2e-4
+MESH_LOSS_RTOL, MESH_SCORE_RTOL, MESH_SCORE_ATOL = 1e-3, 1e-3, 2e-3
+DP_LOSS_RTOL, DP_PARAM_ATOL, DP_RANKS = 1e-5, 1e-4, 4
+MESH_SERVE_ATOL = {"fp32": 1e-4, "bf16": 2e-3}
+MESH_SERVE_POSITIONS = 4
+
+
+def mesh_setup(epochs=MESH_EPOCHS):
+    """Phase 20's experiment at `epochs`: (cohort, topo, mcfg, tcfg, kind,
+    {seeds: fold entries}), built through the CLI's helpers, as
+    `cross_validation_seed_batch` builds its entries."""
+    args = port_main.build_parser().parse_args(
+        cli_argv(epochs, "_chip_smoke_mesh", "--fold_parallel"))
+    kind = port_main.FUSION_MODELS[args.model]
+    dcfg = port_main.build_dcfg(args)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cohort, topo = port_main.load_cohort(args, dcfg,
+                                             np.random.default_rng(args.seed))
+    mcfg, tcfg = port_main.fused_cfgs(args, dcfg, args.layers, args.hiddens)
+    full = cohort_batch_arrays(cohort)
+
+    def entries(seeds):
+        out = []
+        for s in seeds:
+            tc = dataclasses.replace(tcfg, seed=s)
+            out += [{"p": prepare_fold(cohort, full, split, f, tc,
+                                       tc.clinical_score_index),
+                     "seed": s, "fold": f}
+                    for f, split in enumerate(k_fold(cohort.y, tc.folds, s))]
+        return out
+    return (cohort, topo, mcfg, tcfg, kind,
+            {1: entries([tcfg.seed]), len(MESH_SEEDS): entries(MESH_SEEDS)})
+
+
+def state_digest(state):
+    """A hash of a state_dict's names and bytes."""
+    h = hashlib.sha256()
+    for k, v in state.items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_summary(setup, runs, dev):
+    """What phase 20 compares of a `fold_parallel_runs` result: each
+    seed's CVResult (`cross_validation`'s post-processing of the trained
+    entries), every entry's per-epoch loss sums, and digests of its
+    per-epoch outputs, best weights and final weights."""
+    cohort, topo, mcfg, tcfg, kind, _ = setup
+    k = tcfg.folds
+    seeds = sorted({r["seed"] for r in runs})
+    results = [port_cv.cross_validation(
+        cohort, topo, mcfg, dataclasses.replace(tcfg, seed=s),
+        res_dir=None, verbose=False, model_kind=kind, device=dev,
+        trained=runs[i * k:(i + 1) * k]) for i, s in enumerate(seeds)]
+    sums = {(r["seed"], r["fold"]): np.stack([r["per_epoch"][key] for key in (
+        "train_loss_sum", "val_loss_sum", "test_loss_sum")], axis=1)
+        for r in runs}
+    digests = {(r["seed"], r["fold"]): (
+        hashlib.sha256(b"".join(np.ascontiguousarray(v).tobytes() for _, v in
+                                sorted(r["per_epoch"].items()))).hexdigest(),
+        state_digest(r["best"]["state"]),
+        state_digest(r["model"].state_dict())) for r in runs}
+    return {"results": results, "sums": sums, "digests": digests}
+
+
+def mesh_entries_run(setup, seeds, dev, mesh):
+    """`fold_parallel_runs` of the entries of `seeds` on `mesh` (None: this
+    process alone), with this process's kernel launches and the sample
+    counts the forward and backward plans were made for: (summary,
+    launches, planned)."""
+    cohort, topo, mcfg, tcfg, kind, entries = setup
+    planned = {"forward": set(), "backward": set()}
+    orig = gcn_stack.plan_launch, gcn_stack.plan_backward
+
+    def spy_forward(b, *args, **kw):
+        planned["forward"].add(int(b))
+        return orig[0](b, *args, **kw)
+
+    def spy_backward(b, *args, **kw):
+        planned["backward"].add(int(b))
+        return orig[1](b, *args, **kw)
+
+    gcn_stack.plan_launch, gcn_stack.plan_backward = spy_forward, spy_backward
+    try:
+        reset_launches()
+        runs = port_cv.fold_parallel_runs(entries[seeds], topo, mcfg, tcfg,
+                                          kind, dev, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        gcn_stack.plan_launch, gcn_stack.plan_backward = orig
+    return (mesh_summary(setup, runs, dev), launches,
+            {k: sorted(v) for k, v in planned.items()})
+
+
+def dp_step_run(setup, dev, mesh):
+    """One train step of fold 0's flagship on its first train batch,
+    unsharded or through `make_dp_train_step` on `mesh`, dropout on:
+    (loss * sum(w), flax variables after)."""
+    cohort, topo, mcfg, tcfg, kind, entries = setup
+    p = entries[1][0]["p"]
+    model, gen = init_fold_model(mcfg, topo, tcfg.seed, 0, dev, kind=kind)
+    state = steps.TrainState(model, tcfg, p["train_data"]["y"].shape[0]
+                             // tcfg.batch_size, kind)
+    batch = {k: v[:tcfg.batch_size] for k, v in
+             to_device(p["train_data"], dev).items()}
+    step = (steps.train_step if mesh is None
+            else meshlib.make_dp_train_step(steps.train_step, mesh))
+    loss = float(step(state, batch, mcfg, tcfg, gen))
+    return loss, to_flax_variables(model)
+
+
+def mesh_rank(cases, dp_ranks):
+    """Phase 20 on one rank of the world: each case of `cases` ((fold,
+    data) shape, seeds) run twice, then the DP step on `dp_ranks`
+    positions. Returns, on every rank, rank 0's summaries and every
+    rank's launches and planned sample counts."""
+    world = meshlib.world()
+    dev = world.device
+    setup = mesh_setup()
+    out = []
+    for shape, seeds in cases:
+        n = shape[0] * shape[1]
+        mesh = meshlib.Mesh(world.devices[:n], shape,
+                            (meshlib.FOLD, meshlib.DATA))
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            summary, launches, planned = mesh_entries_run(setup, seeds, dev,
+                                                          mesh)
+            wall = time.perf_counter() - t0
+            per_rank = meshlib.gather_objects((launches, planned, wall))
+            runs.append({"summary": summary if world.rank == 0 else None,
+                         "per_rank": per_rank})
+        out.append(runs)
+    dp = None
+    if dp_ranks:
+        dp = dp_step_run(setup, dev, meshlib.make_mesh(dp_ranks,
+                                                       world.devices))
+    return out, dp
+
+
+def compare_mesh(got, want, what):
+    """A mesh run's summary against the one-device run's: every entry's
+    per-epoch train, val and test loss sums within MESH_RTOL, each seed's
+    mean test loss and score matrix within `tests/test_parallel.py`'s
+    tolerances. Returns ((worst train rel, worst val / test rel), whether
+    every entry is bit-equal)."""
+    if sorted(got["sums"]) != sorted(want["sums"]):
+        raise AssertionError(f"{what}: entries differ")
+    worst = [0.0, 0.0]
+    for key, w in want["sums"].items():
+        rel = np.abs(got["sums"][key] - w) / np.abs(w)
+        for i, cols in enumerate((slice(0, 1), slice(1, 3))):
+            r = float(np.max(rel[:, cols], initial=0.0))
+            if not r <= MESH_RTOL:
+                raise AssertionError(
+                    f"{what}: entry {key} per-epoch loss sums (train, val, "
+                    f"test) {got['sums'][key]} against {w} (rel {r} > "
+                    f"{MESH_RTOL})")
+            worst[i] = max(worst[i], r)
+    for g, w in zip(got["results"], want["results"]):
+        if not np.isclose(g.mean_test_loss, w.mean_test_loss,
+                          rtol=MESH_LOSS_RTOL, atol=0):
+            raise AssertionError(f"{what}: mean test loss {g.mean_test_loss}"
+                                 f" against {w.mean_test_loss}")
+        if not np.allclose(g.score_result, w.score_result,
+                           rtol=MESH_SCORE_RTOL, atol=MESH_SCORE_ATOL):
+            raise AssertionError(f"{what}: score matrix {g.score_result} "
+                                 f"against {w.score_result}")
+    return tuple(worst), got["digests"] == want["digests"]
+
+
+def same_mesh_runs(first, second, what):
+    """Two mesh runs' summaries, which must be bit-equal: the digests of
+    every entry's per-epoch outputs, best and final weights, the loss
+    sums and each seed's score matrix. Returns the entries compared."""
+    if first["digests"] != second["digests"]:
+        bad = [k for k in first["digests"]
+               if first["digests"][k] != second["digests"][k]]
+        raise AssertionError(f"{what}: the second run differs in entries "
+                             f"{bad}")
+    for a, b in zip(first["results"], second["results"]):
+        assert_bit_equal(b.score_result, a.score_result,
+                         f"{what}: the second run's score matrix")
+    for key, a in first["sums"].items():
+        assert_bit_equal(second["sums"][key], a, f"{what}: entry {key}")
+    return len(first["digests"])
+
+
+def dp_compare(got, want, mcfg, lr):
+    """The DP step against the single step: the loss within
+    DP_LOSS_RTOL, every param and running statistic within DP_PARAM_ATOL
+    but the two leaves whose true gradient is zero in train mode (the key
+    slice of the attention's in-projection bias, the last decoder bias
+    before the train-mode bn_b_d) and bn_b_d's running mean, which sees
+    that bias: Adam's first step turns their float noise into steps of up
+    to ~lr of either sign (`tests/test_torch_port_mesh.py` states the
+    rule). Returns (loss rel, worst difference elsewhere)."""
+    (lg, vg), (lw, vw) = got, want
+    rel = abs(lg - lw) / abs(lw)
+    if not rel <= DP_LOSS_RTOL:
+        raise AssertionError(f"DP step loss {lg} against {lw}")
+    fg, fw = ({"/".join(k): np.asarray(v) for k, v in flat_tree(t, ()).items()}
+              for t in (vg, vw))
+    if sorted(fg) != sorted(fw):
+        raise AssertionError("DP step: the variables differ in names")
+    walk = 2 * 1.02 * lr
+    e = mcfg.jk_dim
+    key = slice(e, 2 * e)
+    name = "params/mha_in_proj_bias"
+    bias = f"params/go_network/g_b_d_{mcfg.go_n_l - 1}/bias"
+    stat = "batch_stats/go_network/bn_b_d/mean"
+    if not np.abs(fg[name][key] - fw[name][key]).max() <= walk:
+        raise AssertionError(f"DP step: {name} key slice beyond {walk}")
+    fg[name] = fg[name].copy()
+    fg[name][key] = fw[name][key]
+    bias_walk = float(np.abs(fg[bias] - fw[bias]).max())
+    conc_d = float(np.abs(fw["params/go_network/conc_d/kernel"]).sum())
+    if not (bias_walk <= walk and np.abs(fg[stat] - fw[stat]).max()
+            <= bias_walk * conc_d + DP_PARAM_ATOL):
+        raise AssertionError(f"DP step: {bias} or {stat} beyond the walk")
+    worst = 0.0
+    for k, w in fw.items():
+        if k in (bias, stat):
+            continue
+        diff = float(np.max(np.abs(fg[k] - w), initial=0.0))
+        if not diff <= DP_PARAM_ATOL:
+            raise AssertionError(f"DP step {k} differs by {diff}")
+        worst = max(worst, diff)
+    return rel, worst
+
+
+def mesh_launches(mesh, kind):
+    """{case: each rank's `kind` launches and the one-device run's} of
+    phase 20's gloo meshes."""
+    return {f"--fold_parallel, {what} (gloo, cuda:0 per position)": {
+        "launches_per_rank": [row["launches"][kind] for row in case["ranks"]],
+        "one_device_launches": case["one_device_launches"][kind]}
+        for what, case in mesh["cases"].items()}
+
+
+def start_mesh_world(dev):
+    """Phase 20's gloo world of MESH_WORLD ranks on `dev` (`mesh_rank`:
+    every case of MESH_CASES twice, then the DP step), started on a thread
+    before phase 18 so that it trains while phases 18 and 19 run; phase
+    20 joins it."""
+    cases = [(shape, seeds) for _, shape, seeds in MESH_CASES]
+    box = {"t0": time.perf_counter()}
+    mesh = meshlib.make_mesh(devices=[dev] * MESH_WORLD)
+
+    def run():
+        try:
+            box["out"] = meshlib.launch(mesh_rank, (cases, DP_RANKS), mesh,
+                                        backend="gloo")
+        except BaseException as e:     # re-raised by phase 20
+            box["error"] = e
+        box["s"] = time.perf_counter() - box["t0"]
+
+    box["thread"] = threading.Thread(target=run, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def phase_mesh(dev, batched, model, cohort, world_box):
+    log("== phase 20: the device mesh (--fold_parallel folds x samples, the "
+        "data-parallel step, mesh serving), one process per position")
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    log(f"torch.cuda.device_count() = {count}")
+    out = {"device_count": count}
+
+    # (a) one card: the CLI spawns nothing (no world, no process started
+    # from this thread; the phase's own world runs on another) and
+    # repeats phase 19's run
+    spawned = []
+    orig = meshlib.launch, torch.multiprocessing.start_processes
+
+    def spy(fn):
+        def called(*a, **kw):
+            if threading.current_thread() is threading.main_thread():
+                spawned.append(fn.__name__)
+            return fn(*a, **kw)
+        return called
+
+    meshlib.launch = spy(orig[0])
+    torch.multiprocessing.start_processes = spy(orig[1])
+    try:
+        fp = batched["flagship"]
+        first = (snapshot(run_dir("_chip_smoke_fp")), fp["epoch_lines"],
+                 fp["result_line"])
+        n, wall_s = repeat_cli(cli_argv(FP_EPOCHS, "_chip_smoke_fp",
+                                        "--fold_parallel"), "_chip_smoke_fp",
+                               first)
+    finally:
+        meshlib.launch, torch.multiprocessing.start_processes = orig
+    if count == 1 and spawned:
+        raise AssertionError(f"one card: the CLI spawned ({spawned})")
+    log(f"(a) one card: --fold_parallel made {len(spawned)} calls that "
+        f"spawn; {n} values bit-equal to phase 19's run ({wall_s:.3f} s)")
+    out["one_card"] = {"spawned": len(spawned), "values_bit_equal": n,
+                       "wall_s": wall_s}
+
+    # (b), (c), (e): the one-device references, then the world's results
+    setup = mesh_setup()
+    refs = {}
+    for seeds in sorted({s for _, _, s in MESH_CASES}):
+        t1 = time.perf_counter()
+        refs[seeds] = mesh_entries_run(setup, seeds, dev, None)
+        log(f"one-device reference, {seeds} seed(s) x 5 folds: "
+            f"{time.perf_counter() - t1:.3f} s, launches {refs[seeds][1]}")
+    dp_single = dp_step_run(setup, dev, None)
+    world_box["thread"].join(timeout=900)
+    if "error" in world_box:
+        raise world_box["error"]
+    if "out" not in world_box:
+        raise AssertionError("the gloo world did not finish")
+    world_s = world_box["s"]
+    mesh_out, dp = world_box["out"]
+    tcfg, entries = setup[3], setup[5]
+    out["cases"] = {}
+    for (what, shape, seeds), runs in zip(MESH_CASES, mesh_out):
+        ref, ref_launches, ref_planned = refs[seeds]
+        first, second = runs[0]["summary"], runs[1]["summary"]
+        worst, same = compare_mesh(first, ref, what)
+        n_entries = same_mesh_runs(first, second, what)
+        fold_only = shape[1] == 1
+        log(f"(b) {what}, {MESH_EPOCHS} epoch(s): the loss sums within "
+            f"{worst[0]:.3e} (train) and {worst[1]:.3e} (val and test) of "
+            f"the one-device run (rtol {MESH_RTOL}); mean test loss "
+            + ", ".join(f"{g.mean_test_loss:.6f} vs {w.mean_test_loss:.6f}"
+                        for g, w in zip(first["results"], ref["results"]))
+            + f"; {'fold-only mesh: ' if fold_only else ''}every entry "
+            f"{'bit-equal' if same else 'not bit-equal'} to the one-device "
+            f"run; the second run bit-equal to the first ({n_entries} "
+            "entries: per-epoch outputs, best and final weights)")
+        # (e) each rank's launches: what the one-device run launched (every
+        # position steps through every batch), none on an idle rank; its
+        # plans made for its own fold row's samples of each batch
+        n = shape[0] * shape[1]
+        b_local = tcfg.batch_size // shape[1]
+        per_row = len(entries[seeds]) // shape[0]
+        rank_rows = []
+        for rank, (launches, planned, wall) in enumerate(
+                runs[0]["per_rank"]):
+            want = ref_launches if rank < n else {"forward": 0,
+                                                   "backward": 0}
+            if launches != want:
+                raise AssertionError(f"{what}: rank {rank} launched "
+                                     f"{launches}, the shapes imply {want}")
+            if rank < n and (planned["backward"] != [per_row * b_local]
+                             or per_row * b_local not in planned["forward"]):
+                raise AssertionError(f"{what}: rank {rank} planned "
+                                     f"{planned} for {per_row} x {b_local}")
+            rank_rows.append({"launches": launches, "planned": planned,
+                              "wall_s": wall})
+        log(f"(e) {what}: launches per rank "
+            + "; ".join(f"{r}: {row['launches']} (planned samples "
+                        f"{row['planned']}, {row['wall_s']:.3f} s)"
+                        for r, row in enumerate(rank_rows))
+            + f"; the one-device run {ref_launches}, planned {ref_planned}")
+        out["cases"][what] = {
+            "shape": list(shape), "seeds": seeds,
+            "epoch_max_rel_diff": {"train": worst[0], "eval": worst[1]},
+            "bit_equal_to_one_device": same,
+            "repeat_entries_bit_equal": n_entries,
+            "mean_test_loss": [r.mean_test_loss for r in first["results"]],
+            "one_device_mean_test_loss": [r.mean_test_loss
+                                          for r in ref["results"]],
+            "ranks": rank_rows, "one_device_launches": ref_launches}
+    rel, worst = dp_compare(dp, dp_single, setup[2], tcfg.lr)
+    log(f"(c) make_dp_train_step on {DP_RANKS} ranks against the single "
+        f"step: loss rel {rel:.3e} (rtol {DP_LOSS_RTOL}), params within "
+        f"{worst:.3e} (atol {DP_PARAM_ATOL})")
+    out["dp_step"] = {"ranks": DP_RANKS, "loss_rel": rel, "param_max": worst}
+    log(f"the gloo world of {MESH_WORLD} ranks on {dev}: {world_s:.3f} s "
+        f"(started {t0 - world_box['t0']:.3f} s before the phase)")
+    out["world_s"] = world_s
+
+    # (d) mesh serving: the cohort's batches split over 4 positions of
+    # cuda:0, against serving on the card alone
+    smesh = meshlib.make_mesh(devices=[dev] * MESH_SERVE_POSITIONS)
+    out["serving"] = {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        one = batched_forward(model, *cohort, batch_size=BATCH, dtype=dtype)
+        par = batched_forward(model, *cohort, batch_size=BATCH, dtype=dtype,
+                              mesh=smesh)
+        err = max(float(np.abs(par[k] - one[k]).max()) for k in one
+                  if k != "pred")
+        if sorted(par) != sorted(one) or not err <= MESH_SERVE_ATOL[name]:
+            raise AssertionError(f"(d) mesh serving {name}: {err}")
+        agree = float(np.mean(par["pred"] == one["pred"]))
+        log(f"(d) mesh serving {name}, {COHORT} subjects at {BATCH} over "
+            f"{MESH_SERVE_POSITIONS} positions: max abs diff {err:.3e} "
+            f"(atol {MESH_SERVE_ATOL[name]}), pred agreement {agree:.4f}")
+        out["serving"][name] = {"max_abs_diff": err, "agreement": agree}
+
+    # (f) NCCL across cards
+    if count >= 2:
+        n = min(4, count)
+        cards = meshlib.make_mesh(n)
+        t1 = time.perf_counter()
+        (runs,), _ = meshlib.launch(mesh_rank, ([((1, n), 1)], 0), cards)
+        worst, _ = compare_mesh(runs[0]["summary"], refs[1][0],
+                                f"NCCL fold=1 x data={n}")
+        same_mesh_runs(runs[0]["summary"], runs[1]["summary"], "NCCL")
+        log(f"(f) NCCL, fold=1 x data={n} on {n} cards: within "
+            f"{worst[0]:.3e} / {worst[1]:.3e} (train / eval) of the "
+            f"one-device run, repeats bit-equal "
+            f"({time.perf_counter() - t1:.3f} s)")
+        out["nccl"] = {"cards": n, "epoch_max_rel_diff": list(worst)}
+    else:
+        log("(f) NCCL: no second card on this host; the NCCL mesh did not "
+            "run")
+        out["nccl"] = None
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 20: {out['phase_s']:.3f} s")
+    return out
 
 
 def main() -> int:
@@ -4536,17 +5052,29 @@ def main() -> int:
     families = phase_families(dev)
     artifacts = phase_artifacts(dev, train, cohort)
     snps = phase_snps(dev)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as root:
-        layout = real_layout(root)
-        real, real_ctx = phase_real_cohort(dev, layout)
-        other = phase_other_routes(dev, layout, real_ctx)
-        zoo = phase_zoo(dev)
-        batched = phase_fold_parallel(dev, train)
-        bf16 = phase_bf16(dev, torch.cuda.get_device_name(0), model, served,
-                          cohort, artifacts, layout)
-    streamed = phase_streamed(dev, torch.cuda.get_device_name(0))
-    long_runs = phase_long_runs(dev)
-    repeat = phase_repeat(dev, artifacts, batched, long_runs, cohort)
+    long = world = None
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as root:
+            layout = real_layout(root)
+            real, real_ctx = phase_real_cohort(dev, layout)
+            other = phase_other_routes(dev, layout, real_ctx)
+            zoo = phase_zoo(dev)
+            batched = phase_fold_parallel(dev, train)
+            long = start_long_references()
+            bf16 = phase_bf16(dev, torch.cuda.get_device_name(0), model,
+                              served, cohort, artifacts, layout)
+            streamed = phase_streamed(dev, torch.cuda.get_device_name(0))
+        world = start_mesh_world(dev)
+        long_runs = phase_long_runs(dev, long)
+        repeat = phase_repeat(dev, artifacts, batched, long_runs, cohort)
+        mesh = phase_mesh(dev, batched, model, cohort, world)
+    finally:
+        # the CPU references and the world's ranks end before the script
+        # does, whatever failed
+        if long is not None:
+            long["pool"].shutdown(cancel_futures=True)
+        if world is not None:
+            world["thread"].join(timeout=900)
 
     serving, *others = times["shapes"]
     fp_row = times["grouped"][0]
@@ -4637,6 +5165,9 @@ def main() -> int:
                        ("--cv_seeds " + FP_SEEDS, batched["cv_seeds"]),
                        ("--permut_seeds " + FP_SEEDS,
                         batched["permut_seeds"]))},
+        # phase 20: each rank of a gloo mesh on cuda:0, its forward
+        # launches over the run against the one-device run's
+        "mesh": mesh_launches(mesh, "forward"),
         "shapes": [{k: row[k] for k in (
             "shape", "F", "B", "N", "F0", "widths", "kernel_ms",
             "kernel_cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
@@ -4671,6 +5202,7 @@ def main() -> int:
                for what, run in (
                    ("SGCN_GCN_IMGSNP --fold_parallel", batched["flagship"]),
                    ("--cv_seeds " + FP_SEEDS, batched["cv_seeds"]))}},
+        "mesh": mesh_launches(mesh, "backward"),
         "shapes": [{k: row[k] for k in (
             "shape", "F", "B", "N", "F0", "widths", "cluster", "kernel_ms",
             "kernel_cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
@@ -4800,6 +5332,17 @@ def main() -> int:
                  for what, run in long_runs["runs"].items()},
              "repeat": {route: row["values_bit_equal"]
                         for route, row in repeat["routes"].items()},
+             "mesh": {"device_count": mesh["device_count"],
+                      "one_card": mesh["one_card"],
+                      "world_s": mesh["world_s"],
+                      "cases": {what: {k: case[k] for k in (
+                          "shape", "epoch_max_rel_diff",
+                          "bit_equal_to_one_device",
+                          "repeat_entries_bit_equal", "mean_test_loss",
+                          "one_device_mean_test_loss")}
+                          for what, case in mesh["cases"].items()},
+                      "dp_step": mesh["dp_step"],
+                      "serving": mesh["serving"], "nccl": mesh["nccl"]},
              "snps_only": {model: {
                  "experiment_wall_s": run["experiment_wall_s"],
                  "result_line": run["result_line"],
@@ -4818,7 +5361,7 @@ def main() -> int:
                    "artifacts": artifacts, "snps_only": snps,
                    "real_cohort": real, "other_routes": other, "zoo": zoo,
                    "batched": batched, "bf16": bf16, "streamed": streamed,
-                   "long_runs": long_runs, "repeat": repeat,
+                   "long_runs": long_runs, "repeat": repeat, "mesh": mesh,
                    "script_s": time.perf_counter() - START,
                    "device": device}, fh, indent=1,
                   default=float)

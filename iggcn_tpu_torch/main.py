@@ -43,6 +43,13 @@ in this process. Every results dir gets `cmd_input.txt`, `log.txt` and
 an `env.txt` manifest. It runs on the card and raises without one unless
 `--device cpu` is given. The flags mean what they mean in the JAX
 package, whose command lines parse here too.
+
+On a host with several cards, a `--fold_parallel` run of a fused family
+takes `fold_mesh(entries)` over them (entries: the folds, or the seeds x
+folds of one batched program), as the JAX package shards its fold axis
+over every visible device: one process per mesh position
+(`parallel.mesh.launch`, NCCL), the kernels built once beforehand, and
+rank 0 alone prints and writes. With one card nothing spawns.
 """
 from __future__ import annotations
 
@@ -320,7 +327,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train all CV folds of a fused family at once, as "
                         "one batched program on the card (each fold with "
                         "its own weights, dropout stream and learning-rate "
-                        "schedule, as it would train alone)")
+                        "schedule, as it would train alone); with several "
+                        "cards, folds x samples over all of them, one "
+                        "process per card (see below)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the experiment "
                         "here (trace.json, with the card's kernels; open it "
@@ -539,8 +548,12 @@ def setup_run_dir(args, argv: Optional[List[str]]):
     """Create results/ADNI<appendix> (results_permuttest/ under
     --isPermutTest), record the command line, and return (res_dir, logger)
     where logger appends a line to its log.txt."""
+    from iggcn_tpu_torch.parallel.mesh import is_lead
     sub = "results_permuttest" if args.isPermutTest else "results"
     res_dir = os.path.join(os.getcwd(), sub, f"ADNI{args.save_appendix}")
+    if not is_lead():
+        # another rank of a mesh: rank 0 writes the run's files
+        return res_dir, lambda info: None
     os.makedirs(res_dir, exist_ok=True)
     cmd = ("python -m iggcn_tpu_torch.main "
            + shlex.join(sys.argv[1:] if argv is None else argv))
@@ -572,6 +585,10 @@ def write_env_manifest(res_dir: str, device: str) -> None:
                          f"x{torch.cuda.device_count()})")
         else:
             lines.append(f"device {device} (x1)")
+        from iggcn_tpu_torch.parallel.mesh import world
+        if world() is not None:
+            lines.append(f"mesh {world().mesh.describe()}, one process "
+                         f"per position ({world().backend})")
         try:
             sha = subprocess.run(
                 ["git", "rev-parse", "--short", "HEAD"],
@@ -996,9 +1013,56 @@ def main(argv: Optional[List[str]] = None):
     device = resolve_device(args.device)
     if args.save_appendix == "":
         args.save_appendix = "_" + time.strftime("%Y%m%d%H%M%S")
+    mesh = cli_mesh(args, device)
+    if mesh is not None:
+        return run_on_mesh(args, argv, mesh)
     from iggcn_tpu_torch.utils.profiling import trace_to
     with trace_to(args.profile_dir, device):
         return run_routes(args, parser, argv, device)
+
+
+def cli_mesh(args, device: torch.device):
+    """The (fold, data) mesh of this run over the visible cards, or None
+    where it runs in this process: not `--fold_parallel` with a fused
+    family on the card, or a mesh of one device. Its entries are those of
+    the largest batched program: the seeds of one chunk x the folds for
+    the batched `--cv_seeds`/`--permut_seeds` routes, else the folds."""
+    if (device.type != "cuda" or not args.fold_parallel
+            or args.model not in FUSION_MODELS
+            or torch.cuda.device_count() < 2):
+        return None
+    from iggcn_tpu_torch.parallel.mesh import fold_mesh
+    entries = args.fold
+    seeds_flag = args.cv_seeds if args.cv_seeds is not None else (
+        args.permut_seeds if not args.isTestAdnitype else None)
+    if seeds_flag is not None and not args.resume:
+        seeds = parse_permut_seeds(seeds_flag, build_parser())
+        per_chunk = seed_chunks(seeds, args.fold, args.spmd_batch_entries)[1]
+        entries *= min(per_chunk, len(seeds))
+    mesh = fold_mesh(entries)
+    return mesh if mesh.size > 1 else None
+
+
+def run_on_mesh(args, argv: Optional[List[str]], mesh):
+    """Run the command line in one process per position of `mesh` (the
+    kernels built here first, once) and return rank 0's result."""
+    from iggcn_tpu_torch.ops import gcn_stack
+    from iggcn_tpu_torch.parallel.mesh import launch
+    from iggcn_tpu_torch.utils import cuda_build
+    print(f"[mesh] {mesh.describe()}: one process per position")
+    cuda_build.build_all([gcn_stack.SOURCE, gcn_stack.BF16_SOURCE,
+                          gcn_stack.BACKWARD_SOURCE,
+                          gcn_stack.STREAMED_SOURCE])
+    return launch(run_rank, (args, argv), mesh)
+
+
+def run_rank(args, argv: Optional[List[str]]):
+    """One mesh position's run of a checked command line, on its card."""
+    from iggcn_tpu_torch.parallel.mesh import is_lead, world
+    from iggcn_tpu_torch.utils.profiling import trace_to
+    device = world().device
+    with trace_to(args.profile_dir if is_lead() else None, device):
+        return run_routes(args, build_parser(), argv, device)
 
 
 def run_routes(args, parser, argv: Optional[List[str]],

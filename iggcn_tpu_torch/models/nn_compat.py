@@ -12,6 +12,8 @@ to carry weights across in both directions:
     axis 1). Train mode normalises with the biased batch variance over the
     real rows of a padded batch (a 0/1 `weight` per row) and stores the
     unbiased variance in the running statistics; eval mode reads them.
+    Under a sharded batch (`parallel.mesh.sharded`) the statistics are
+    those of the whole batch.
   * `NodeLayerNorm`: LayerNorm over the node axis of (B, N, F) with a
     per-node affine.
   * `dropout` / `node_dropout`: elementwise and Dropout2d-style (whole node
@@ -42,6 +44,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from iggcn_tpu_torch.parallel import mesh
 
 
 def promoted(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -146,7 +150,11 @@ class BatchNorm1d(nn.Module):
     only the real rows count, so a padded dense batch normalises exactly as
     its ragged original. The running statistics move by `BN_MOMENTUM`
     towards the batch mean and unbiased variance, and stay as they are on
-    a batch without real rows. Eval mode normalises with them.
+    a batch without real rows. Eval mode normalises with them. While a
+    shard of the batch is active (`parallel.mesh.sharded`), sum(w x),
+    sum(w x^2) and sum(w) are summed over the data axis first, so each
+    position normalises its rows with the whole batch's statistics and
+    every position's running statistics end identical.
     """
 
     FLAX_LEAVES = {"scale": ("params", "scale", False),
@@ -174,23 +182,29 @@ class BatchNorm1d(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            if weight is None:
+            if weight is None and mesh.active() is None:
                 mean = x.mean(dim=axes)
                 var = (x * x).mean(dim=axes) - mean * mean
                 n_red = float(x.numel() // x.shape[1])
+                rows = None
             else:
+                if weight is None:
+                    weight = x.new_ones(x.shape[0])
                 w = weight.reshape((-1,) + (1,) * (x.dim() - 1))
-                n_red = torch.clamp(weight.sum() * (x.shape[2] if x.dim() == 3
-                                                    else 1), min=1.0)
-                mean = (x * w).sum(dim=axes) / n_red
-                var = (x * x * w).sum(dim=axes) / n_red - mean * mean
+                sx, sxx, rows = mesh.all_reduce_sum(
+                    (x * w).sum(dim=axes), (x * x * w).sum(dim=axes),
+                    weight.sum())
+                n_red = torch.clamp(rows * (x.shape[2] if x.dim() == 3
+                                                else 1), min=1.0)
+                mean = sx / n_red
+                var = sxx / n_red - mean * mean
             with torch.no_grad():
                 m = BN_MOMENTUM
                 new_mean = (1 - m) * self.running_mean + m * mean
                 new_var = ((1 - m) * self.running_var
                            + m * (var * unbiased_var_factor(n_red)))
-                if weight is not None:
-                    has_real = weight.sum() > 0
+                if rows is not None:
+                    has_real = rows > 0
                     new_mean = torch.where(has_real, new_mean,
                                            self.running_mean)
                     new_var = torch.where(has_real, new_var, self.running_var)
@@ -248,6 +262,17 @@ class NoiseSource:
 
     def done(self) -> bool:
         return self._next == len(self._draws)
+
+    def rows(self, lo: int, hi: int, total: int, dim: int = 0
+             ) -> "NoiseSource":
+        """The draws' rows [lo, hi) along the sample axis `dim`: a shard's
+        part of uniforms drawn for the whole batch of `total` rows."""
+        for i, u in enumerate(self._draws):
+            if u.shape[dim] != total:
+                raise ValueError(f"noise draw {i} has shape "
+                                 f"{tuple(u.shape)}: its axis {dim} is not "
+                                 f"the batch of {total} samples")
+        return NoiseSource(u.narrow(dim, lo, hi - lo) for u in self._draws)
 
 
 class ShapeRecorder(NoiseSource):

@@ -14,9 +14,18 @@ the padded inputs in bf16, as `dtype=jnp.bfloat16` does in the JAX
 package (`cast_floating` casts the weights, the GO topology constants stay
 fp32); products of a bf16 and an fp32 operand run in fp32 as `jnp`'s
 promotion has them, and the GCN stack runs the kernel's bf16-operand form.
-Outputs come back as fp32 host arrays. The JAX functions' `mesh=`
-(data-parallel serving over several devices) is not ported: the port
-serves on one card.
+Outputs come back as fp32 host arrays.
+
+Data-parallel serving (`batched_forward(..., mesh=)`, the JAX function's
+`mesh=`): each serving batch is split into equal contiguous slices, one
+per position of the mesh's first axis, and each slice runs on that
+position's device with a replica of the weights. The effective batch is
+rounded up to a multiple of the axis, as the JAX function rounds it.
+Serving is a pure map with no collective, so the slices run in this
+process: a forward is a few launches per batch, which one host thread
+issues to several cards without waiting (launches are asynchronous),
+where a process per card would add its start-up and a copy of every
+result between processes.
 """
 from __future__ import annotations
 
@@ -104,9 +113,19 @@ def validate_cohort_shapes(model, x, adj, snps) -> None:
                if cfg.is_multi_fusion else ""))
 
 
+def _replicas(model: nn.Module, devices) -> list:
+    """`model` on each of `devices` (itself where it already is)."""
+    home = next(model.parameters()).device
+    copies = {}
+    for d in devices:
+        if d not in copies:
+            copies[d] = model if d == home else copy.deepcopy(model).to(d)
+    return [copies[d] for d in devices]
+
+
 def batched_forward(model, x: np.ndarray, adj: np.ndarray, snps: np.ndarray,
                     *, batch_size: int = 256, fixed_batch: bool = False,
-                    dtype: torch.dtype | None = None
+                    dtype: torch.dtype | None = None, mesh=None
                     ) -> Dict[str, np.ndarray]:
     """Serve a cohort on the model's device.
 
@@ -120,6 +139,10 @@ def batched_forward(model, x: np.ndarray, adj: np.ndarray, snps: np.ndarray,
       dtype: `torch.bfloat16` for bf16 serving: the weights (of a cast
         copy, unless the model is cast already) and the inputs, after
         padding, in bf16; None serves in the model's fp32.
+      mesh: a `parallel.mesh.Mesh` to serve data-parallel over its first
+        axis (the batch rounded up to a multiple of it; slices after the
+        first on their own devices' replicas); None serves on the
+        model's device.
     Returns host arrays: log_probs (S, C) float32, pred (S,) int32 and,
     where the model has a regression head, our_reg (S, R) float32, padding
     rows removed.
@@ -129,19 +152,31 @@ def batched_forward(model, x: np.ndarray, adj: np.ndarray, snps: np.ndarray,
     b = batch_size if fixed_batch else (min(batch_size, n) if n
                                         else batch_size)
     device = next(model.parameters()).device
-    xb, ab, sb = pad_split_batches((x, adj, snps), b, device)
     model = _in_dtype(model, dtype)
+    if mesh is not None:
+        axis = mesh.shape[0]
+        b = -(-b // axis) * axis       # the sample axis divides by the mesh
+        devices = [mesh.devices[mesh.rank_of((j,) + (0,) * (len(mesh.shape)
+                                                          - 1))]
+                   for j in range(axis)]
+    else:
+        axis, devices = 1, [device]
+    xb, ab, sb = pad_split_batches((x, adj, snps), b, device)
     if dtype is not None:
         xb, ab, sb = (v.to(dtype) for v in (xb, ab, sb))
+    replicas = _replicas(model, devices)
     cfg = model.cfg
     has_regr = not isinstance(model, ClusterLabelSGCN)
     log_probs, our_reg = [], []
+    step = b // axis
     with torch.inference_mode():
         for i in range(xb.shape[0]):
-            out = model(xb[i], ab[i], sb[i])
-            log_probs.append(out.log_probs)
-            if has_regr:
-                our_reg.append(out.our_reg)
+            for j, (rep, dev) in enumerate(zip(replicas, devices)):
+                rows = slice(j * step, (j + 1) * step)
+                out = rep(*(v[i, rows].to(dev) for v in (xb, ab, sb)))
+                log_probs.append(out.log_probs.to(device))
+                if has_regr:
+                    our_reg.append(out.our_reg.to(device))
         if log_probs:
             lp = torch.cat(log_probs)
             res = {"log_probs": lp, "pred": lp.argmax(dim=-1).to(torch.int32)}

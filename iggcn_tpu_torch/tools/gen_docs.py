@@ -123,6 +123,34 @@ def render_stack_forms() -> str:
     return "\n".join(rows)
 
 
+# the entries and device counts `render_mesh_table` tabulates
+MESH_ENTRIES = ((3, "3 folds"), (4, "4 folds"), (5, "5 folds"),
+                (10, "`--cv_seeds 1:2` x 5 folds"),
+                (15, "`--permut_seeds 1:3` x 5 folds"))
+MESH_DEVICES = (1, 2, 4, 8)
+
+
+def render_mesh_table() -> str:
+    """The (fold, data) mesh `fold_mesh` gives each number of fold
+    entries on each number of visible cards, and a rank's share of a
+    32-sample batch."""
+    import torch
+
+    from iggcn_tpu_torch.parallel.mesh import fold_mesh
+    rows = ["| entries | " + " | ".join(
+        f"{n} GPU{'s' if n > 1 else ''}" for n in MESH_DEVICES) + " |",
+        "|---|" + "---|" * len(MESH_DEVICES)]
+    for k, what in MESH_ENTRIES:
+        cells = []
+        for n in MESH_DEVICES:
+            m = fold_mesh(k, [torch.device("cpu", i) for i in range(n)])
+            f, d = m.shape
+            cells.append(f"{f} x {d}: {k // f} x {32 // d}"
+                         + (f" ({n - m.size} idle)" if m.size < n else ""))
+        rows.append(f"| {what} | " + " | ".join(cells) + " |")
+    return "\n".join(rows)
+
+
 def render_cli_md() -> str:
     from iggcn_tpu_torch import main as main_mod
     from iggcn_tpu_torch.tools import (doctor, explain, export_cohort,
@@ -163,6 +191,24 @@ def render_cli_md() -> str:
         "memory once per layer. Forward/backward at a batch of 32 (N=270 "
         "with F0=1, else F0=3):\n")
     parts.append(render_stack_forms())
+    parts.append("")
+    parts.append("### `--fold_parallel` on several GPUs\n")
+    parts.append(
+        "A `--fold_parallel` run of a fused family takes every visible "
+        "card, as the JAX package's does every visible device: "
+        "`parallel/mesh.py:fold_mesh` gives the fold entries (the folds, "
+        "or a batched program's seeds x folds) a fold axis of the largest "
+        "divisor of their count that fits the cards, and the cards left "
+        "over a data axis that shards each batch's samples; when the "
+        "count does not divide the cards the rest idle. One process runs "
+        "each position (NCCL; the kernels are built once before they "
+        "start), each with its fold row's entries on its slice of every "
+        "train and eval batch; batch norms, losses and gradients are "
+        "summed over the data axis, so each fold trains as it would on "
+        "one card, and rank 0 alone prints and writes. With one card "
+        "nothing spawns. Cells: fold x data, then a rank's entries x "
+        "samples of a 32-sample batch:\n")
+    parts.append(render_mesh_table())
 
     for title, blurb, mod in (
         ("## `python -m iggcn_tpu_torch.tools.doctor`",

@@ -44,6 +44,13 @@ retrained whole. `cross_validation_seed_batch` (one cohort, S CV seeds)
 and `cross_validation_permut_batch` (S permutation nulls) train all
 S x k fold entries as one such program and replay each seed's
 post-processing through `cross_validation`.
+
+Inside a world of ranks (`parallel.mesh.launch`, one process per device)
+the batched program runs on `fold_mesh(entries)` over the world's
+devices (`fold_parallel_runs`, whose `mesh` a caller may choose): each
+rank trains its own fold entries on its own device, on its slice of
+every batch, every rank gets every entry's results and runs the same
+post-processing, and rank 0 alone prints, logs and writes.
 """
 from __future__ import annotations
 
@@ -66,6 +73,7 @@ from iggcn_tpu_torch.models.clusterlabel import ClusterLabelSGCN
 from iggcn_tpu_torch.models.fused_sgcn import FusedSGCN
 from iggcn_tpu_torch.models.guide import GuideImgSnp
 from iggcn_tpu_torch.models.sgcn_image import SGCNImage, SGCNOri
+from iggcn_tpu_torch.parallel import mesh as meshlib
 from iggcn_tpu_torch.tools.convert import (load_flax_variables,
                                            to_flax_variables)
 from iggcn_tpu_torch.tools.serve import save_bundle
@@ -264,12 +272,17 @@ def write_fold_record(path: str, **arrays) -> None:
 
 def fold_parallel_runs(entries: List[Dict[str, Any]], topo: GoTopology,
                        mcfg: ModelConfig, tcfg: TrainConfig, kind: str,
-                       device: torch.device, warm_start=None
+                       device: torch.device, warm_start=None,
+                       mesh: Optional[meshlib.Mesh] = None
                        ) -> List[Dict[str, Any]]:
-    """Train every fold entry at once (`run_folds_parallel`). An entry is
-    {"p": `prepare_fold`'s data, "seed": its init seed, "fold": its fold};
-    each gets back "per_epoch", "best", "model" (its final weights) and
-    "seconds" (its share of the run's wall time)."""
+    """Train every fold entry at once (`run_folds_parallel`) on `mesh`
+    (default `fold_mesh(len(entries))` over the world's devices: this
+    device alone outside a world). An entry is {"p": `prepare_fold`'s
+    data, "seed": its init seed, "fold": its fold}; each gets back
+    "per_epoch", "best", "model" (its final weights) and "seconds" (its
+    share of the run's wall time)."""
+    if mesh is None:
+        mesh = meshlib.fold_mesh(len(entries), meshlib.world_devices(device))
     inits = [init_fold_model(mcfg, topo, e["seed"], e["fold"], device,
                              warm_start, kind) for e in entries]
     models = [m for m, _ in inits]
@@ -279,7 +292,7 @@ def fold_parallel_runs(entries: List[Dict[str, Any]], topo: GoTopology,
         None if tcfg.no_val else [p["val_data"] for p in ps],
         [p["test_data"] for p in ps], [p["perms"] for p in ps],
         [p["train_data"]["y"].shape[0] // tcfg.batch_size for p in ps],
-        mcfg, tcfg, kind)
+        mcfg, tcfg, kind, mesh)
     return [{**e, "per_epoch": pe, "best": b, "model": m,
              "seconds": seconds / len(entries)}
             for e, pe, b, m in zip(entries, per_epoch, best, models)]
@@ -309,7 +322,10 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
     this run. `tcfg.fold_parallel` trains the folds as one batched
     program. `trained`: the folds already trained by a seed or
     permutation batch (`fold_parallel_runs`' entries, one per fold), which
-    only go through the post-processing (the JAX package's `_injected`)."""
+    only go through the post-processing (the JAX package's `_injected`).
+    Inside a world of ranks the batched program runs on its mesh
+    (`fold_parallel_runs`), every rank returns the same result and only
+    rank 0 prints, logs and writes."""
     if model_kind not in MODEL_FAMILIES:
         raise ValueError(f"unknown model_kind {model_kind}; "
                          f"one of {sorted(MODEL_FAMILIES)}")
@@ -317,6 +333,9 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
     if clinical_score_index is None:
         clinical_score_index = tcfg.clinical_score_index
     use_val = not tcfg.no_val
+    if not meshlib.is_lead():
+        verbose, logger = False, None
+    writes = res_dir is not None and meshlib.is_lead()
     splits = k_fold(cohort.y, tcfg.folds, tcfg.seed)
     full = cohort_batch_arrays(cohort)
     score_names = (SCORE_NAMES_DEFAULT if clinical_score_index == -1
@@ -474,7 +493,7 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
         for part in FOLD_PARTS:
             best_parts[part].append(parts[part])
 
-        if res_dir is not None:
+        if writes:
             if not permut:
                 best_vars = to_flax_variables(model, best["state"])
                 save_checkpoint(fold_file("gcn_state_dict", fold, "msgpack"),
@@ -499,7 +518,7 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
     score_result = np.asarray(all_score_results)
     cat = {k: np.concatenate(v) for k, v in best_parts.items()}
 
-    if res_dir is not None:
+    if writes:
         artifacts.output_npy(f"{res_dir}/{result_file_name}.npy", score_result,
                              is_permut_test=permut)
         for name, key in (("hidden", "hidden"), ("subids", "subid"),
@@ -511,7 +530,7 @@ def cross_validation(cohort: AdniCohort, topo: GoTopology, mcfg: ModelConfig,
                                                  cat["pred_scores"])
     regression_summary = {nm: {"corr": corr[i], "r2": r2s[i], "rmse": mses[i]}
                           for i, nm in enumerate(score_names)}
-    if res_dir is not None:
+    if writes:
         artifacts.output_regression(res_dir, result_file_name, score_names,
                                     cat["true_scores"], cat["true_labels"],
                                     cat["pred_scores"], is_permut_test=permut)

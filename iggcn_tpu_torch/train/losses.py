@@ -4,6 +4,11 @@
 All reductions are fp32. `sample_weight` is the (B,) 0/1 row mask of a
 padded batch: padding rows carry weight 0, so edge counts and means equal
 those of the reference's ragged final batch.
+
+While a shard of the batch is active (`parallel.mesh.sharded`) every term
+is that of the whole batch: the means' and sums' numerators and
+denominators and the edge counts are summed over the data axis, and the
+pairwise terms gather the rows of every position first.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import torch
 
 from iggcn_tpu_torch.config import SparsityWeights
 from iggcn_tpu_torch.ops.masking import edge_probability_dense
+from iggcn_tpu_torch.parallel import mesh
 
 
 def _binary_entropy(p: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -26,10 +32,12 @@ def _edge_terms(prob, prob_bias, x, adj, eps, sample_weight):
     mask = adj != 0
     if sample_weight is not None:
         mask = mask & (sample_weight[:, None, None] > 0)
-    n_edges = torch.clamp(mask.sum(), min=1)
     zero = torch.zeros((), device=ep.device)
-    e_sum = torch.where(mask, ep.abs(), zero).sum() / n_edges
-    e_ent = torch.where(mask, _binary_entropy(ep, eps), zero).sum() / n_edges
+    e_sum, e_ent, n_edges = mesh.all_reduce_sum(
+        torch.where(mask, ep.abs(), zero).sum(),
+        torch.where(mask, _binary_entropy(ep, eps), zero).sum(), mask.sum())
+    n_edges = torch.clamp(n_edges, min=1)
+    e_sum, e_ent = e_sum / n_edges, e_ent / n_edges
     return e_sum, e_ent
 
 
@@ -103,7 +111,9 @@ def orthogonal_loss(w: torch.Tensor,
                     ) -> torch.Tensor:
     """||W_n^T W_n - I||_F^2 / B^2 with row-normalised W_n; padding rows are
     zeroed and B counts real rows. With D > B it uses the (B, B) gram:
-    ||W^T W - I_D||^2 = tr((W W^T)^2) - 2 ||W||^2 + D."""
+    ||W^T W - I_D||^2 = tr((W W^T)^2) - 2 ||W||^2 + D. Under a sharded
+    batch, W and the weights are the whole batch's rows."""
+    w, sample_weight = mesh.gather_columns(w, sample_weight)
     norm = torch.linalg.norm(w, dim=1, keepdim=True)
     wn = w / torch.clamp(norm, min=1e-12)
     if sample_weight is not None:
@@ -124,11 +134,14 @@ def orthogonal_loss(w: torch.Tensor,
 def weighted_mean(values: torch.Tensor,
                   sample_weight: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean over the real (non-padding) rows' elements."""
-    if sample_weight is None:
+    if sample_weight is None and mesh.active() is None:
         return values.mean()
+    if sample_weight is None:
+        sample_weight = values.new_ones(values.shape[0])
     w = sample_weight.reshape(sample_weight.shape + (1,) * (values.dim() - 1))
     w = w.expand(values.shape)
-    return (values * w).sum() / torch.clamp(w.sum(), min=1.0)
+    num, den = mesh.all_reduce_sum((values * w).sum(), w.sum())
+    return num / torch.clamp(den, min=1.0)
 
 
 def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
@@ -154,4 +167,4 @@ def recon_sum(pred: torch.Tensor, target: torch.Tensor,
     sq = (pred - target) ** 2
     if sample_weight is not None:
         sq = sq * sample_weight[:, None]
-    return sq.sum()
+    return mesh.all_reduce_sum(sq.sum())

@@ -46,6 +46,7 @@ from torch import nn
 
 from iggcn_tpu_torch.config import ModelConfig, TrainConfig
 from iggcn_tpu_torch.models.nn_compat import NoiseSource, ShapeRecorder
+from iggcn_tpu_torch.parallel import mesh
 from iggcn_tpu_torch.train import losses
 
 Batch = Dict[str, torch.Tensor]
@@ -131,15 +132,17 @@ def _consistency(out_z: torch.Tensor, batch: Batch, mcfg: ModelConfig,
     soft RBF similarity of the t-SNE features, or with
     `is_soft_similarity=False` the sum over the hard clusters `clust_y` of
     the consistency among each cluster's members."""
-    w = batch["w"]
+    # the pairwise similarity spans the whole batch, when sharded too
+    out_z, tsne, w, clust_y = mesh.gather_columns(
+        out_z, batch["tsne"], batch["w"], batch["clust_y"])
     if mcfg.is_soft_similarity:
-        sim = losses.rbf_kernel(batch["tsne"], batch["tsne"], mcfg.rbf_gamma)
+        sim = losses.rbf_kernel(tsne, tsne, mcfg.rbf_gamma)
         return losses.consistency_loss(out_z, sim, w)
     ones = torch.ones((w.shape[0], w.shape[0]), device=w.device)
     total = 0.0
     for c in range(tcfg.num_cluster):
         total = total + losses.consistency_loss(
-            out_z, ones, w * (batch["clust_y"] == c))
+            out_z, ones, w * (clust_y == c))
     return total
 
 
@@ -282,17 +285,21 @@ def train_step(state: TrainState, batch: Batch, mcfg: ModelConfig,
                ) -> torch.Tensor:
     """One optimiser step on one padded batch. Returns loss * sum(w) (the
     reference's loss bookkeeping) as a detached device scalar: nothing
-    waits for the device here."""
+    waits for the device here. Under a sharded batch
+    (`parallel.mesh.sharded`) `batch` is this position's rows, the loss
+    is the whole batch's, this position backpropagates its share of it
+    and the gradients are summed over the data axis before Adam (whose
+    coupled L2 then counts once)."""
     lr = lr_at_step(tcfg, state.step, state.steps_per_epoch)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
     state.optimizer.zero_grad(set_to_none=True)
     loss, _ = OBJECTIVES[state.kind](state.model, batch, mcfg, tcfg,
                                      train=True, generator=generator)
-    loss.backward()
+    mesh.backward(loss, state.model.parameters())
     state.optimizer.step()
     state.step += 1
-    return loss.detach() * batch["w"].sum()
+    return loss.detach() * mesh.all_reduce_sum(batch["w"].sum())
 
 
 @torch.no_grad()
@@ -310,7 +317,7 @@ def _eval_outputs(objective_out, batch: Batch) -> Dict[str, torch.Tensor]:
     """What an eval step returns from its objective's (loss, aux)."""
     loss, aux = objective_out
     out = aux["out"]
-    result = {"loss_sum": loss * batch["w"].sum(),
+    result = {"loss_sum": loss * mesh.all_reduce_sum(batch["w"].sum()),
               "log_probs": out.log_probs,
               "pred": out.log_probs.argmax(dim=-1)}
     result.update({f: getattr(out, f) for f in EVAL_FIELDS
@@ -386,21 +393,45 @@ class _Objective(nn.Module):
                                      train=train, generator=noise)
 
 
-def record_noise_shapes(state: StackedState, batch: Batch, mcfg: ModelConfig,
-                        tcfg: TrainConfig) -> List[Tuple[int, ...]]:
-    """The shapes of the uniforms one train step of this model draws, in
-    order, at this batch's shape: one forward of fold 0 on a CPU copy of
-    the model (nothing runs on the card, no state moves)."""
+def _drawn_shapes(model: nn.Module, kind: str, batch: Batch,
+                  mcfg: ModelConfig, tcfg: TrainConfig
+                  ) -> List[Tuple[int, ...]]:
+    """The shapes of the uniforms one train-mode objective of `model` on
+    `batch` draws, in order: one forward of a CPU copy of the model
+    (nothing runs on the card, no state moves)."""
     cpu = torch.device("cpu")
-    model = copy.deepcopy(state.model).to(cpu)
-    model.load_state_dict({k: v.detach().to(cpu) for k, v in
-                           state.fold_state_dict(0).items()})
+    model = copy.deepcopy(model).to(cpu)
     recorder = ShapeRecorder()
     with torch.no_grad():
-        OBJECTIVES[state.kind](model, {k: v[0].to(cpu)
-                                       for k, v in batch.items()},
-                               mcfg, tcfg, train=True, generator=recorder)
+        OBJECTIVES[kind](model, {k: v.to(cpu) for k, v in batch.items()},
+                         mcfg, tcfg, train=True, generator=recorder)
     return recorder.shapes
+
+
+def record_noise_shapes(state: StackedState, batch: Batch, mcfg: ModelConfig,
+                        tcfg: TrainConfig) -> List[Tuple[int, ...]]:
+    """The shapes of the uniforms one batched train step draws per fold,
+    in order, at this (F, B, ...) batch's shape (fold 0's forward)."""
+    return _drawn_shapes(state.model, state.kind,
+                         {k: v[0] for k, v in batch.items()}, mcfg, tcfg)
+
+
+def step_noise_shapes(state: TrainState, batch: Batch, mcfg: ModelConfig,
+                      tcfg: TrainConfig) -> List[Tuple[int, ...]]:
+    """The shapes of the uniforms one `train_step` of `state` on `batch`
+    draws, in order."""
+    return _drawn_shapes(state.model, state.kind, batch, mcfg, tcfg)
+
+
+def draw_noise(shapes: Sequence[Tuple[int, ...]],
+               generator: Optional[torch.Generator], device: torch.device
+               ) -> Optional[NoiseSource]:
+    """The uniforms of `shapes` drawn from `generator` in order (what a
+    forward drawing from it would draw), or None where there are none."""
+    if not shapes:
+        return None
+    return NoiseSource([torch.rand(shape, generator=generator, device=device)
+                        for shape in shapes])
 
 
 def draw_fold_noise(shapes: Sequence[Tuple[int, ...]],
@@ -469,8 +500,12 @@ def batched_train_step(state: StackedState, batch: Batch, mcfg: ModelConfig,
                        tcfg: TrainConfig, noise: Optional[List[torch.Tensor]],
                        has_real: np.ndarray) -> torch.Tensor:
     """One optimiser step of every fold on its (F, B, ...) batch, with the
-    padding gate for the folds where `has_real` is False. Returns each
-    fold's loss * sum(w) as a detached (F,) device tensor."""
+    padding gate for the folds where `has_real` is False (from the whole
+    batch's weights). Returns each fold's loss * sum(w) as a detached (F,)
+    device tensor. Under a sharded batch, as `train_step`: `batch` and
+    `noise` are this position's rows, the reductions inside the vmapped
+    objective read the whole batch, and the gradients are summed over the
+    data axis before `_adam_update`."""
     lrs = np.asarray([lr_at_step(tcfg, int(s), int(spe)) for s, spe in
                       zip(state.steps, state.steps_per_epoch)], np.float64)
     gate = not bool(np.all(has_real))
@@ -486,7 +521,7 @@ def batched_train_step(state: StackedState, batch: Batch, mcfg: ModelConfig,
     in_dims = (0, 0, 0, 0 if noise is not None else None)
     loss = torch.func.vmap(fold_fn, in_dims=in_dims)(
         state.params, state.buffers, batch, noise)
-    loss.sum().backward()
+    mesh.backward(loss.sum(), state.params.values())
     _adam_update(state, lrs)
     if gate:
         real = torch.as_tensor(has_real, device=loss.device)
@@ -499,7 +534,7 @@ def batched_train_step(state: StackedState, batch: Batch, mcfg: ModelConfig,
                     mask = real.reshape((-1,) + (1,) * (v.dim() - 1))
                     v.copy_(torch.where(mask, v, kept[name][k]))
     state.steps += np.asarray(has_real, np.int64)
-    return loss.detach() * batch["w"].sum(dim=1)
+    return loss.detach() * mesh.all_reduce_sum(batch["w"].sum(dim=1))
 
 
 @torch.no_grad()

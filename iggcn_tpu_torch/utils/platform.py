@@ -7,6 +7,10 @@ name (the tests do), never as a quiet fallback.
 fp32 parity numerics are pinned here, once, at import: a float32 matmul
 on the card runs in full fp32 only while TF32 is off, and cuDNN's
 default is TF32 on. The JAX reference and its parity pins are fp32.
+cuDNN is also held to its deterministic algorithms and kept from
+benchmarking them (which picks by timing, so per run): the zoo's
+convolutions (`CNN_Model`, `SortPool`) then repeat bit for bit on the
+card, as every other route does.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -19,7 +19,7 @@ Usage:
 Prints one line per case and a final JSON summary; exits 1 when a
 mutation is not caught (its target stays green, or pytest stops with
 another code than a failed test's) or a control is red, 2 for an unknown
-name. Runtime: ~6-7 min for all nineteen.
+name. Runtime: ~8-9 min for all twenty-one.
 """
 import json
 import os

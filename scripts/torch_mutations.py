@@ -3,10 +3,14 @@ test-sensitivity audit (`scripts/mutation_audit_torch.py`).
 
 Each entry re-introduces, as a runtime patch of `iggcn_tpu_torch.*`, a
 semantic drift of the kind a porter writes: the counterparts of
-`tests/mutations.py`'s entries for which the port has code (all but the
-two mesh mutations: the port has no mesh), two on the GCN stack's
-side, and one that brings atomics back into the GO network's edge
-attention. `TARGETS` pins each to the port test that must turn red under it.
+`tests/mutations.py`'s entries for which the port has code (all but its
+two mesh mutations, which drift XLA's sharding specs: the port's mesh
+has none), two on the GCN stack's side, one that brings atomics back
+into the GO network's edge attention, and two that drop a reduction of
+the port's data axis (the gradient all-reduce, `BatchNorm1d`'s
+statistics). `TARGETS` pins each to the port test that must turn red
+under it. The mesh tests' spawned ranks apply the mutation named in the
+environment too (`tests/torch_mesh_ranks.py`).
 
 Load this module as a pytest plugin with `scripts/` on `sys.path`:
 
@@ -303,6 +307,31 @@ def _go_index_add():
     go_network.GeneOntologyNetwork._attend = mutated
 
 
+def _mesh_grad_allreduce_dropped():
+    """Skip the gradient all-reduce over the data axis: each position
+    steps Adam on its own rows' share of the gradient, so the data
+    replicas of a fold drift apart and none trains on the whole batch."""
+    from iggcn_tpu_torch.parallel import mesh
+
+    def mutated(params, shard):
+        del params, shard
+
+    _replace(mesh, "all_reduce_grads", mutated)
+
+
+def _mesh_bn_sync_dropped():
+    """Normalise each position's rows with its own rows' batch statistics
+    (the batch norm's sums not summed over the data axis)."""
+    import types
+
+    from iggcn_tpu_torch.models import nn_compat
+    from iggcn_tpu_torch.parallel import mesh
+    local = types.SimpleNamespace(**vars(mesh))
+    local.all_reduce_sum = (lambda *tensors, shard=None: tensors[0]
+                            if len(tensors) == 1 else tensors)
+    nn_compat.mesh = local
+
+
 MUTATIONS = {
     "steplr_off_by_one": _steplr_off_by_one,
     "bn_biased_running_var": _bn_biased_running_var,
@@ -323,6 +352,8 @@ MUTATIONS = {
     "stack_backward_relu_tie": _stack_backward_relu_tie,
     "stack_plan_tile": _stack_plan_tile,
     "go_index_add": _go_index_add,
+    "mesh_grad_allreduce_dropped": _mesh_grad_allreduce_dropped,
+    "mesh_bn_sync_dropped": _mesh_bn_sync_dropped,
 }
 
 
@@ -363,6 +394,11 @@ TARGETS = {
         "_unchanged_field_for_field",
     "go_index_add": _T + "determinism.py::test_fused_train_step_has_no_"
         "atomics[SGCN_GCN_IMGSNP-64]",
+    "mesh_grad_allreduce_dropped":
+        _T + "mesh.py::test_dp_step_equals_the_single_step[4]",
+    "mesh_bn_sync_dropped":
+        _T + "mesh.py::test_data_axis_piece_equals_the_unsharded_batch"
+        "[bn2-7-2]",
 }
 
 

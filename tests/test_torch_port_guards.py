@@ -76,13 +76,13 @@ def test_importing_the_serving_tool_loads_no_jax():
 def test_convergence_harness_port_half_and_chip_smoke_load_no_jax():
     """`chip_smoke.py` runs the port half of
     `scripts/convergence_ab_torch.py` on a machine without JAX: importing
-    both (and the mutation registry and `scripts/fp32_drift_torch.py`,
-    which runs on that machine too) loads nothing of JAX or of the JAX
-    package."""
+    both (and the mutation registry, `scripts/fp32_drift_torch.py` and
+    `scripts/mesh_drift_torch.py`, which run on that machine too) loads
+    nothing of JAX or of the JAX package."""
     code = ("import sys\n"
             f"sys.path.insert(0, {os.path.join(REPO, 'scripts')!r})\n"
             "import convergence_ab_torch, chip_smoke, torch_mutations\n"
-            "import fp32_drift_torch\n"
+            "import fp32_drift_torch, mesh_drift_torch\n"
             "assert chip_smoke.convergence_ab_torch is convergence_ab_torch\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{tuple(sorted(FORBIDDEN_ROOTS))!r})\n"

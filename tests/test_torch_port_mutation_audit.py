@@ -1,5 +1,5 @@
 """The port's mutation-audit machinery end to end (the full audit of
-nineteen mutations is `scripts/mutation_audit_torch.py`): two fast
+twenty-one mutations is `scripts/mutation_audit_torch.py`): two fast
 mutations of `iggcn_tpu_torch`, applied by the `torch_mutations` pytest
 plugin through `IGGCN_TORCH_MUTATION` in a subprocess, each turn their
 pinned port test red (a failed test, pytest's exit code 1) while the
